@@ -1,0 +1,176 @@
+"""SiamMask heads: neck (ResDownS), DepthCorr RPN heads (UP), MaskCorr, Refine.
+
+Counterpart of ``siammask_tpu/models/heads.py`` in NCHW, with the reference
+module names (``downsample.{0,1}``, ``conv_kernel``/``conv_search``/``head``,
+``v0..h2``, ``deconv``, ``post0..2``):
+
+- ``ResDownS``: 1x1 conv + BN, cropping a 4 px border when the map is
+  narrower than 20 px (template 15x15 -> 7x7).
+- ``DepthCorr``: 3x3 conv+BN+ReLU on each side, the depthwise
+  cross-correlation (``ops/xcorr.py``, NHWC), then a 1x1 head.
+- ``UP``: the cls (2k channels) and loc (4k channels) DepthCorrs.
+- ``MaskCorr``: a DepthCorr to o_sz**2 channels.
+- ``Refine``: the U-shaped decoder fusing the p0/p1/p2 skip windows with the
+  per-cell corr vector into 127x127 mask logits.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from siammask_tpu_torch.ops.resize import upsample_nearest
+from siammask_tpu_torch.ops.xcorr import depthwise_xcorr
+
+
+class ResDownS(nn.Module):
+    def __init__(self, in_channels: int = 1024, out_channels: int = 256):
+        super().__init__()
+        self.downsample = nn.Sequential(nn.Conv2d(in_channels, out_channels, 1, bias=False),
+                                        nn.BatchNorm2d(out_channels))
+
+    def forward(self, x):
+        x = self.downsample(x)
+        if x.shape[3] < 20:
+            x = x[:, :, 4:-4, 4:-4]
+        return x
+
+
+class ConvBNRelu(nn.Sequential):
+    """Unpadded conv (no bias) + BN + ReLU."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3):
+        super().__init__(nn.Conv2d(in_channels, out_channels, kernel, bias=False),
+                         nn.BatchNorm2d(out_channels), nn.ReLU(inplace=True))
+
+
+class DepthCorr(nn.Module):
+    """Template/search adjust convs + depthwise xcorr + 1x1 head."""
+
+    def __init__(self, in_channels: int, hidden: int, out_channels: int,
+                 kernel_size: int = 3):
+        super().__init__()
+        self.conv_kernel = ConvBNRelu(in_channels, hidden, kernel_size)
+        self.conv_search = ConvBNRelu(in_channels, hidden, kernel_size)
+        self.head = nn.Sequential(nn.Conv2d(hidden, hidden, 1, bias=False),
+                                  nn.BatchNorm2d(hidden), nn.ReLU(inplace=True),
+                                  nn.Conv2d(hidden, out_channels, 1))
+
+    def forward_corr(self, kernel, search):
+        """NCHW in and out; the xcorr itself runs on NHWC copies."""
+        k = self.conv_kernel(kernel).permute(0, 2, 3, 1).contiguous()
+        s = self.conv_search(search).permute(0, 2, 3, 1).contiguous()
+        return depthwise_xcorr(s, k).permute(0, 3, 1, 2)
+
+    def forward(self, kernel, search):
+        return self.head(self.forward_corr(kernel, search))
+
+
+class UP(nn.Module):
+    """RPN heads: cls -> 2k channels, loc -> 4k channels, ordered (2, k) and
+    (4, k) as the reference."""
+
+    def __init__(self, anchor_num: int = 5, feature_in: int = 256, feature_out: int = 256):
+        super().__init__()
+        self.cls = DepthCorr(feature_in, feature_out, 2 * anchor_num)
+        self.loc = DepthCorr(feature_in, feature_out, 4 * anchor_num)
+
+    def forward(self, z_f, x_f):
+        return self.cls(z_f, x_f), self.loc(z_f, x_f)
+
+
+class MaskCorr(nn.Module):
+    """Mask head: each score-map cell predicts a flattened o_sz x o_sz mask."""
+
+    def __init__(self, o_sz: int = 63, in_channels: int = 256, hidden: int = 256):
+        super().__init__()
+        self.mask = DepthCorr(in_channels, hidden, o_sz ** 2)
+
+    def forward(self, z_f, x_f):
+        return self.mask(z_f, x_f)
+
+
+class DeconvExpand(nn.ConvTranspose2d):
+    """ConvTranspose2d(in, out, k, stride=k) on a 1x1 input: a dense expand
+    ``out[b, o, h, w] = sum_i x[b, i] * W[i, o, h, w] + bias[o]``, computed as
+    one matrix product. The weight keeps torch's (in, out, kh, kw) layout."""
+
+    def __init__(self, in_features: int = 256, out_features: int = 32, size: int = 15):
+        super().__init__(in_features, out_features, size, stride=size)
+
+    def forward(self, x):
+        """x: (B, in) -> (B, out, size, size)."""
+        i, o, h, w = self.weight.shape
+        y = (x @ self.weight.reshape(i, o * h * w)).reshape(-1, o, h, w)
+        return y + self.bias[:, None, None]
+
+
+class Conv3x3(nn.Conv2d):
+    """3x3 pad-1 conv with bias."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 3, padding=1)
+
+
+class ConvReluBlock(nn.Sequential):
+    """Two 3x3 pad-1 conv + ReLU layers (Refine's v/h blocks)."""
+
+    def __init__(self, in_channels: int, mid: int, out: int):
+        super().__init__(Conv3x3(in_channels, mid), nn.ReLU(inplace=True),
+                         Conv3x3(mid, out), nn.ReLU(inplace=True))
+
+
+def _up(x, size):
+    """Nearest upsample of an NCHW tensor through the NHWC op (views only)."""
+    return upsample_nearest(x.permute(0, 2, 3, 1), (size, size)).permute(0, 3, 1, 2)
+
+
+class Refine(nn.Module):
+    """U-shaped mask refinement decoder.
+
+    Consumes per-cell windows of the backbone skips, p0 (B,w,61,61),
+    p1 (B,4w,31,31), p2 (B,8w,15,15), and the cell's corr vector (B, 4w);
+    emits (B, 127*127) mask logits. ``width`` is the backbone stem width."""
+
+    def __init__(self, width: int = 64):
+        super().__init__()
+        self.v0 = ConvReluBlock(width, 16, 4)
+        self.v1 = ConvReluBlock(4 * width, 64, 16)
+        self.v2 = ConvReluBlock(8 * width, 128, 32)
+        self.h2 = ConvReluBlock(32, 32, 32)
+        self.h1 = ConvReluBlock(16, 16, 16)
+        self.h0 = ConvReluBlock(4, 4, 4)
+        self.deconv = DeconvExpand(4 * width, 32, 15)
+        self.post0 = Conv3x3(32, 16)
+        self.post1 = Conv3x3(16, 4)
+        self.post2 = Conv3x3(4, 1)
+
+    def forward(self, p0, p1, p2, corr):
+        out = self.deconv(corr)                                   # (B,32,15,15)
+        out = self.post0(_up(self.h2(out) + self.v2(p2), 31))
+        out = self.post1(_up(self.h1(out) + self.v1(p1), 61))
+        out = self.post2(_up(self.h0(out) + self.v0(p0), 127))
+        return out.reshape(out.shape[0], 127 * 127)
+
+
+def slice_skip_windows(p0, p1, p2, pos_yx: torch.Tensor):
+    """Skip windows at one score-map cell, for the inference path.
+
+    p0/p1/p2 are the full NCHW search skip maps (1, C, H, W); pos_yx is the
+    (row, col) cell as an integer device tensor, so nothing syncs. The
+    reference pads by (16, 8, 4) and slices windows of (61, 31, 15) at
+    strides (4, 2, 1) from the cell; clamped gathers with an out-of-bounds
+    zero mask give the same windows without padded copies."""
+    y, x = pos_yx[0], pos_yx[1]
+
+    def win_gather(f, pad, scale, win):
+        n = f.shape[2]
+        ar = torch.arange(win, device=f.device)
+        r = scale * y - pad + ar
+        c = scale * x - pad + ar
+        g = f.index_select(3, c.clamp(0, n - 1)).index_select(2, r.clamp(0, n - 1))
+        valid = ((r >= 0) & (r < n))[:, None] & ((c >= 0) & (c < n))[None, :]
+        return g * valid.to(g.dtype)
+
+    return (win_gather(p0, 16, 4, 61),
+            win_gather(p1, 8, 2, 31),
+            win_gather(p2, 4, 1, 15))
