@@ -15,6 +15,11 @@ of the published backbone are kept:
 Spatial flow: template 127 -> p0 61 -> p1 31 -> p2 15 -> p3 15; search
 255 -> 125 / 63 / 31 / 31. ``width`` is the stem width (64 = ResNet-50);
 smaller widths keep the module tree and the geometry.
+
+Training state follows the reference's ``features.unfix``/``train``
+override: the stem and layer1 never train (BN in eval, no gradient);
+layer2 and layer3 train, BN in train mode, only after ``unfix(True)``. A
+bare ``train()`` leaves every frozen stage in eval.
 """
 from __future__ import annotations
 
@@ -79,6 +84,26 @@ class ResNet50Tracking(nn.Module):
         self.layer1 = _make_layer(w, w, 3)
         self.layer2 = _make_layer(4 * w, 2 * w, 4, stride=2)
         self.layer3 = _make_layer(8 * w, 4 * w, 6, dilation=2)
+        self.unfrozen = False
+
+    def _frozen_stages(self) -> list[nn.Module]:
+        stages = [self.conv1, self.bn1, self.layer1]
+        return stages if self.unfrozen else stages + [self.layer2, self.layer3]
+
+    def unfix(self, unfrozen: bool) -> "ResNet50Tracking":
+        """Freeze the stem and layer1, and layer2/3 unless ``unfrozen``:
+        frozen parameters take no gradient and their BN runs in eval."""
+        self.unfrozen = unfrozen
+        self.requires_grad_(True)
+        for m in self._frozen_stages():
+            m.requires_grad_(False)
+        return self.train(self.training)
+
+    def train(self, mode: bool = True) -> "ResNet50Tracking":
+        super().train(mode)
+        for m in self._frozen_stages():
+            m.eval()
+        return self
 
     def forward(self, x):
         p0 = self.relu(self.bn1(self.conv1(x)))

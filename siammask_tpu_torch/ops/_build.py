@@ -71,8 +71,11 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare every entry point's C signature."""
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.siammask_depthwise_xcorr.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
-    lib.siammask_depthwise_xcorr.restype = i
+    # (in0, in1, out, b, hx, wx, c, hk, wk, dtype, device, stream), all three
+    for fn in (lib.siammask_depthwise_xcorr, lib.siammask_depthwise_xcorr_grad_input,
+               lib.siammask_depthwise_xcorr_grad_kernel):
+        fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.restype = i
     lib.siammask_cuda_error_string.argtypes = [i]
     lib.siammask_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -5,13 +5,21 @@ feature map is a per-(batch, channel) filter bank slid over the search map.
 
 Layout is NHWC, as in the JAX package: search x (B, Hx, Wx, C), template
 k (B, Hk, Wk, C) -> (B, Hx-Hk+1, Wx-Wk+1, C). For SiamMask:
-(1, 29, 29, 256) * (1, 5, 5, 256) -> (1, 25, 25, 256), three times a frame.
+(B, 29, 29, 256) * (B, 5, 5, 256) -> (B, 25, 25, 256), three times a frame
+(B=1) or a training step (B=64).
 
-- ``depthwise_xcorr``: the wrapper. A CUDA tensor launches the hand-written
-  kernel (``csrc/xcorr.cu``) or raises; a CPU tensor takes the plain version.
-  ``depthwise_xcorr.launches`` counts kernel launches.
-- ``depthwise_xcorr_reference``: the plain version, a grouped conv with
-  groups=B*C.
+- ``depthwise_xcorr``: the trainable op, the counterpart of the JAX
+  package's ``depthwise_xcorr_ad``. It always goes through
+  ``DepthwiseXcorr`` (a ``torch.autograd.Function``), whose forward and two
+  gradients are hand-written kernels (``csrc/xcorr.cu``) on CUDA tensors and
+  the plain versions below on CPU tensors. A CUDA tensor launches the kernel
+  or raises.
+- ``depthwise_xcorr_grad_input`` / ``depthwise_xcorr_grad_kernel``: the
+  gradient wrappers the backward calls; the backward computes each only for
+  an input that needs it.
+- Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+- ``depthwise_xcorr_reference`` and the two ``*_reference`` gradients: the
+  plain versions, grouped convs with groups=B*C.
 """
 from __future__ import annotations
 
@@ -19,64 +27,170 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from siammask_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _to_groups(t: torch.Tensor) -> torch.Tensor:
+    """NHWC (B, H, W, C) -> (B*C, H, W), channels of a sample adjacent."""
+    b, h, w, c = t.shape
+    return t.permute(0, 3, 1, 2).reshape(b * c, h, w)
+
+
+def _from_groups(t: torch.Tensor, b: int, c: int) -> torch.Tensor:
+    """(..., B*C, H, W) -> NHWC (B, H, W, C), a view."""
+    h, w = t.shape[-2:]
+    return t.reshape(b, c, h, w).permute(0, 2, 3, 1)
+
+
 def depthwise_xcorr_reference(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: NHWC in and out, ``F.conv2d`` with groups=B*C."""
-    b, hx, wx, c = x.shape
-    _, hk, wk, _ = k.shape
-    xm = x.permute(0, 3, 1, 2).reshape(1, b * c, hx, wx)
-    km = k.permute(0, 3, 1, 2).reshape(b * c, 1, hk, wk)
-    out = F.conv2d(xm, km, groups=b * c)
-    return out.reshape(b, c, hx - hk + 1, wx - wk + 1).permute(0, 2, 3, 1)
+    b, _, _, c = x.shape
+    out = F.conv2d(_to_groups(x)[None], _to_groups(k)[:, None], groups=b * c)
+    return _from_groups(out, b, c)
+
+
+def depthwise_xcorr_grad_input_reference(g: torch.Tensor, k: torch.Tensor, hx: int,
+                                         wx: int) -> torch.Tensor:
+    """Plain gradient w.r.t. the search map: the full correlation of the
+    upstream grad g (B, Ho, Wo, C) with each channel's template, as the
+    transposed grouped conv -> (B, hx, wx, C)."""
+    b, _, _, c = g.shape
+    dx = F.conv_transpose2d(_to_groups(g)[None], _to_groups(k)[:, None], groups=b * c)
+    if dx.shape[-2:] != (hx, wx):
+        raise ValueError(f"grad {tuple(g.shape)} and template {tuple(k.shape)} give a "
+                         f"{tuple(dx.shape[-2:])} search map, not {(hx, wx)}")
+    return _from_groups(dx, b, c)
+
+
+def depthwise_xcorr_grad_kernel_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain gradient w.r.t. the template: per (b, c), the valid correlation
+    of x (B, Hx, Wx, C) with g (B, Ho, Wo, C) -> (B, Hk, Wk, C)."""
+    b, _, _, c = x.shape
+    dk = F.conv2d(_to_groups(x)[None], _to_groups(g)[:, None], groups=b * c)
+    return _from_groups(dk, b, c)
+
+
+def _check_tensors(what: str, *ts: torch.Tensor) -> None:
+    if not all(isinstance(t, torch.Tensor) for t in ts):
+        raise TypeError(f"{what} takes tensors")
+    if any(t.dim() != 4 for t in ts):
+        raise ValueError(f"{what}: expected NHWC rank-4 tensors, got "
+                         f"{[tuple(t.shape) for t in ts]}")
+    if len({t.dtype for t in ts}) != 1 or ts[0].dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what}: expected float32 or bfloat16 for all, got "
+                        f"{[t.dtype for t in ts]}")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"{what}: inputs on different devices: {[t.device for t in ts]}")
+    if ts[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {ts[0].device}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{what}: inputs must be contiguous NHWC")
 
 
 def _check(x: torch.Tensor, k: torch.Tensor) -> None:
-    if not (isinstance(x, torch.Tensor) and isinstance(k, torch.Tensor)):
-        raise TypeError("depthwise_xcorr takes two tensors")
-    if x.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"expected NHWC rank-4 tensors, got {tuple(x.shape)} "
-                         f"and {tuple(k.shape)}")
-    if x.dtype != k.dtype or x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"expected float32 or bfloat16 for both, got {x.dtype} "
-                        f"and {k.dtype}")
-    if x.device != k.device:
-        raise ValueError(f"inputs on different devices: {x.device}, {k.device}")
+    _check_tensors("depthwise_xcorr", x, k)
     b, hx, wx, c = x.shape
     bk, hk, wk, ck = k.shape
     if bk != b or ck != c:
         raise ValueError(f"batch/channels differ: x {tuple(x.shape)}, k {tuple(k.shape)}")
     if not (1 <= hk <= hx and 1 <= wk <= wx):
         raise ValueError(f"template {hk}x{wk} does not fit search {hx}x{wx}")
-    if not (x.is_contiguous() and k.is_contiguous()):
-        raise ValueError("inputs must be contiguous NHWC")
 
 
-def depthwise_xcorr(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """NHWC depthwise valid cross-correlation; fp32 accumulation, output in
-    the input dtype. CUDA tensors run the hand-written kernel."""
-    _check(x, k)
+def _launch(entry: str, a: torch.Tensor, b_: torch.Tensor, out_shape: tuple,
+            dims: tuple) -> torch.Tensor:
+    """Launch one C entry on the current stream; ``dims`` is
+    (b, hx, wx, c, hk, wk). Raises on a non-zero CUDA code."""
+    lib = _build.load_library()
+    out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    code = getattr(lib, entry)(a.data_ptr(), b_.data_ptr(), out.data_ptr(), *dims,
+                               _DTYPE_CODE[a.dtype], a.device.index, ctypes.c_void_p(stream))
+    _build.check(lib, code, f"{entry} launch")
+    return out
+
+
+def _forward(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return depthwise_xcorr_reference(x, k)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.requires_grad or k.requires_grad:
-        raise NotImplementedError("the xcorr kernel has no backward yet")
     b, hx, wx, c = x.shape
     _, hk, wk, _ = k.shape
-    lib = _build.load_library()
-    out = torch.empty((b, hx - hk + 1, wx - wk + 1, c), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.siammask_depthwise_xcorr(
-        x.data_ptr(), k.data_ptr(), out.data_ptr(), b, hx, wx, c, hk, wk,
-        _DTYPE_CODE[x.dtype], x.device.index, ctypes.c_void_p(stream))
-    _build.check(lib, code, "depthwise_xcorr launch")
+    out = _launch("siammask_depthwise_xcorr", x, k, (b, hx - hk + 1, wx - wk + 1, c),
+                  (b, hx, wx, c, hk, wk))
     depthwise_xcorr.launches += 1
     return out
 
 
+def depthwise_xcorr_grad_input(g: torch.Tensor, k: torch.Tensor, hx: int,
+                               wx: int) -> torch.Tensor:
+    """d out / d x: upstream grad g (B, Ho, Wo, C) and template k
+    (B, Hk, Wk, C) -> (B, hx, wx, C). CUDA tensors run the kernel."""
+    _check_tensors("depthwise_xcorr_grad_input", g, k)
+    b, ho, wo, c = g.shape
+    _, hk, wk, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != c or (ho, wo) != (hx - hk + 1, wx - wk + 1):
+        raise ValueError(f"grad {tuple(g.shape)} does not match template "
+                         f"{tuple(k.shape)} and search {hx}x{wx}")
+    if g.device.type == "cpu":
+        return depthwise_xcorr_grad_input_reference(g, k, hx, wx)
+    dx = _launch("siammask_depthwise_xcorr_grad_input", g, k, (b, hx, wx, c),
+                 (b, hx, wx, c, hk, wk))
+    depthwise_xcorr_grad_input.launches += 1
+    return dx
+
+
+def depthwise_xcorr_grad_kernel(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """d out / d k: search x (B, Hx, Wx, C) and upstream grad g
+    (B, Ho, Wo, C) -> (B, Hx-Ho+1, Wx-Wo+1, C). CUDA tensors run the kernel."""
+    _check_tensors("depthwise_xcorr_grad_kernel", x, g)
+    b, hx, wx, c = x.shape
+    _, ho, wo, _ = g.shape
+    if g.shape[0] != b or g.shape[3] != c or not (1 <= ho <= hx and 1 <= wo <= wx):
+        raise ValueError(f"grad {tuple(g.shape)} does not match search {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return depthwise_xcorr_grad_kernel_reference(x, g)
+    hk, wk = hx - ho + 1, wx - wo + 1
+    dk = _launch("siammask_depthwise_xcorr_grad_kernel", x, g, (b, hk, wk, c),
+                 (b, hx, wx, c, hk, wk))
+    depthwise_xcorr_grad_kernel.launches += 1
+    return dk
+
+
+class DepthwiseXcorr(torch.autograd.Function):
+    """The counterpart of ``depthwise_xcorr_ad``'s custom_vjp: forward and
+    both gradients through the kernels on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.save_for_backward(x, k)
+        return _forward(x, k)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, k = ctx.saved_tensors
+        # the heads' NHWC -> NCHW permute hands back a strided grad
+        g = g.contiguous()
+        dx = dk = None
+        if ctx.needs_input_grad[0]:
+            dx = depthwise_xcorr_grad_input(g, k, x.shape[1], x.shape[2])
+        if ctx.needs_input_grad[1]:
+            dk = depthwise_xcorr_grad_kernel(x, g)
+        return dx, dk
+
+
+def depthwise_xcorr(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """NHWC depthwise valid cross-correlation; fp32 accumulation, output in
+    the input dtype; differentiable in both inputs. CUDA tensors run the
+    hand-written kernels."""
+    _check(x, k)
+    return DepthwiseXcorr.apply(x, k)
+
+
 depthwise_xcorr.launches = 0
+depthwise_xcorr_grad_input.launches = 0
+depthwise_xcorr_grad_kernel.launches = 0

@@ -2,15 +2,22 @@
 
 Counterpart of ``siammask_tpu/tracker/anchors.py``, reproducing the reference
 semantics exactly, including the integer truncation ``int(sqrt(size / r))`` of
-the anchor widths when ``round_digit == 0``. Score-map anchors are
-(K*S*S, 4) rows of (cx, cy, w, h), anchor-major: row = k*S*S + y*S + x.
+the anchor widths when ``round_digit == 0``.
+
+- Score-map anchors (the tracker's decode) are (K*S*S, 4) rows of
+  (cx, cy, w, h), anchor-major: row = k*S*S + y*S + x.
+- ``generate_all_anchors`` / ``Anchors`` tile the anchors over the search
+  image for ``AnchorTarget`` (training targets), as (4, K, S, S) corner
+  and center arrays.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
+
+from siammask_tpu_torch.utils.bbox import center2corner, corner2center
 
 
 @dataclass
@@ -62,6 +69,27 @@ def generate_anchors(cfg: AnchorConfig) -> np.ndarray:
     return anchors
 
 
+def generate_all_anchors(cfg: AnchorConfig, im_c: int, size: int):
+    """Anchors tiled over an image-coordinate grid centred at ``im_c``.
+
+    Returns (corner, center): each a float32 array of shape (4, K, size, size),
+    the layout ``AnchorTarget`` consumes."""
+    anchors = generate_anchors(cfg)
+    a0x = im_c - size // 2 * cfg.stride
+    zero_anchors = anchors + np.array([a0x] * 4, dtype=np.float32)
+
+    x1, y1, x2, y2 = (zero_anchors[:, i].reshape(cfg.anchor_num, 1, 1) for i in range(4))
+    cx, cy, w, h = corner2center((x1, y1, x2, y2))
+    cx = cx + np.arange(0, size).reshape(1, 1, -1) * cfg.stride
+    cy = cy + np.arange(0, size).reshape(1, -1, 1) * cfg.stride
+
+    zero = np.zeros((cfg.anchor_num, size, size), dtype=np.float32)
+    cx, cy, w, h = (v + zero for v in (cx, cy, w, h))
+    x1, y1, x2, y2 = center2corner((cx, cy, w, h))
+    return (np.stack([x1, y1, x2, y2]).astype(np.float32),
+            np.stack([cx, cy, w, h]).astype(np.float32))
+
+
 def generate_score_map_anchors(cfg: AnchorConfig, score_size: int) -> np.ndarray:
     """Decode-time anchor table (anchor_num * score_size**2, 4) in
     (cx, cy, w, h), centers on a stride grid centered at 0."""
@@ -79,3 +107,24 @@ def generate_score_map_anchors(cfg: AnchorConfig, score_size: int) -> np.ndarray
     anchor[:, 0] = xx.astype(np.float32)
     anchor[:, 1] = yy.astype(np.float32)
     return anchor.astype(np.float32)
+
+
+@dataclass
+class Anchors:
+    """The reference ``Anchors`` object: the per-position set and, after
+    ``generate_all_anchors(im_c, size)``, the tiled ``all_anchors``."""
+    cfg: AnchorConfig = field(default_factory=AnchorConfig)
+
+    def __post_init__(self):
+        self.anchors = generate_anchors(self.cfg)
+        self.all_anchors = None
+        self._cached_key = None
+
+    def generate_all_anchors(self, im_c: int, size: int) -> bool:
+        """Tile for (im_c, size); False when that tiling is already there."""
+        key = (im_c, size)
+        if self._cached_key == key:
+            return False
+        self._cached_key = key
+        self.all_anchors = generate_all_anchors(self.cfg, im_c, size)
+        return True

@@ -1,21 +1,58 @@
-"""Box geometry helpers (host-side numpy), with the reference's formulas."""
+"""Box geometry helpers (host-side numpy), with the reference's formulas.
+
+Counterpart of the parts of ``siammask_tpu/utils/bbox.py`` that the tracker
+and the anchor-target code use: the ``Corner``/``Center`` tuples, the
+conversions between them, ``cxy_wh_2_rect`` and the vectorised ``bbox_iou``.
+"""
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 
 
+class Corner(NamedTuple):
+    x1: object
+    y1: object
+    x2: object
+    y2: object
+
+
+class Center(NamedTuple):
+    x: object
+    y: object
+    w: object
+    h: object
+
+
 def corner2center(corner):
-    """(x1, y1, x2, y2) -> (cx, cy, w, h); array-like [4, ...]."""
+    """(x1, y1, x2, y2) -> (cx, cy, w, h); a ``Corner`` gives a ``Center``,
+    an array-like [4, ...] a tuple."""
     x1, y1, x2, y2 = corner[0], corner[1], corner[2], corner[3]
-    return (x1 + x2) * 0.5, (y1 + y2) * 0.5, x2 - x1, y2 - y1
+    out = (x1 + x2) * 0.5, (y1 + y2) * 0.5, x2 - x1, y2 - y1
+    return Center(*out) if isinstance(corner, Corner) else out
 
 
 def center2corner(center):
-    """(cx, cy, w, h) -> (x1, y1, x2, y2); array-like [4, ...]."""
+    """(cx, cy, w, h) -> (x1, y1, x2, y2); a ``Center`` gives a ``Corner``,
+    an array-like [4, ...] a tuple."""
     x, y, w, h = center[0], center[1], center[2], center[3]
-    return x - w * 0.5, y - h * 0.5, x + w * 0.5, y + h * 0.5
+    out = x - w * 0.5, y - h * 0.5, x + w * 0.5, y + h * 0.5
+    return Corner(*out) if isinstance(center, Center) else out
 
 
 def cxy_wh_2_rect(pos, sz):
     """Center + size -> [x, y, w, h] rect (0-indexed top-left)."""
     return np.array([pos[0] - sz[0] / 2, pos[1] - sz[1] / 2, sz[0], sz[1]])
+
+
+def bbox_iou(rect1, rect2):
+    """Vectorised IoU of corner boxes given as [4, ...] (or broadcastable)."""
+    x1, y1, x2, y2 = rect1[0], rect1[1], rect1[2], rect1[3]
+    tx1, ty1, tx2, ty2 = rect2[0], rect2[1], rect2[2], rect2[3]
+    ww = np.maximum(0, np.minimum(tx2, x2) - np.maximum(tx1, x1))
+    hh = np.maximum(0, np.minimum(ty2, y2) - np.maximum(ty1, y1))
+    area = (x2 - x1) * (y2 - y1)
+    target_a = (tx2 - tx1) * (ty2 - ty1)
+    inter = ww * hh
+    return inter / (area + target_a - inter)

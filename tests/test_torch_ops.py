@@ -8,7 +8,7 @@ import jax.numpy as jnp
 
 from siammask_tpu.ops import resize as jresize
 from siammask_tpu.ops import sample as jsample
-from siammask_tpu_torch.ops.resize import upsample_nearest
+from siammask_tpu_torch.ops.resize import upsample_bilinear_align_corners, upsample_nearest
 from siammask_tpu_torch.ops.sample import subwindow_crop, warp_back_mask
 
 RNG = np.random.RandomState(7)
@@ -58,6 +58,17 @@ def test_upsample_nearest_matches_jax_exactly(in_sz, out_sz):
     ref = np.asarray(jresize.upsample_nearest(jnp.asarray(x), (out_sz, out_sz)))
     ours = upsample_nearest(torch.from_numpy(x), (out_sz, out_sz)).numpy()
     np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [((63, 63), (127, 127)), ((5, 7), (9, 4)),
+                                           ((1, 3), (2, 5))])
+def test_upsample_bilinear_align_corners_matches_jax(in_hw, out_hw):
+    x = RNG.randn(3, *in_hw, 2).astype(np.float32)
+    ref = np.asarray(jresize.upsample_bilinear_align_corners(jnp.asarray(x), out_hw))
+    ours = upsample_bilinear_align_corners(torch.from_numpy(x), out_hw).numpy()
+    assert ours.shape == ref.shape
+    # float32 interpolation weights computed two ways (a few ulps apart)
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
 
 
 def test_bbox_helpers_match_jax():
