@@ -16,7 +16,8 @@ Phases, each of which raises on failure:
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: the hand-written kernels are compiled from ``siammask_tpu_torch/csrc``;
 3. the forward xcorr kernel vs its plain version at the tracking shape, B=16,
-   a ragged shape and bf16; kernel and plain times;
+   the training batch (B=64), a ragged shape and bf16; kernel and plain times
+   at B=1 (fp32, bf16) and B=64 (fp32);
 4. the two gradient kernels vs their plain versions at B=1, B=64, a ragged
    shape and bf16; kernel and plain times at B=1 and B=64, and the eager
    autograd backward through the kernels vs through the plain forward;
@@ -217,10 +218,12 @@ def phase_build() -> None:
 
 
 def phase_kernels() -> dict:
-    """Kernel vs plain version on the card; returns the slice-shape record."""
+    """Kernel vs plain version on the card; returns the record, timed at the
+    tracking shape (B=1)."""
     g = torch.Generator().manual_seed(SEED)
     cases = [((1, 29, 29, 256), (1, 5, 5, 256), torch.float32),
              ((16, 29, 29, 256), (16, 5, 5, 256), torch.float32),
+             ((TRAIN_BATCH, 29, 29, 256), (TRAIN_BATCH, 5, 5, 256), torch.float32),
              ((3, 17, 23, 200), (3, 4, 3, 200), torch.float32),
              ((1, 29, 29, 256), (1, 5, 5, 256), torch.bfloat16)]
     errors = {}
@@ -234,15 +237,15 @@ def phase_kernels() -> dict:
         errors[(xs, dtype)] = check_close(f"kernel {xs} * {ks} {str(dtype)[6:]}", out, ref)
 
     times = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        x = torch.randn((1, 29, 29, 256), generator=g).to("cuda", dtype)
-        k = torch.randn((1, 5, 5, 256), generator=g).to("cuda", dtype)
+    for b, dtype in ((1, torch.float32), (1, torch.bfloat16), (TRAIN_BATCH, torch.float32)):
+        x = torch.randn((b, 29, 29, 256), generator=g).to("cuda", dtype)
+        k = torch.randn((b, 5, 5, 256), generator=g).to("cuda", dtype)
         kernel, plain = in_turns(depthwise_xcorr, depthwise_xcorr_reference, x, k)
-        times[dtype] = (kernel, plain)
-        print(f"[kernel] (1,29,29,256)*(1,5,5,256) {str(dtype)[6:]}: kernel "
+        times[(b, dtype)] = (kernel, plain)
+        print(f"[kernel] ({b},29,29,256)*({b},5,5,256) {str(dtype)[6:]}: kernel "
               f"{kernel[0]:.2f} us device / {kernel[1]:.2f} us eager; plain "
               f"{plain[0]:.2f} us device / {plain[1]:.2f} us eager")
-    kernel, plain = times[torch.float32]
+    kernel, plain = times[(1, torch.float32)]
     return {"name": "depthwise_xcorr", "route": "cuda",
             "source": "siammask_tpu_torch/csrc/xcorr.cu",
             "replaces": "siammask_tpu/ops/xcorr_pallas.py:67",
@@ -511,7 +514,7 @@ def synthetic_train_batch(cfg: Config, b: int, device, seed: int = SEED) -> dict
 
 
 def train_parts(cfg: Config):
-    settings = TrainSettings(task="base", loss_weight=cfg.loss_weight, mask_pad=32)
+    settings = TrainSettings(loss_weight=cfg.loss_weight)
     opt_cfg = OptimizerConfig.from_lr_cfg(cfg.lr, clip=10.0, clip_cfg=cfg.clip)
     return settings, opt_cfg, build_lr_spaces(cfg.lr, TRAIN_EPOCHS)
 

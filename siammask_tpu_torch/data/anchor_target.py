@@ -31,30 +31,25 @@ class AnchorTargetConfig:
 
 class AnchorTarget:
     def __init__(self, rng: np.random.RandomState,
-                 cfg: AnchorTargetConfig | dict | None = None):
-        if isinstance(cfg, dict):
-            cfg = AnchorTargetConfig(**cfg)
+                 cfg: AnchorTargetConfig | None = None):
         self.cfg = cfg or AnchorTargetConfig()
         self.rng = rng
 
-    def _select(self, position, keep_num, rng):
+    def _select(self, position, keep_num):
         num = position[0].shape[0]
         if num <= keep_num:
             return position, num
         slt = np.arange(num)
-        rng.shuffle(slt)
+        self.rng.shuffle(slt)
         slt = slt[:keep_num]
         return tuple(p[slt] for p in position), keep_num
 
-    def __call__(self, anchor: Anchors, target, size: int, neg: bool = False,
-                 rng: np.random.RandomState | None = None):
+    def __call__(self, anchor: Anchors, target, size: int, neg: bool = False):
         """anchor: ``Anchors`` with ``all_anchors`` generated; target: corner
-        box (x1, y1, x2, y2) in search-crop pixels; ``rng`` overrides the
-        constructor's generator for this call.
+        box (x1, y1, x2, y2) in search-crop pixels.
 
         Returns cls (K, S, S) int64, delta (4, K, S, S) float32 and
         delta_weight (K, S, S) float32."""
-        rng = self.rng if rng is None else rng
         anchor_num = anchor.anchors.shape[0]
         cls = np.full((anchor_num, size, size), -1, dtype=np.int64)
         delta = np.zeros((4, anchor_num, size, size), dtype=np.float32)
@@ -64,7 +59,7 @@ class AnchorTarget:
             l = size // 2 - 3
             r = size // 2 + 3 + 1
             cls[:, l:r, l:r] = 0
-            sel, _ = self._select(np.where(cls == 0), self.cfg.negative, rng)
+            sel, _ = self._select(np.where(cls == 0), self.cfg.negative)
             cls[:] = -1
             cls[sel] = 0
             return cls, delta, delta_weight
@@ -83,8 +78,8 @@ class AnchorTarget:
         pos = np.where(overlap > self.cfg.thr_high)
         neg_sel = np.where(overlap < self.cfg.thr_low)
 
-        pos, pos_num = self._select(pos, self.cfg.positive, rng)
-        neg_sel, _ = self._select(neg_sel, self.cfg.rpn_batch - pos_num, rng)
+        pos, pos_num = self._select(pos, self.cfg.positive)
+        neg_sel, _ = self._select(neg_sel, self.cfg.rpn_batch - pos_num)
 
         cls[pos] = 1
         delta_weight[pos] = 1.0 / (pos_num + 1e-6)

@@ -80,13 +80,15 @@ def _check_tensors(what: str, *ts: torch.Tensor) -> None:
     if any(t.dim() != 4 for t in ts):
         raise ValueError(f"{what}: expected NHWC rank-4 tensors, got "
                          f"{[tuple(t.shape) for t in ts]}")
-    if len({t.dtype for t in ts}) != 1 or ts[0].dtype not in _DTYPE_CODE:
-        raise TypeError(f"{what}: expected float32 or bfloat16 for all, got "
-                        f"{[t.dtype for t in ts]}")
     if len({t.device for t in ts}) != 1:
         raise ValueError(f"{what}: inputs on different devices: {[t.device for t in ts]}")
     if ts[0].device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {ts[0].device}")
+    # float64 runs the plain versions only, on the CPU (float64 parity tests)
+    dtypes = set(_DTYPE_CODE) | ({torch.float64} if ts[0].device.type == "cpu" else set())
+    if len({t.dtype for t in ts}) != 1 or ts[0].dtype not in dtypes:
+        raise TypeError(f"{what}: expected one of {sorted(map(str, dtypes))} for all, got "
+                        f"{[t.dtype for t in ts]}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{what}: inputs must be contiguous NHWC")
 

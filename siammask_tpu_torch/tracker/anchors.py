@@ -120,11 +120,9 @@ class Anchors:
         self.all_anchors = None
         self._cached_key = None
 
-    def generate_all_anchors(self, im_c: int, size: int) -> bool:
-        """Tile for (im_c, size); False when that tiling is already there."""
+    def generate_all_anchors(self, im_c: int, size: int) -> None:
+        """Tile for (im_c, size), unless that tiling is already there."""
         key = (im_c, size)
-        if self._cached_key == key:
-            return False
-        self._cached_key = key
-        self.all_anchors = generate_all_anchors(self.cfg, im_c, size)
-        return True
+        if self._cached_key != key:
+            self._cached_key = key
+            self.all_anchors = generate_all_anchors(self.cfg, im_c, size)

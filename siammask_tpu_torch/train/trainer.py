@@ -34,6 +34,9 @@ from torch import nn
 from siammask_tpu_torch.models.losses import (select_cross_entropy_loss,
                                               select_mask_logistic_loss, weight_l1_loss)
 
+# the base mask loss: 63x63 head rows upsampled to 127x127 windows, taken at
+# stride 8 from the 255 search mask padded by 32
+O_SZ, G_SZ, MASK_PAD = 63, 127, 32
 GROUPS = ("resnet", "neck", "rpn", "mask", "refine")
 # the split clip's three norms: backbone+neck jointly, rpn, mask+refine
 CLIP_GROUPS = {"resnet": "feature", "neck": "feature", "rpn": "rpn", "mask": "mask",
@@ -70,11 +73,11 @@ def label_params(model: nn.Module, unfreeze_backbone: bool,
 class OptimizerConfig:
     momentum: float = 0.9
     weight_decay: float = 1e-4
+    # the global clip norm; with clip_split (the reference train_siammask.py's
+    # per-module clip) the backbone+neck one, and the rpn and mask+refine
+    # grads are clipped to their own limits
     clip: float = 10.0
-    # per-module clip (reference train_siammask.py): when clip_split, the
-    # backbone+neck, rpn and mask+refine grads are clipped by their own norms
     clip_split: bool = False
-    clip_feature: float = 10.0
     clip_rpn: float = 10.0
     clip_mask: float = 10.0
     feature_lr_mult: float = 1.0
@@ -89,10 +92,8 @@ class OptimizerConfig:
         return cls(feature_lr_mult=lr_cfg.get("feature_lr_mult", 1.0),
                    rpn_lr_mult=lr_cfg.get("rpn_lr_mult", 1.0),
                    mask_lr_mult=lr_cfg.get("mask_lr_mult", 1.0),
-                   # unsplit, the feature clip is the one global clip
                    clip=feature,
                    clip_split=bool(clip_cfg.get("split", False)),
-                   clip_feature=feature,
                    clip_rpn=clip_cfg.get("rpn") or clip,
                    clip_mask=clip_cfg.get("mask") or feature)
 
@@ -122,13 +123,7 @@ def build_optimizer(model: nn.Module, cfg: OptimizerConfig, unfreeze_backbone: b
 
 @dataclass
 class TrainSettings:
-    task: str = "base"              # the port trains 'base' only so far
-    loss_weight: tuple = (1.0, 1.0, 36.0)
-    o_sz: int = 63
-    g_sz: int = 127
-    mask_pad: int = 32              # 32 for the base 255 search, 0 for sharp
-    # None: gather 16 x batch positive cells, every positive the sampler emits
-    max_pos: int | None = None
+    loss_weight: tuple = (1.0, 1.0, 36.0)   # (cls, loc, mask)
 
 
 def _clip(optimizer: torch.optim.Optimizer, cfg: OptimizerConfig) -> None:
@@ -136,7 +131,7 @@ def _clip(optimizer: torch.optim.Optimizer, cfg: OptimizerConfig) -> None:
         params = [p for g in optimizer.param_groups for p in g["params"]]
         torch.nn.utils.clip_grad_norm_(params, cfg.clip)
         return
-    limits = {"feature": cfg.clip_feature, "rpn": cfg.clip_rpn, "mask": cfg.clip_mask}
+    limits = {"feature": cfg.clip, "rpn": cfg.clip_rpn, "mask": cfg.clip_mask}
     split = {k: [] for k in limits}
     for g in optimizer.param_groups:
         split[CLIP_GROUPS[g["name"]]].extend(g["params"])
@@ -160,8 +155,6 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, 
     updated with the unbiased batch variance as the original PyTorch
     reference does; flax updates it with the biased one. It is the port's one
     deliberate difference from the JAX package."""
-    if settings.task != "base":
-        raise NotImplementedError(f"task {settings.task!r}: the port trains 'base' only")
     w_cls, w_loc, w_mask = settings.loss_weight
     for g in optimizer.param_groups:
         g["lr"] = lr * g["mult"]
@@ -173,8 +166,7 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, 
     cls_loss = select_cross_entropy_loss(score, batch["label_cls"])
     loc_loss = weight_l1_loss(loc, batch["label_loc"], batch["label_loc_weight"])
     m = select_mask_logistic_loss(pred_mask, batch["label_mask"], batch["label_mask_weight"],
-                                  o_sz=settings.o_sz, g_sz=settings.g_sz,
-                                  padding=settings.mask_pad, max_pos=settings.max_pos)
+                                  o_sz=O_SZ, g_sz=G_SZ, padding=MASK_PAD)
     total = w_cls * cls_loss + w_loc * loc_loss + w_mask * m.loss
     total.backward()
     _clip(optimizer, opt_cfg)

@@ -36,10 +36,12 @@ def test_all_anchors_match_jax(cfg, im_c, size):
 def test_anchors_object_caches_its_tiling():
     a = anchors.Anchors(anchors.AnchorConfig())
     assert a.all_anchors is None and a.anchors.shape == (5, 4)
-    assert a.generate_all_anchors(127, 25) is True
+    a.generate_all_anchors(127, 25)
     first = a.all_anchors
-    assert a.generate_all_anchors(127, 25) is False and a.all_anchors is first
-    assert a.generate_all_anchors(71, 17) is True and a.all_anchors[0].shape == (4, 5, 17, 17)
+    a.generate_all_anchors(127, 25)
+    assert a.all_anchors is first
+    a.generate_all_anchors(71, 17)
+    assert a.all_anchors is not first and a.all_anchors[0].shape == (4, 5, 17, 17)
 
 
 def _anchor_pair():
@@ -67,17 +69,17 @@ def test_anchor_target_matches_jax(box, neg):
     assert (cls == 1).sum() <= 16 and (cls >= 0).sum() <= (16 if neg else 64)
 
 
-def test_anchor_target_per_call_rng_and_config():
+def test_anchor_target_config_matches_jax():
+    """A non-default config, and one generator drawn from over two calls."""
     ours_a, ref_a = _anchor_pair()
     box = (95.0, 100.0, 160.0, 150.0)
     cfg = {"thr_high": 0.5, "thr_low": 0.2, "negative": 8, "rpn_batch": 32, "positive": 8}
-    ours = AnchorTarget(np.random.RandomState(0), cfg)(
-        ours_a, box, 25, rng=np.random.RandomState(9))
-    ref = JaxAnchorTarget(cfg, rng=np.random.RandomState(0))(
-        ref_a, box, 25, rng=np.random.RandomState(9))
-    for o, r in zip(ours, ref):
-        np.testing.assert_array_equal(o, r)
-    assert isinstance(AnchorTarget(np.random.RandomState(0)).cfg, AnchorTargetConfig)
+    ours = AnchorTarget(np.random.RandomState(9), AnchorTargetConfig(**cfg))
+    ref = JaxAnchorTarget(cfg, rng=np.random.RandomState(9))
+    for _ in range(2):
+        for o, r in zip(ours(ours_a, box, 25), ref(ref_a, box, 25)):
+            np.testing.assert_array_equal(o, r)
+    assert AnchorTarget(np.random.RandomState(0)).cfg == AnchorTargetConfig()
 
 
 def test_box_helpers_match_jax():

@@ -5,18 +5,25 @@ Both start from the same weights (the JAX tree carried over with
 ``state_dict_from_jax``, strictly) and take the same batch: one step in the
 frozen phase (epoch 0 of 2) and one after the unfreeze boundary (epoch 1,
 optimizer rebuilt). The JAX model runs its xcorr through the Pallas kernel in
-interpret mode; the port's takes the plain version on the CPU.
+interpret mode; the port's takes the plain version on the CPU. The two steps
+run twice: in float32, and in float64 on both sides (``jax.enable_x64``, the
+flax modules' ``dtype``; ``model.double()``).
 
-Tolerances. Both sides compute in fp32 with sums in another order (XLA's
-convs and reductions against PyTorch's). Forward values, losses, metrics and
-BN statistics are held to 1e-4 relative to the largest magnitude of the JAX
-tensor in both phases. Gradients (seen as momentum buffers and parameter
-updates) are held to 1e-3 per tensor and 1e-4 over the whole step in the
-frozen phase. In the unfrozen phase the gradient through the train-mode BN
-of layer2/3 at batch 2 is ill-conditioned in fp32 whichever framework
-computes it: noise of 1e-7 relative on the search input moves the port's own
-gradient by 0.7% over the step and by 3.6% in its worst tensor. There they
-are held to 5e-2 per tensor and 1e-2 over the step.
+Tolerances (``TOL``), relative to the largest magnitude of the JAX tensor.
+In float32 both sides sum in another order (XLA's convs and reductions
+against PyTorch's): forward values, losses, metrics and BN statistics are
+held to 1e-4, gradients (seen as momentum buffers and parameter updates) to
+1e-3 per tensor and 1e-4 over the whole step. In float64 the JAX side still
+rounds to float32 in its Pallas xcorr (fp32 accumulation) and in its resize
+matrices, which bounds the agreement near 1e-7: values are held to 1e-6,
+gradients to 1e-5 per tensor and 1e-6 over the step.
+
+The unfrozen phase's gradients are held to the JAX package in float64 only.
+There the gradient through the train-mode BN of layer2/3 at batch 2 is
+ill-conditioned in float32 whichever framework computes it: the port's own
+float32 momentum differs from its float64 one by about 1% over the step
+(``test_float32_unfrozen_gradients_carry_rounding_noise``), so no float32
+comparison could be held to the frozen phase's tolerance.
 
 BN running variance: the port keeps ``nn.BatchNorm2d``, which updates it with
 the unbiased batch variance; flax uses the biased one. The tests record each
@@ -46,7 +53,7 @@ from siammask_tpu_torch.models.siammask import SiamMaskBase
 from siammask_tpu_torch.tracker.anchors import Anchors
 from siammask_tpu_torch.train.lr import build_lr_spaces
 from siammask_tpu_torch.train.trainer import (OptimizerConfig, Trainer, TrainSettings,
-                                              build_optimizer, label_params, train_step)
+                                              build_optimizer, label_params)
 from siammask_tpu_torch.utils.convert import _torch_name, state_dict_from_jax
 
 CONFIG = Path(__file__).resolve().parents[1] / "experiments" / "siammask_base" / "config.json"
@@ -54,8 +61,14 @@ WIDTH = 8
 B = 2
 EPOCHS = 2
 PHASES = ("frozen", "unfrozen")
-# gradient tolerances per phase: (per tensor, whole step), see above
-GRAD_TOL = {"frozen": (1e-3, 1e-4), "unfrozen": (5e-2, 1e-2)}
+DTYPES = ("float32", "float64")
+# relative tolerances, see above: forward values, metrics and BN statistics;
+# gradients per tensor and over the step; parameters beyond their update
+# (two ulps of the parameter)
+TOL = {"float32": {"value": 1e-4, "grad": 1e-3, "step": 1e-4, "param": 2.0 ** -22},
+       "float64": {"value": 1e-6, "grad": 1e-5, "step": 1e-6, "param": 2.0 ** -51}}
+# the dtypes whose gradients are compared, per phase
+GRAD_DTYPES = {"frozen": DTYPES, "unfrozen": ("float64",)}
 
 
 @torch.no_grad()
@@ -114,8 +127,8 @@ def make_batch(seed=0):
     return jbatch, tbatch
 
 
-def port_model(variables):
-    model = SiamMaskBase(width=WIDTH)
+def port_model(variables, dtype=torch.float32):
+    model = SiamMaskBase(width=WIDTH).to(dtype)
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     return model
 
@@ -124,7 +137,7 @@ def settings_pair():
     jcfg = JaxConfig.load(str(CONFIG), clip=10.0)
     cfg = Config.load(str(CONFIG), clip=10.0)
     jset = JaxTrainSettings(task="base", loss_weight=jcfg.loss_weight, mask_pad=32)
-    tset = TrainSettings(task="base", loss_weight=cfg.loss_weight, mask_pad=32)
+    tset = TrainSettings(loss_weight=cfg.loss_weight)
     return (jset, JaxOptimizerConfig.from_lr_cfg(jcfg.lr, clip=10.0, clip_cfg=jcfg.clip),
             jax_build_lr_spaces(jcfg.lr, EPOCHS), tset,
             OptimizerConfig.from_lr_cfg(cfg.lr, clip=10.0, clip_cfg=cfg.clip),
@@ -190,15 +203,19 @@ def jax_vars():
             calibrated_variables(make_batch()[1]))
 
 
-@pytest.fixture(scope="module")
-def runs(jax_vars):
-    jmodel, variables = jax_vars
-    jbatch, tbatch = make_batch()
+def _run_both(variables, jbatch, tbatch, dtype):
+    """One frozen and one unfrozen step on each side, in ``dtype``."""
     jset, jopt, jlr, tset, topt, tlr = settings_pair()
     np.testing.assert_array_equal(tlr, jlr)
+    jdtype, tdtype = {"float32": (jnp.float32, torch.float32),
+                      "float64": (jnp.float64, torch.float64)}[dtype]
+    variables = jax.tree.map(lambda v: jnp.asarray(v, jdtype), variables)
+    jbatch = {k: v.astype(jdtype) if v.dtype == np.float32 else v for k, v in jbatch.items()}
+    tbatch = {k: v.to(tdtype) if v.is_floating_point() else v for k, v in tbatch.items()}
 
+    jmodel = JaxSiamMaskBase(width=WIDTH, xcorr_impl="pallas", dtype=jdtype)
     jtrainer = JaxTrainer(jmodel, variables, jset, jopt, jlr, epochs=EPOCHS, unfreeze_at=0.5)
-    model = port_model(variables)
+    model = port_model(variables, tdtype)
     trainer = Trainer(model, tset, topt, tlr, epochs=EPOCHS, unfreeze_at=0.5)
     recorder = BNRecorder(model)
     before = state_dict_from_jax(variables)
@@ -219,23 +236,34 @@ def runs(jax_vars):
     return out
 
 
+@pytest.fixture(scope="module")
+def runs(jax_vars):
+    """{dtype: {"before": state, phase: the step's results on both sides}}."""
+    _, variables = jax_vars
+    jbatch, tbatch = make_batch()
+    out = {"float32": _run_both(variables, jbatch, tbatch, "float32")}
+    with jax.enable_x64(True):
+        out["float64"] = _run_both(variables, jbatch, tbatch, "float64")
+    return out
+
+
 def _close(ours, ref, rel, name):
     ref = np.asarray(ref, np.float64)
     np.testing.assert_allclose(ours, ref, rtol=rel, atol=rel * np.abs(ref).max(),
                                err_msg=name)
 
 
-def _bn_stats_close(ours, ref, excess):
+def _bn_stats_close(ours, ref, excess, rel=TOL["float32"]["value"]):
     """Running means directly; running variances after removing the
     unbiased-update excess recorded on the port's side."""
     updated = 0
     for name in ours:
         if name.endswith("running_mean"):
-            _close(ours[name], ref[name], 1e-4, name)
+            _close(ours[name], ref[name], rel, name)
         elif name.endswith("running_var"):
             bn = name.removesuffix(".running_var")
             updated += bn in excess
-            _close(ours[name] - excess.get(bn, 0.0), ref[name], 1e-4, name)
+            _close(ours[name] - excess.get(bn, 0.0), ref[name], rel, name)
     return updated
 
 
@@ -269,11 +297,15 @@ def test_forward_train_matches_jax(jax_vars, unfrozen):
 
 @pytest.mark.parametrize("phase", PHASES)
 def test_train_step_metrics_match_jax(runs, phase):
-    ours, ref = runs[phase]["port"]["metrics"], runs[phase]["jax_metrics"]
-    assert set(ours) == set(ref)
-    assert ours["skipped"] == ref["skipped"] == 0.0
-    for k in ref:
-        np.testing.assert_allclose(ours[k], ref[k], rtol=1e-4, atol=1e-6, err_msg=k)
+    for dtype in DTYPES:
+        run = runs[dtype][phase]
+        ours, ref = run["port"]["metrics"], run["jax_metrics"]
+        assert set(ours) == set(ref)
+        assert ours["skipped"] == ref["skipped"] == 0.0
+        rel = TOL[dtype]["value"]
+        for k in ref:
+            np.testing.assert_allclose(ours[k], ref[k], rtol=rel, atol=1e-2 * rel,
+                                       err_msg=f"{dtype} {k}")
 
 
 @pytest.mark.parametrize("phase", PHASES)
@@ -281,49 +313,78 @@ def test_train_step_params_match_jax(runs, phase):
     """Every parameter after the step, and the frozen ones exactly unchanged.
     An update (lr ~1e-3 times the momentum buffer) is a few float32 ulps of
     its parameter, so the parameters agree to the gradient tolerance of the
-    largest update plus two ulps (rtol 2**-22); the updates themselves are
-    compared through the momentum buffers below."""
-    prev = runs["before"] if phase == "frozen" else runs["frozen"]["port"]["state"]
-    prev_jax = runs["before"] if phase == "frozen" else runs["frozen"]["jax_state"]
-    ours, ref = runs[phase]["port"]["state"], runs[phase]["jax_state"]
-    labels = runs[phase]["port"]["labels"]
-    moved = 0
-    for name, label in labels.items():
-        d_ours, d_ref = ours[name] - prev[name], ref[name] - prev_jax[name]
-        if label == "frozen":
-            np.testing.assert_array_equal(d_ours, 0.0, err_msg=name)
-            np.testing.assert_array_equal(d_ref, 0.0, err_msg=name)
-            continue
-        assert np.abs(d_ref).max() > 0, name
-        np.testing.assert_allclose(ours[name], ref[name], rtol=2.0 ** -22,
-                                   atol=GRAD_TOL[phase][0] * np.abs(d_ref).max(),
-                                   err_msg=name)
-        moved += 1
-    assert moved > 0
+    largest update plus two ulps; the updates themselves are compared through
+    the momentum buffers below. Float32 in the frozen phase only (see the
+    module docstring)."""
+    for dtype in GRAD_DTYPES[phase]:
+        run, tol = runs[dtype], TOL[dtype]
+        prev = run["before"] if phase == "frozen" else run["frozen"]["port"]["state"]
+        prev_jax = run["before"] if phase == "frozen" else run["frozen"]["jax_state"]
+        ours, ref = run[phase]["port"]["state"], run[phase]["jax_state"]
+        labels = run[phase]["port"]["labels"]
+        moved = 0
+        for name, label in labels.items():
+            d_ours, d_ref = ours[name] - prev[name], ref[name] - prev_jax[name]
+            if label == "frozen":
+                np.testing.assert_array_equal(d_ours, 0.0, err_msg=f"{dtype} {name}")
+                np.testing.assert_array_equal(d_ref, 0.0, err_msg=f"{dtype} {name}")
+                continue
+            assert np.abs(d_ref).max() > 0, name
+            np.testing.assert_allclose(ours[name], ref[name], rtol=tol["param"],
+                                       atol=tol["grad"] * np.abs(d_ref).max(),
+                                       err_msg=f"{dtype} {name}")
+            moved += 1
+        assert moved > 0
 
 
 @pytest.mark.parametrize("phase", PHASES)
 def test_train_step_bn_stats_match_jax(runs, phase):
-    port = runs[phase]["port"]
-    assert _bn_stats_close(port["state"], runs[phase]["jax_state"], port["excess"]) > 0
+    for dtype in DTYPES:
+        run = runs[dtype][phase]
+        port = run["port"]
+        assert _bn_stats_close(port["state"], run["jax_state"], port["excess"],
+                               TOL[dtype]["value"]) > 0
+
+
+def _momentum_error(ours, ref):
+    """The whole step's relative error, sqrt(sum |ours - ref|^2 / sum |ref|^2)."""
+    err = sum(np.sum((ours[n] - ref[n]).astype(np.float64) ** 2) for n in ref)
+    norm = sum(np.sum(ref[n].astype(np.float64) ** 2) for n in ref)
+    return np.sqrt(err / norm)
 
 
 @pytest.mark.parametrize("phase", PHASES)
 def test_train_step_momentum_matches_jax(runs, phase):
-    ours, ref = runs[phase]["port"]["momentum"], runs[phase]["jax_momentum"]
-    per_tensor, whole = GRAD_TOL[phase]
-    assert set(ours) == set(ref)
-    # tensors whose exact gradient is 0 (the neck's BN bias: every head's
-    # train-mode BN removes a per-channel shift of the neck output) hold
-    # rounding noise only, so the floor is 1e-5 of the step's largest entry
-    floor = 1e-5 * max(np.abs(v).max() for v in ref.values())
-    for name in ref:
-        np.testing.assert_allclose(ours[name], ref[name], rtol=per_tensor,
-                                   atol=per_tensor * np.abs(ref[name]).max() + floor,
-                                   err_msg=name)
-    err = sum(np.sum((ours[n] - ref[n]).astype(np.float64) ** 2) for n in ref)
-    norm = sum(np.sum(ref[n].astype(np.float64) ** 2) for n in ref)
-    assert np.sqrt(err / norm) < whole
+    """The momentum buffers against optax's trace state; float32 in the
+    frozen phase only (see the module docstring)."""
+    for dtype in GRAD_DTYPES[phase]:
+        run = runs[dtype][phase]
+        ours, ref = run["port"]["momentum"], run["jax_momentum"]
+        per_tensor = TOL[dtype]["grad"]
+        assert set(ours) == set(ref)
+        # tensors whose exact gradient is 0 (the neck's BN bias: every head's
+        # train-mode BN removes a per-channel shift of the neck output) hold
+        # rounding noise only, so the floor is 1e-2 of the per-tensor
+        # tolerance of the step's largest entry
+        floor = 1e-2 * per_tensor * max(np.abs(v).max() for v in ref.values())
+        for name in ref:
+            np.testing.assert_allclose(ours[name], ref[name], rtol=per_tensor,
+                                       atol=per_tensor * np.abs(ref[name]).max() + floor,
+                                       err_msg=f"{dtype} {name}")
+        assert _momentum_error(ours, ref) < TOL[dtype]["step"], dtype
+
+
+def test_float32_unfrozen_gradients_carry_rounding_noise(runs):
+    """The reading behind comparing the unfrozen phase's gradients in
+    float64 only: the port's own float32 momentum, against its float64 one
+    from the same weights and batch, is off by ten times the float32
+    whole-step tolerance once layer2/3 train (train-mode BN at batch 2),
+    while in float64 the two frameworks agree within theirs."""
+    noise = _momentum_error(runs["float32"]["unfrozen"]["port"]["momentum"],
+                            runs["float64"]["unfrozen"]["port"]["momentum"])
+    assert noise > 10 * TOL["float32"]["step"], noise
+    run = runs["float64"]["unfrozen"]
+    assert _momentum_error(run["port"]["momentum"], run["jax_momentum"]) < TOL["float64"]["step"]
 
 
 @pytest.mark.parametrize("unfreeze", [False, True])
@@ -398,7 +459,7 @@ def test_split_clip_clips_each_group():
     limits = {"feature": 1e-3, "rpn": 2e-3, "mask": 3e-3}
     norms = {}
     for split in (False, True):
-        cfg = OptimizerConfig(clip=1e9, clip_split=split, clip_feature=limits["feature"],
+        cfg = OptimizerConfig(clip=limits["feature"] if split else 1e9, clip_split=split,
                               clip_rpn=limits["rpn"], clip_mask=limits["mask"])
         trainer, batch = _trainer_and_batch(cfg)
         trainer.step(batch, 1)
@@ -433,10 +494,3 @@ def test_build_optimizer_groups():
     in_groups = {p for g in opt.param_groups for p in g["params"]}
     for name, p in model.named_parameters():
         assert (p in in_groups) == (labels[name] != "frozen") == p.requires_grad, name
-
-
-def test_train_step_rejects_other_tasks():
-    trainer, batch = _trainer_and_batch()
-    with pytest.raises(NotImplementedError):
-        train_step(trainer.model, trainer.optimizer, batch, 0.001,
-                   TrainSettings(task="sharp"), trainer.opt_cfg)

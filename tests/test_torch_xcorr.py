@@ -72,7 +72,7 @@ def test_xcorr_rejects_bad_input(case):
     k = torch.zeros(1, 3, 3, 8)
     bad = {
         "rank": (x[0], k),
-        "dtype": (x.double(), k.double()),
+        "dtype": (x.half(), k.half()),
         "mixed_dtype": (x, k.bfloat16()),
         "batch": (x, torch.zeros(2, 3, 3, 8)),
         "channels": (x, torch.zeros(1, 3, 3, 4)),
@@ -81,6 +81,22 @@ def test_xcorr_rejects_bad_input(case):
     }[case]
     with pytest.raises((ValueError, TypeError)):
         depthwise_xcorr(*bad)
+
+
+def test_xcorr_float64_on_cpu_matches_autograd_of_plain():
+    """float64, which the train-step parity tests use, runs the plain
+    versions on the CPU, forward and both gradients."""
+    x, k = (torch.from_numpy(a).double().requires_grad_()
+            for a in _pair((2, 9, 9, 8), (2, 3, 3, 8), seed=11))
+    out = depthwise_xcorr(x, k)
+    g = torch.randn(out.shape, dtype=torch.float64, generator=torch.Generator().manual_seed(12))
+    grads = torch.autograd.grad(out, (x, k), g)
+    ref = depthwise_xcorr_reference(x, k)
+    assert out.dtype == torch.float64
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    # the same sums in another order, in float64
+    for ours, r in zip(grads, torch.autograd.grad(ref, (x, k), g)):
+        torch.testing.assert_close(ours, r, rtol=1e-12, atol=1e-12)
 
 
 GRAD_SHAPES = [
@@ -165,7 +181,7 @@ def test_grad_wrappers_on_cpu_count_no_launch():
 def test_grad_wrappers_reject_bad_input(case):
     x, k, g = torch.zeros(1, 9, 9, 8), torch.zeros(1, 3, 3, 8), torch.zeros(1, 7, 7, 8)
     bad_in, bad_k = {
-        "dtype": ((g.double(), k.double(), 9, 9), (x, g.bfloat16())),
+        "dtype": ((g.half(), k.half(), 9, 9), (x, g.bfloat16())),
         "shape": ((g, k, 10, 9), (x, torch.zeros(1, 10, 7, 8))),
         "noncontiguous": ((g.permute(0, 2, 1, 3), k, 9, 9), (x.permute(0, 2, 1, 3), g)),
         "batch": ((g, torch.zeros(2, 3, 3, 8), 9, 9), (x, torch.zeros(2, 7, 7, 8))),
@@ -189,6 +205,7 @@ def cuda_device():
 @pytest.mark.parametrize("xs,ks,dtype", [
     ((1, 29, 29, 256), (1, 5, 5, 256), torch.float32),
     ((16, 29, 29, 256), (16, 5, 5, 256), torch.float32),
+    ((64, 29, 29, 256), (64, 5, 5, 256), torch.float32),    # the training batch
     ((3, 17, 23, 200), (3, 4, 3, 200), torch.float32),
     ((1, 29, 29, 256), (1, 5, 5, 256), torch.bfloat16),
 ])
