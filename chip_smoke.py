@@ -17,10 +17,11 @@ Phases, each of which raises on failure:
 2. build: the hand-written kernels are compiled from ``siammask_tpu_torch/csrc``;
 3. the forward xcorr kernel vs its plain version at the tracking shape, B=16,
    the training batch (B=64), a ragged shape and bf16; kernel and plain times
-   at B=1 (fp32, bf16) and B=64 (fp32);
-4. the two gradient kernels vs their plain versions at B=1, B=64, a ragged
-   shape and bf16; kernel and plain times at B=1 and B=64, and the eager
-   autograd backward through the kernels vs through the plain forward;
+   at B=1 (fp32, bf16), B=16 and B=64 (fp32);
+4. the two gradient kernels vs their plain versions at B=1, B=16, B=64, a
+   ragged shape and bf16; two B=64 grad-kernel calls bit-identical; kernel
+   and plain times at B=1, B=16 and B=64, and the eager autograd backward
+   through the kernels vs through the plain forward;
 5. the track slice: init + steps, with finite outputs in bounds, three xcorr
    kernel launches per step, and one step under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
@@ -237,7 +238,8 @@ def phase_kernels() -> dict:
         errors[(xs, dtype)] = check_close(f"kernel {xs} * {ks} {str(dtype)[6:]}", out, ref)
 
     times = {}
-    for b, dtype in ((1, torch.float32), (1, torch.bfloat16), (TRAIN_BATCH, torch.float32)):
+    for b, dtype in ((1, torch.float32), (1, torch.bfloat16), (16, torch.float32),
+                     (TRAIN_BATCH, torch.float32)):
         x = torch.randn((b, 29, 29, 256), generator=g).to("cuda", dtype)
         k = torch.randn((b, 5, 5, 256), generator=g).to("cuda", dtype)
         kernel, plain = in_turns(depthwise_xcorr, depthwise_xcorr_reference, x, k)
@@ -264,7 +266,8 @@ def phase_grad_kernels() -> list[dict]:
 
     errors = {}
     for xs, ks, dtype in [((1, 29, 29, 256), (1, 5, 5, 256), torch.float32),
-                          ((64, 29, 29, 256), (64, 5, 5, 256), torch.float32),
+                          ((16, 29, 29, 256), (16, 5, 5, 256), torch.float32),
+                          ((TRAIN_BATCH, 29, 29, 256), (TRAIN_BATCH, 5, 5, 256), torch.float32),
                           ((3, 17, 23, 200), (3, 4, 3, 200), torch.float32),
                           ((1, 29, 29, 256), (1, 5, 5, 256), torch.bfloat16)]:
         x, k, go = inputs(xs, ks, dtype)
@@ -277,9 +280,16 @@ def phase_grad_kernels() -> list[dict]:
         tag = f"{xs} * {ks} {str(dtype)[6:]}"
         errors[("input", xs, dtype)] = check_close(f"grad-input {tag}", dx, ref_dx)
         errors[("kernel", xs, dtype)] = check_close(f"grad-kernel {tag}", dk, ref_dk)
+        if xs[0] == TRAIN_BATCH:
+            # no atomics: a second call gives the same bits
+            again = depthwise_xcorr_grad_kernel(x, go)
+            torch.cuda.synchronize()
+            if not torch.equal(again, dk):
+                raise AssertionError(f"grad-kernel {tag}: two calls differ")
+            print(f"[grad] grad-kernel {tag}: two calls bit-identical")
 
     times = {}
-    for b in (1, TRAIN_BATCH):
+    for b in (1, 16, TRAIN_BATCH):
         x, k, go = inputs((b, 29, 29, 256), (b, 5, 5, 256), torch.float32)
         times[("input", b)] = in_turns(depthwise_xcorr_grad_input,
                                        depthwise_xcorr_grad_input_reference, go, k, 29, 29)

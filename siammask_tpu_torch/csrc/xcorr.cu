@@ -4,25 +4,36 @@
 //   out[b, i, j, c] = sum_{dy, dx} x[b, i + dy, j + dx, c] * k[b, dy, dx, c]
 //
 // Replaces the TPU kernel `depthwise_xcorr_pallas` (`_xcorr_kernel`) in
-// siammask_tpu/ops/xcorr_pallas.py: the same map, fp32 accumulation, output
-// cast to the input type. It is not a block-by-block copy: the TPU kernel
-// keeps a (Hx, Wx, 128-channel) slab in VMEM per grid step; here every
-// thread owns one output element.
+// siammask_tpu/ops/xcorr_pallas.py: the same map, fp32 accumulation in the
+// same (dy, dx) tap order, output cast to the input type. It is not a
+// block-by-block copy: the TPU kernel keeps a (Hx, Wx, 128-channel) slab in
+// VMEM per grid step; here registers and L1 do that work.
 //
-// What bounds it on this card: bytes. Each output does Hk*Wk FMAs (25 for
-// SiamMask) per 4-byte store, far below the ~20 FLOP/byte at which an H100's
-// fp32 units, not memory, become the limit. At the tracking shape
-// (1,29,29,256) * (1,5,5,256) the inputs are 861 KB plus 26 KB and sit in
-// the 50 MB L2 after the first touch, so the kernel is bound by L2 and
-// launch latency rather than by device memory.
+// Channels are innermost everywhere, so the 32 lanes of a warp take 32
+// neighbouring channels of one pixel and every load is one coalesced
+// 128-byte (fp32) row per warp. There is no channel-multiple requirement:
+// lanes past C idle.
 //
-// What the design does about it: channels are innermost, so the 32 threads
-// of a warp read 32 neighbouring channels of one pixel -- each tap is one
-// coalesced 128-byte (fp32) load per warp, and the overlapping windows of
-// neighbouring output pixels hit L1/L2 instead of device memory. The taps are
-// a runtime loop (any Hk, Wk); there is no channel-multiple requirement.
-// Shared-memory staging, vector loads and batching the three heads of a
-// frame into one launch are left for later.
+// Tensor cores do not apply to any of the three kernels. A depthwise
+// correlation shares no reduction across channels: per (b, c) it is a
+// (taps x positions) matrix-vector product, 25 x 625 for SiamMask, so there
+// is no K dimension for `wgmma` or `mma.sync` to tile. The kernels win by
+// issuing fewer loads and moving fewer bytes, on the fp32 CUDA cores.
+//
+// Forward. A warp owns (b, 32-channel tile, strip of S = 5 outputs j0 ..
+// j0+4 along a row, band of output rows); SiamMask's Wo = 25 is 5 strips,
+// and a ragged last strip leaves its extra slots idle. A thread loads its
+// channel's Hk x Wk taps into registers once and keeps a rolling window of
+// the Hk input rows x[b, i+dy, j0 .. j0+S+Wk-2, c] that output row i needs:
+// moving down one row loads one new input row (S+Wk-1 values, prefetched a
+// row ahead) and each of the S accumulators takes Hk*Wk FMAs in (dy, dx)
+// order, the TPU kernel's order, so the output is bit-identical to the
+// one-thread-per-output version. Loads per output fall from 2*Hk*Wk (50) to
+// ((S+Wk-1)*(band+Hk-1) + Hk*Wk) / (S*band): 2.7 at B=64 (bands of 13 rows),
+// 14 at B=1, where the launcher shortens the bands to one row so that the
+// grid holds 8 warps per SM (250 blocks for 132 SMs). Templates larger than
+// the 5x5 register window (none on the model's paths) take
+// `depthwise_xcorr_any_kernel`, one thread per output.
 //
 // The two gradients replace the backward of the trainable wrapper
 // `depthwise_xcorr_ad` (its custom_vjp bwd, which differentiates the im2col
@@ -35,20 +46,39 @@
 //                innermost as in the forward; the tap range is clipped once,
 //                so no tap inside the loop is out of bounds.
 //   grad-kernel: dk[b, dy, dx, c] = sum_{i < Ho, j < Wo} x[b, i + dy, j + dx, c] * g[b, i, j, c]
-//                A 625-term reduction per output for SiamMask, and only
-//                B*Hk*Wk*C outputs (6,400 at B=1), so one thread per output
-//                would leave most of the card idle. A block owns one
-//                (b, tap, 32-channel tile); its 16 rows of 32 threads split
-//                the Ho*Wo positions, each row striding by 16, and a
-//                fixed-order tree in shared memory adds the 16 partial sums.
-//                No atomics: the result is the same from run to run.
+//                A block owns one (b, 32-channel tile) and all taps of it, up
+//                to 5x5 (a larger template takes one block per 5x5 group of
+//                taps). Its 8 warps split the (chunk of 5 outputs along j,
+//                row i) items, each warp walking down the rows of a chunk
+//                with a rolling window of x rows, as the forward does. Per
+//                row a thread loads the chunk's 5 values of g once for all
+//                its taps and one new x row of 9 values; its 25 tap sums stay
+//                in registers: 14 loads per 125 FMAs (against 2 loads per FMA
+//                when a block held one tap), and g comes from DRAM/L2 once per
+//                (b, tile) instead of once per tap. The 8 warps' partial sums
+//                are added in warp order in shared memory: no atomics, the
+//                same bits every call. At B=1 the grid has only 8 blocks (one
+//                per channel tile); that is as fast as the one-tap-per-block
+//                version was, so the launcher does not split further.
 //
-// Both gradients are bound by bytes like the forward. grad-kernel reads
-// each (b, tile) window of g once per tap (25 times, mostly from L2); a
-// version that keeps all taps of a tile in one block is later work.
+// What bounds the two redesigned kernels now (inferred from bytes and time;
+// no hardware counters are read): at B=64 each moves ~98 MB (x 55 MB, g or
+// out 41 MB), which at the rate a plain copy reaches on an H100 (~2.85 TB/s)
+// takes ~34 us, against ~51 us measured for each; their FMAs take ~8 us and
+// their load instructions are a few per output. What is left is memory
+// latency: 116-128 registers a thread leave 16 warps an SM, each with one
+// row of loads in flight. More loads in flight per warp cost registers and
+// were slower (a second prefetched row, a fifth block per SM with spills).
+// A three-stage cp.async ring per warp in shared memory was ~9% faster for
+// grad-kernel in fp32 but is not used: cp.async copies at least 4 bytes, so
+// bf16 and ragged C would need a second path. PERF.md has the times.
+// grad-input is unchanged: one thread per output, ~2.8 GB of L1/L2 loads at
+// B=64, bound by load instructions.
 //
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -64,10 +94,108 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+constexpr int kChannelTile = 32;  // threadIdx.x: one warp across channels
+constexpr int kTapRows = 5;       // the template (or tap group) held in registers:
+constexpr int kTapCols = 5;       // SiamMask's 5x5
+constexpr int kFwdWarps = 4;      // forward: warps per block, each its own unit
+constexpr int kStrip = 5;         // forward: outputs along j per thread
+constexpr int kFwdWarpsPerSM = 8; // forward: bands are split until the grid has this many
+constexpr int kFwdBandRows = 16;  // forward: the longest band of output rows
+constexpr int kGradWarps = 8;     // grad-kernel, threadIdx.y: warps splitting the items
+constexpr int kGradChunk = 5;     // grad-kernel: outputs along j per item
+
+// dst[t] = p[t * c] for t < n, 0 beyond: one coalesced load per element.
+template <typename T, int N>
+__device__ __forceinline__ void load_row(float (&dst)[N], const T* p, int c, int n) {
+#pragma unroll
+  for (int t = 0; t < N; ++t) dst[t] = t < n ? to_float(p[t * c]) : 0.0f;
+}
+
+// One output row of a strip: acc[s] = sum_{dy, dx} w[dy][s + dx] * kr[dy][dx],
+// taps in (dy, dx) order. kFull: the template is exactly kTapRows x kTapCols.
+template <bool kFull>
+__device__ __forceinline__ void xcorr_row(float (&acc)[kStrip],
+                                          const float (&w)[kTapRows][kStrip + kTapCols - 1],
+                                          const float (&kr)[kTapRows][kTapCols], int hk, int wk) {
+#pragma unroll
+  for (int dy = 0; dy < kTapRows; ++dy) {
+    if (!kFull && dy >= hk) break;
+#pragma unroll
+    for (int dx = 0; dx < kTapCols; ++dx) {
+      if (!kFull && dx >= wk) break;
+#pragma unroll
+      for (int s = 0; s < kStrip; ++s) acc[s] = fmaf(w[dy][s + dx], kr[dy][dx], acc[s]);
+    }
+  }
+}
+
+// A warp owns (b, strip of kStrip outputs along j, band of output rows, 32
+// channels); units are numbered with the channel tile fastest.
 template <typename T>
-__global__ void depthwise_xcorr_kernel(const T* __restrict__ x, const T* __restrict__ k,
-                                       T* __restrict__ out, int hx, int wx, int c, int hk,
-                                       int wk, int ho, int wo, long long total) {
+__global__ void __launch_bounds__(kChannelTile * kFwdWarps)
+    depthwise_xcorr_kernel(const T* __restrict__ x, const T* __restrict__ k, T* __restrict__ out,
+                           int hx, int wx, int c, int hk, int wk, int ho, int wo, int strips,
+                           int band, int bands, long long units) {
+  constexpr int S = kStrip, W = S + kTapCols - 1;
+  const long long unit = (long long)blockIdx.x * kFwdWarps + threadIdx.y;
+  const int tiles = (c + kChannelTile - 1) / kChannelTile;
+  const int ch = (int)(unit % tiles) * kChannelTile + threadIdx.x;
+  if (unit >= units || ch >= c) return;
+  long long rest = unit / tiles;
+  const int i0 = (int)(rest % bands) * band;
+  rest /= bands;
+  const int j0 = (int)(rest % strips) * S;
+  const long long b = rest / strips;
+  const int i1 = min(ho, i0 + band);
+  const int loads = min(S + wk - 1, wx - j0);  // columns j0 .. the strip's last tap
+
+  float kr[kTapRows][kTapCols];
+  const T* kb = k + b * hk * wk * c + ch;
+#pragma unroll
+  for (int dy = 0; dy < kTapRows; ++dy)
+#pragma unroll
+    for (int dx = 0; dx < kTapCols; ++dx)
+      kr[dy][dx] = dy < hk && dx < wk ? to_float(kb[(dy * wk + dx) * c]) : 0.0f;
+
+  // w[d] holds x row i + d; nx prefetches the row that output row i + 1 adds
+  const long long row = (long long)wx * c;
+  const T* xb = x + ((b * hx + i0) * wx + j0) * c + ch;
+  auto load_x = [&](float(&dst)[W], int r) {  // x row r
+    load_row(dst, xb + (r - i0) * row, c, r < hx ? loads : 0);
+  };
+  float w[kTapRows][W], nx[W];
+#pragma unroll
+  for (int d = 0; d < kTapRows - 1; ++d) load_x(w[d], i0 + d);
+  load_x(nx, i0 + kTapRows - 1);
+  const bool full = hk == kTapRows && wk == kTapCols;
+  T* ob = out + ((b * ho + i0) * wo + j0) * c + ch;
+  for (int i = i0; i < i1; ++i) {
+#pragma unroll
+    for (int t = 0; t < W; ++t) w[kTapRows - 1][t] = nx[t];
+    if (i + 1 < i1) load_x(nx, i + kTapRows);
+    float acc[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) acc[s] = 0.0f;
+    if (full)
+      xcorr_row<true>(acc, w, kr, hk, wk);
+    else
+      xcorr_row<false>(acc, w, kr, hk, wk);
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      if (j0 + s < wo) ob[(long long)(i - i0) * wo * c + s * c] = from_float<T>(acc[s]);
+#pragma unroll
+    for (int d = 0; d < kTapRows - 1; ++d)
+#pragma unroll
+      for (int t = 0; t < W; ++t) w[d][t] = w[d + 1][t];
+  }
+}
+
+// Templates larger than kTapRows x kTapCols (none on the model's paths): one
+// thread per output element.
+template <typename T>
+__global__ void depthwise_xcorr_any_kernel(const T* __restrict__ x, const T* __restrict__ k,
+                                           T* __restrict__ out, int hx, int wx, int c, int hk,
+                                           int wk, int ho, int wo, long long total) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const int ch = (int)(idx % c);
@@ -76,16 +204,14 @@ __global__ void depthwise_xcorr_kernel(const T* __restrict__ x, const T* __restr
   t /= wo;
   const int oy = (int)(t % ho);
   const long long b = t / ho;
-
   const T* xb = x + b * hx * wx * c + ch;
   const T* kb = k + b * hk * wk * c + ch;
   float acc = 0.0f;
   for (int dy = 0; dy < hk; ++dy) {
     const T* xrow = xb + ((long long)(oy + dy) * wx + ox) * c;
     const T* krow = kb + (long long)dy * wk * c;
-    for (int dx = 0; dx < wk; ++dx) {
+    for (int dx = 0; dx < wk; ++dx)
       acc = fmaf(to_float(xrow[(long long)dx * c]), to_float(krow[(long long)dx * c]), acc);
-    }
   }
   out[idx] = from_float<T>(acc);
 }
@@ -120,53 +246,148 @@ __global__ void depthwise_xcorr_grad_input_kernel(const T* __restrict__ g, const
   dx[idx] = from_float<T>(acc);
 }
 
-constexpr int kChannelTile = 32;  // threadIdx.x: one warp across channels
-constexpr int kPositionSplit = 16;  // threadIdx.y: rows that split the positions
-
-template <typename T>
-__global__ void depthwise_xcorr_grad_kernel_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                                                   T* __restrict__ dk, int hx, int wx, int c,
-                                                   int hk, int wk, int ho, int wo) {
-  __shared__ float partial[kPositionSplit][kChannelTile];
-  const int ch = blockIdx.x * kChannelTile + threadIdx.x;
-  const int tap = blockIdx.y;
-  const int dy = tap / wk, tx = tap % wk;
-  const long long b = blockIdx.z;
-
-  float acc = 0.0f;
-  if (ch < c) {
-    const T* xb = x + (b * hx * wx + (long long)dy * wx + tx) * c + ch;
-    const T* gb = g + b * ho * wo * c + ch;
-    const int positions = ho * wo;
-    for (int p = threadIdx.y; p < positions; p += kPositionSplit) {
-      const int i = p / wo;
-      const int j = p - i * wo;
-      acc = fmaf(to_float(xb[((long long)i * wx + j) * c]), to_float(gb[(long long)p * c]), acc);
+// One item of grad-kernel: acc[dy][dx] += sum_jj w[dy][jj + dx] * gr[jj].
+// kFull: all kTapRows x kTapCols taps and a whole chunk of kGradChunk outputs.
+template <bool kFull>
+__device__ __forceinline__ void grad_kernel_item(
+    float (&acc)[kTapRows][kTapCols], const float (&w)[kTapRows][kGradChunk + kTapCols - 1],
+    const float (&gr)[kGradChunk], int th, int tw, int n) {
+#pragma unroll
+  for (int dy = 0; dy < kTapRows; ++dy) {
+    if (!kFull && dy >= th) break;
+#pragma unroll
+    for (int jj = 0; jj < kGradChunk; ++jj) {
+      if (!kFull && jj >= n) break;
+#pragma unroll
+      for (int dx = 0; dx < kTapCols; ++dx) {
+        if (!kFull && dx >= tw) break;
+        acc[dy][dx] = fmaf(w[dy][jj + dx], gr[jj], acc[dy][dx]);
+      }
     }
   }
-  partial[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  for (int s = kPositionSplit / 2; s > 0; s >>= 1) {
-    if (threadIdx.y < s) partial[threadIdx.y][threadIdx.x] += partial[threadIdx.y + s][threadIdx.x];
-    __syncthreads();
+}
+
+// One block per (32-channel tile, tap group, b). A tap group is gh x gw taps
+// (gh <= kTapRows, gw <= kTapCols) starting at (dy0, dx0); blockIdx.y numbers
+// the groups row-major, groups_x to a row. The items are (chunk of kGradChunk
+// outputs along j, row i), rows fastest; warp w takes a contiguous run of
+// them, so it walks down the rows of a chunk with a rolling window of x rows.
+template <typename T>
+__global__ void __launch_bounds__(kChannelTile * kGradWarps)
+    depthwise_xcorr_grad_kernel_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                                       T* __restrict__ dk, int hx, int wx, int c, int hk, int wk,
+                                       int ho, int wo, int gh, int gw, int groups_x) {
+  constexpr int W = kGradChunk + kTapCols - 1;
+  __shared__ float partial[kGradWarps][kTapRows * kTapCols][kChannelTile];
+  const int ch = blockIdx.x * kChannelTile + threadIdx.x;
+  const int dy0 = (blockIdx.y / groups_x) * gh;
+  const int dx0 = (blockIdx.y % groups_x) * gw;
+  const int th = min(gh, hk - dy0), tw = min(gw, wk - dx0);  // this group's taps
+  const long long b = blockIdx.z;
+
+  float acc[kTapRows][kTapCols];
+#pragma unroll
+  for (int dy = 0; dy < kTapRows; ++dy)
+#pragma unroll
+    for (int dx = 0; dx < kTapCols; ++dx) acc[dy][dx] = 0.0f;
+
+  if (ch < c) {
+    const long long row = (long long)wx * c;
+    const T* xb = x + ((b * hx + dy0) * wx + dx0) * c + ch;  // x[b, dy0, dx0, ch]
+    const T* gb = g + b * ho * wo * c + ch;
+    const int chunks = (wo + kGradChunk - 1) / kGradChunk;
+    const int per = (ho * chunks + kGradWarps - 1) / kGradWarps;
+    const int first = threadIdx.y * per, last = min(ho * chunks, first + per);
+    for (int item = first; item < last;) {
+      // a run down the rows of one chunk: w[d] holds x row dy0 + i + d,
+      // nx and ng prefetch what the next row needs
+      const int chunk = item / ho;
+      const int i0 = item - chunk * ho, i1 = min(ho, i0 + last - item);
+      const int j0 = chunk * kGradChunk;
+      const int n = min(kGradChunk, wo - j0);  // valid outputs in the chunk
+      const int loads = n + tw - 1;
+      const T* xc = xb + (long long)j0 * c;
+      const T* gc = gb + (long long)j0 * c;
+      auto load_x = [&](float(&dst)[W], int r) {  // x row dy0 + r
+        load_row(dst, xc + r * row, c, dy0 + r < hx ? loads : 0);
+      };
+      auto load_g = [&](float(&dst)[kGradChunk], int r) {  // g row r
+        load_row(dst, gc + (long long)r * wo * c, c, n);
+      };
+      float w[kTapRows][W], nx[W], gr[kGradChunk], ng[kGradChunk];
+#pragma unroll
+      for (int d = 0; d < kTapRows - 1; ++d) load_x(w[d], i0 + d);
+      load_x(nx, i0 + kTapRows - 1);
+      load_g(ng, i0);
+      const bool full = th == kTapRows && tw == kTapCols && n == kGradChunk;
+      for (int i = i0; i < i1; ++i) {
+#pragma unroll
+        for (int t = 0; t < W; ++t) w[kTapRows - 1][t] = nx[t];
+#pragma unroll
+        for (int t = 0; t < kGradChunk; ++t) gr[t] = ng[t];
+        if (i + 1 < i1) {
+          load_x(nx, i + kTapRows);
+          load_g(ng, i + 1);
+        }
+        if (full)
+          grad_kernel_item<true>(acc, w, gr, th, tw, n);
+        else
+          grad_kernel_item<false>(acc, w, gr, th, tw, n);
+#pragma unroll
+        for (int d = 0; d < kTapRows - 1; ++d)
+#pragma unroll
+          for (int t = 0; t < W; ++t) w[d][t] = w[d + 1][t];
+      }
+      item += i1 - i0;
+    }
   }
-  if (threadIdx.y == 0 && ch < c) {
-    dk[(b * hk * wk + tap) * c + ch] = from_float<T>(partial[0][threadIdx.x]);
+
+#pragma unroll
+  for (int dy = 0; dy < kTapRows; ++dy)
+#pragma unroll
+    for (int dx = 0; dx < kTapCols; ++dx)
+      partial[threadIdx.y][dy * kTapCols + dx][threadIdx.x] = acc[dy][dx];
+  __syncthreads();
+  // each tap's warp partials, added in warp order
+  for (int t = threadIdx.y; t < th * tw; t += kGradWarps) {
+    const int dy = t / tw, dx = t - dy * tw;
+    float sum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kGradWarps; ++w) sum += partial[w][dy * kTapCols + dx][threadIdx.x];
+    if (ch < c) dk[((b * hk + dy0 + dy) * wk + dx0 + dx) * c + ch] = from_float<T>(sum);
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* k, void* out, int b, int hx, int wx, int c,
-                   int hk, int wk, cudaStream_t stream) {
-  const int ho = hx - hk + 1;
-  const int wo = wx - wk + 1;
+cudaError_t launch(const void* x_, const void* k_, void* out_, int b, int hx, int wx, int c,
+                   int hk, int wk, int device, cudaStream_t stream) {
+  const int ho = hx - hk + 1, wo = wx - wk + 1;
   const long long total = (long long)b * ho * wo * c;
   if (total == 0) return cudaSuccess;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  depthwise_xcorr_kernel<T><<<(unsigned int)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(k), static_cast<T*>(out), hx, wx, c,
-      hk, wk, ho, wo, total);
+  const T* x = static_cast<const T*>(x_);
+  const T* k = static_cast<const T*>(k_);
+  T* out = static_cast<T*>(out_);
+  if (hk > kTapRows || wk > kTapCols) {
+    depthwise_xcorr_any_kernel<T><<<(unsigned int)((total + 255) / 256), 256, 0, stream>>>(
+        x, k, out, hx, wx, c, hk, wk, ho, wo, total);
+    return cudaGetLastError();
+  }
+  int sms = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  // bands of at most kFwdBandRows output rows, shorter ones (down to one
+  // row) while the grid has fewer than kFwdWarpsPerSM warps per SM
+  const int strips = (wo + kStrip - 1) / kStrip;
+  const long long columns = (long long)b * ((c + kChannelTile - 1) / kChannelTile) * strips;
+  const long long fill = ((long long)kFwdWarpsPerSM * sms + columns - 1) / columns;
+  const int split = (int)std::min<long long>(
+      ho, std::max<long long>(fill, (ho + kFwdBandRows - 1) / kFwdBandRows));
+  const int band = (ho + split - 1) / split;
+  const int bands = (ho + band - 1) / band;
+  const long long units = columns * bands;
+  depthwise_xcorr_kernel<T>
+      <<<(unsigned int)((units + kFwdWarps - 1) / kFwdWarps), dim3(kChannelTile, kFwdWarps), 0,
+         stream>>>(x, k, out, hx, wx, c, hk, wk, ho, wo, strips, band, bands, units);
   return cudaGetLastError();
 }
 
@@ -187,11 +408,13 @@ template <typename T>
 cudaError_t launch_grad_kernel(const void* x, const void* g, void* dk, int b, int hx, int wx, int c,
                                int hk, int wk, cudaStream_t stream) {
   if ((long long)b * hk * wk * c == 0) return cudaSuccess;
-  const dim3 grid((c + kChannelTile - 1) / kChannelTile, hk * wk, b);
-  const dim3 block(kChannelTile, kPositionSplit);
-  depthwise_xcorr_grad_kernel_kernel<T><<<grid, block, 0, stream>>>(
+  const int tiles = (c + kChannelTile - 1) / kChannelTile;
+  const int gh = std::min(hk, kTapRows), gw = std::min(wk, kTapCols);
+  const int groups_x = (wk + gw - 1) / gw;
+  const dim3 grid(tiles, ((hk + gh - 1) / gh) * groups_x, b);
+  depthwise_xcorr_grad_kernel_kernel<T><<<grid, dim3(kChannelTile, kGradWarps), 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(dk), hx, wx, c, hk, wk,
-      hx - hk + 1, wx - wk + 1);
+      hx - hk + 1, wx - wk + 1, gh, gw, groups_x);
   return cudaGetLastError();
 }
 
@@ -207,8 +430,8 @@ extern "C" int siammask_depthwise_xcorr(const void* x, const void* k, void* out,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(x, k, out, b, hx, wx, c, hk, wk, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(x, k, out, b, hx, wx, c, hk, wk, s);
+  if (dtype == 0) return (int)launch<float>(x, k, out, b, hx, wx, c, hk, wk, device, s);
+  if (dtype == 1) return (int)launch<__nv_bfloat16>(x, k, out, b, hx, wx, c, hk, wk, device, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -230,7 +453,8 @@ extern "C" int siammask_depthwise_xcorr_grad_kernel(const void* x, const void* g
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_grad_kernel<float>(x, g, dk, b, hx, wx, c, hk, wk, s);
-  if (dtype == 1) return (int)launch_grad_kernel<__nv_bfloat16>(x, g, dk, b, hx, wx, c, hk, wk, s);
+  if (dtype == 1)
+    return (int)launch_grad_kernel<__nv_bfloat16>(x, g, dk, b, hx, wx, c, hk, wk, s);
   return (int)cudaErrorInvalidValue;
 }
 

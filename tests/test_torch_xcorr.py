@@ -208,6 +208,9 @@ def cuda_device():
     ((64, 29, 29, 256), (64, 5, 5, 256), torch.float32),    # the training batch
     ((3, 17, 23, 200), (3, 4, 3, 200), torch.float32),
     ((1, 29, 29, 256), (1, 5, 5, 256), torch.bfloat16),
+    ((2, 5, 5, 7), (2, 5, 5, 7), torch.float32),            # 1x1 output
+    ((3, 17, 23, 13), (3, 4, 3, 13), torch.float32),        # C below one channel tile
+    ((64, 20, 20, 64), (64, 7, 7, 64), torch.float32),      # larger than the 5x5 window
 ])
 def test_xcorr_kernel_matches_plain_on_card(cuda_device, xs, ks, dtype):
     x, k = (torch.from_numpy(a).to(cuda_device, dtype) for a in _pair(xs, ks, seed=2))
@@ -224,10 +227,14 @@ def test_xcorr_kernel_matches_plain_on_card(cuda_device, xs, ks, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("xs,ks,dtype", [
-    ((1, 29, 29, 256), (1, 5, 5, 256), torch.float32),
-    ((64, 29, 29, 256), (64, 5, 5, 256), torch.float32),
+    ((1, 29, 29, 256), (1, 5, 5, 256), torch.float32),      # 8 blocks, fewer than the SMs
+    ((16, 29, 29, 256), (16, 5, 5, 256), torch.float32),
+    ((64, 29, 29, 256), (64, 5, 5, 256), torch.float32),    # the training batch
     ((3, 17, 23, 200), (3, 4, 3, 200), torch.float32),
     ((1, 29, 29, 256), (1, 5, 5, 256), torch.bfloat16),
+    ((2, 5, 5, 7), (2, 5, 5, 7), torch.float32),            # 1x1 output
+    ((3, 17, 23, 13), (3, 4, 3, 13), torch.float32),        # C below one channel tile
+    ((64, 20, 20, 64), (64, 7, 7, 64), torch.float32),      # more taps than one 5x5 group
 ])
 def test_xcorr_grad_kernels_match_plain_on_card(cuda_device, xs, ks, dtype):
     x, k = (torch.from_numpy(a).to(cuda_device, dtype) for a in _pair(xs, ks, seed=8))
@@ -246,6 +253,18 @@ def test_xcorr_grad_kernels_match_plain_on_card(cuda_device, xs, ks, dtype):
         # fp32: summation order only; bf16: one rounding of the output each side
         atol = (1e-4 if dtype == torch.float32 else 2e-2) * scale
         torch.testing.assert_close(ours.float(), ref.float(), rtol=1e-5, atol=atol)
+
+
+@pytest.mark.cuda
+def test_xcorr_grad_kernel_is_deterministic_on_card(cuda_device):
+    """No atomics: two calls at the training batch give the same bits."""
+    x = torch.from_numpy(_pair((64, 29, 29, 256), (1, 1, 1, 1), seed=13)[0]).to(cuda_device)
+    g = torch.randn((64, 25, 25, 256), generator=torch.Generator().manual_seed(14))
+    g = g.to(cuda_device)
+    first = depthwise_xcorr_grad_kernel(x, g)
+    second = depthwise_xcorr_grad_kernel(x, g)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
