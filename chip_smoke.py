@@ -19,9 +19,9 @@ Phases, each of which raises on failure:
    the training batch (B=64), a ragged shape and bf16; kernel and plain times
    at B=1 (fp32, bf16), B=16 and B=64 (fp32);
 4. the two gradient kernels vs their plain versions at B=1, B=16, B=64, a
-   ragged shape and bf16; two B=64 grad-kernel calls bit-identical; kernel
-   and plain times at B=1, B=16 and B=64, and the eager autograd backward
-   through the kernels vs through the plain forward;
+   ragged shape and bf16; two B=64 calls of each bit-identical; kernel and
+   plain times at B=1, B=16 and B=64 beside each kernel's bound, and the
+   eager autograd backward through the kernels vs through the plain forward;
 5. the track slice: init + steps, with finite outputs in bounds, three xcorr
    kernel launches per step, and one step under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
@@ -37,7 +37,9 @@ Phases, each of which raises on failure:
     while frozen), and train ms/step and samples/s.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
-each kernel with its launches on the main paths, error and times.
+each kernel with its launches on the main paths, error, times, bound and
+the time of the one library call (cuDNN's grouped conv) that computes the
+same function.
 """
 from __future__ import annotations
 
@@ -52,13 +54,15 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from siammask_tpu_torch.config import Config
 from siammask_tpu_torch.data.anchor_target import AnchorTarget
 from siammask_tpu_torch.models.siammask import SiamMaskBase, SiamMaskSharp
 from siammask_tpu_torch.ops import _build
 from siammask_tpu_torch.ops.sample import subwindow_crop
-from siammask_tpu_torch.ops.xcorr import (depthwise_xcorr, depthwise_xcorr_grad_input,
+from siammask_tpu_torch.ops.xcorr import (_to_groups, depthwise_xcorr,
+                                          depthwise_xcorr_grad_input,
                                           depthwise_xcorr_grad_input_reference,
                                           depthwise_xcorr_grad_kernel,
                                           depthwise_xcorr_grad_kernel_reference,
@@ -80,6 +84,9 @@ TRAIN_BATCH = 64          # tools/train.py's default
 TRAIN_EPOCHS = 2          # epoch 0 frozen, epoch 1 unfrozen (unfreeze_at 0.5)
 TRAIN_FRAME_HW = (360, 480)
 KERNELS = (depthwise_xcorr, depthwise_xcorr_grad_input, depthwise_xcorr_grad_kernel)
+# an H100 SXM's published peaks at 700 W: HBM3 and fp32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
 
 
 def synthetic_frames(n: int, hw=FRAME_HW, seed: int = SEED) -> np.ndarray:
@@ -188,6 +195,48 @@ def in_turns(kernel_fn, plain_fn, *args) -> tuple[list[float], list[float]]:
     return kernel, plain
 
 
+def bound_us(x: torch.Tensor, k: torch.Tensor) -> tuple[float, str]:
+    """The least time the card could take for the forward or either gradient
+    at search x and template k, in microseconds, and what bounds it. Each of
+    the three reads two of (x, k, out) and writes the third, and does
+    B*Ho*Wo*Hk*Wk*C FMAs: the larger of those bytes at PEAK_BYTES_PER_S and
+    those FLOPs (2 an FMA) at PEAK_FP32_FLOPS."""
+    b, hx, wx, c = x.shape
+    _, hk, wk, _ = k.shape
+    ho, wo = hx - hk + 1, wx - wk + 1
+    nbytes = (x.numel() + k.numel() + b * ho * wo * c) * x.element_size()
+    fmas = b * ho * wo * hk * wk * c
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e6, 2 * fmas / PEAK_FP32_FLOPS * 1e6
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def library_us(which: str, a: torch.Tensor, b: torch.Tensor) -> float:
+    """Device time of the one PyTorch call that computes a kernel's function,
+    cuDNN's grouped conv with groups=B*C, on its inputs already in the conv's
+    layout (the plain versions also pay the NHWC copies): "forward"
+    ``F.conv2d`` (a = x, b = k), "input" ``F.conv_transpose2d`` (a = g,
+    b = k) or "kernel" ``F.conv2d`` with g as the filter (a = x, b = g)."""
+    groups = a.shape[0] * a.shape[3]
+    data, weight = _to_groups(a)[None], _to_groups(b)[:, None]
+    conv = F.conv_transpose2d if which == "input" else F.conv2d
+    return graph_us(lambda: conv(data, weight, groups=groups))
+
+
+def time_kernel(tag: str, kernel_fn, plain_fn, args: tuple, which: str, lib_args: tuple,
+                x: torch.Tensor, k: torch.Tensor) -> dict:
+    """Times a kernel and its plain version in turns, then the library call
+    (``library_us(which, *lib_args)``), at search x and template k; prints
+    one line and returns the record's times and bound."""
+    kernel, plain = in_turns(kernel_fn, plain_fn, *args)
+    library = library_us(which, *lib_args)
+    bound = bound_us(x, k)
+    print(f"{tag}: kernel {kernel[0]:.2f} us device / {kernel[1]:.2f} us eager; plain "
+          f"{plain[0]:.2f} us device / {plain[1]:.2f} us eager; library call {library:.2f} us "
+          f"device; bound {bound[0]:.2f} us ({bound[1]}), {100 * bound[0] / kernel[0]:.0f}% of it")
+    return {"ms": kernel[0] / 1e3, "plain_ms": plain[0] / 1e3, "library_ms": library / 1e3,
+            "bound_ms": bound[0] / 1e3, "bound_by": bound[1]}
+
+
 def check_close(what: str, out: torch.Tensor, ref: torch.Tensor) -> float:
     """Kernel vs plain version: fp32 differs only in summation order (1e-4 of
     the largest entry); bf16 rounds its output once on each side (2e-2)."""
@@ -242,17 +291,14 @@ def phase_kernels() -> dict:
                      (TRAIN_BATCH, torch.float32)):
         x = torch.randn((b, 29, 29, 256), generator=g).to("cuda", dtype)
         k = torch.randn((b, 5, 5, 256), generator=g).to("cuda", dtype)
-        kernel, plain = in_turns(depthwise_xcorr, depthwise_xcorr_reference, x, k)
-        times[(b, dtype)] = (kernel, plain)
-        print(f"[kernel] ({b},29,29,256)*({b},5,5,256) {str(dtype)[6:]}: kernel "
-              f"{kernel[0]:.2f} us device / {kernel[1]:.2f} us eager; plain "
-              f"{plain[0]:.2f} us device / {plain[1]:.2f} us eager")
-    kernel, plain = times[(1, torch.float32)]
+        times[(b, dtype)] = time_kernel(
+            f"[kernel] ({b},29,29,256)*({b},5,5,256) {str(dtype)[6:]}", depthwise_xcorr,
+            depthwise_xcorr_reference, (x, k), "forward", (x, k), x, k)
     return {"name": "depthwise_xcorr", "route": "cuda",
             "source": "siammask_tpu_torch/csrc/xcorr.cu",
             "replaces": "siammask_tpu/ops/xcorr_pallas.py:67",
             "max_abs_err": errors[((1, 29, 29, 256), torch.float32)],
-            "ms": kernel[0] / 1e3, "plain_ms": plain[0] / 1e3}
+            **times[(1, torch.float32)]}
 
 
 def phase_grad_kernels() -> list[dict]:
@@ -282,24 +328,23 @@ def phase_grad_kernels() -> list[dict]:
         errors[("kernel", xs, dtype)] = check_close(f"grad-kernel {tag}", dk, ref_dk)
         if xs[0] == TRAIN_BATCH:
             # no atomics: a second call gives the same bits
-            again = depthwise_xcorr_grad_kernel(x, go)
-            torch.cuda.synchronize()
-            if not torch.equal(again, dk):
-                raise AssertionError(f"grad-kernel {tag}: two calls differ")
-            print(f"[grad] grad-kernel {tag}: two calls bit-identical")
+            for which, first, again in (
+                    ("input", dx, depthwise_xcorr_grad_input(go, k, xs[1], xs[2])),
+                    ("kernel", dk, depthwise_xcorr_grad_kernel(x, go))):
+                torch.cuda.synchronize()
+                if not torch.equal(again, first):
+                    raise AssertionError(f"grad-{which} {tag}: two calls differ")
+                print(f"[grad] grad-{which} {tag}: two calls bit-identical")
 
     times = {}
     for b in (1, 16, TRAIN_BATCH):
         x, k, go = inputs((b, 29, 29, 256), (b, 5, 5, 256), torch.float32)
-        times[("input", b)] = in_turns(depthwise_xcorr_grad_input,
-                                       depthwise_xcorr_grad_input_reference, go, k, 29, 29)
-        times[("kernel", b)] = in_turns(depthwise_xcorr_grad_kernel,
-                                        depthwise_xcorr_grad_kernel_reference, x, go)
-        for which in ("input", "kernel"):
-            kernel, plain = times[(which, b)]
-            print(f"[grad] grad-{which} B={b} fp32: kernel {kernel[0]:.2f} us device / "
-                  f"{kernel[1]:.2f} us eager; plain {plain[0]:.2f} us device / "
-                  f"{plain[1]:.2f} us eager")
+        times[("input", b)] = time_kernel(
+            f"[grad] grad-input B={b} fp32", depthwise_xcorr_grad_input,
+            depthwise_xcorr_grad_input_reference, (go, k, 29, 29), "input", (go, k), x, k)
+        times[("kernel", b)] = time_kernel(
+            f"[grad] grad-kernel B={b} fp32", depthwise_xcorr_grad_kernel,
+            depthwise_xcorr_grad_kernel_reference, (x, go), "kernel", (x, go), x, k)
         # the whole backward through autograd, eager: the Function's two
         # kernels vs autograd of the plain forward (cuDNN's grouped conv)
         x.requires_grad_()
@@ -313,17 +358,12 @@ def phase_grad_kernels() -> list[dict]:
         print(f"[grad] autograd backward (dx and dk) B={b} fp32, eager: kernels "
               f"{kernel:.2f} us; plain autograd {plain:.2f} us")
 
-    records = []
-    for which in ("input", "kernel"):
-        kernel, plain = times[(which, TRAIN_BATCH)]
-        records.append({"name": f"depthwise_xcorr_grad_{which}", "route": "cuda",
-                        "source": "siammask_tpu_torch/csrc/xcorr.cu",
-                        # the custom_vjp backward of depthwise_xcorr_ad
-                        "replaces": "siammask_tpu/ops/xcorr_pallas.py:48",
-                        "max_abs_err": errors[(which, (TRAIN_BATCH, 29, 29, 256),
-                                               torch.float32)],
-                        "ms": kernel[0] / 1e3, "plain_ms": plain[0] / 1e3})
-    return records
+    # the custom_vjp backward of depthwise_xcorr_ad
+    return [{"name": f"depthwise_xcorr_grad_{which}", "route": "cuda",
+             "source": "siammask_tpu_torch/csrc/xcorr.cu",
+             "replaces": "siammask_tpu/ops/xcorr_pallas.py:48",
+             "max_abs_err": errors[(which, (TRAIN_BATCH, 29, 29, 256), torch.float32)],
+             **times[(which, TRAIN_BATCH)]} for which in ("input", "kernel")]
 
 
 def build_model(p) -> tuple[SiamMaskSharp, Tracker, np.ndarray]:
@@ -669,6 +709,10 @@ def phase_train_profile(trainer: Trainer, batch: dict) -> None:
               "device time; top: " + "; ".join(
                   f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
                   for e in top))
+        xcorr = [e for e in kernels if "depthwise_xcorr" in e.key]
+        print(f"[profile] {label} step, xcorr kernels: " + "; ".join(
+            f"{e.key.split('::')[-1].split('(')[0]} {e.self_device_time_total:.2f} us x{e.count}"
+            for e in xcorr))
         if conv_bwd != expected:
             raise AssertionError(f"{label}: {conv_bwd} conv backwards, expected {expected}")
 
@@ -720,7 +764,8 @@ def main() -> None:
         record["launches"] = a + b
     print(f"[launches] track slice {track_launches}, training slice {train_launches} "
           "(forward, grad-input, grad-kernel)")
-    order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms"]
+    order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms"]
     print(smi)
     print(json.dumps({"kernels": [{key: r[key] for key in order} for r in records]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,7 +20,8 @@
 // is no K dimension for `wgmma` or `mma.sync` to tile. The kernels win by
 // issuing fewer loads and moving fewer bytes, on the fp32 CUDA cores.
 //
-// Forward. A warp owns (b, 32-channel tile, strip of S = 5 outputs j0 ..
+// Forward (`depthwise_xcorr_strip_kernel`, shared with grad-input below).
+// A warp owns (b, 32-channel tile, strip of S = 5 outputs j0 ..
 // j0+4 along a row, band of output rows); SiamMask's Wo = 25 is 5 strips,
 // and a ragged last strip leaves its extra slots idle. A thread loads its
 // channel's Hk x Wk taps into registers once and keeps a rolling window of
@@ -42,9 +43,22 @@
 //
 //   grad-input:  dx[b, y, x, c] = sum_{dy, dx} g[b, y - dy, x - dx, c] * k[b, dy, dx, c]
 //                over the taps with 0 <= y - dy < Ho and 0 <= x - dx < Wo
-//                (a full correlation). One thread per element of dx, channels
-//                innermost as in the forward; the tap range is clipped once,
-//                so no tap inside the loop is out of bounds.
+//                (a full correlation). It is the forward's map on g padded
+//                with Hk-1 rows and Wk-1 columns of zeros on every side, with
+//                the taps flipped, so it runs the forward's strip kernel
+//                (`depthwise_xcorr_strip_kernel`, kFullCorr): the window
+//                holds g rows y-4 .. y and columns x0-4 .. x0+4, rows and
+//                columns outside g are zeros and are never loaded (the rows by
+//                a warp-uniform branch), and acc[s] takes g[y-dy, x0+s-dx] *
+//                k[dy, dx] in the same (dy, dx) order as the one-thread-per-
+//                output kernel it replaces. A zero tap adds exactly 0 to an
+//                fp32 sum, so the output equals that kernel's. SiamMask's
+//                Wx = 29 is 6 strips, the last 4 wide. Loads per output fall
+//                from up to 2*Hk*Wk (50) to at most 2.6 at B=64 (bands of 15
+//                rows) and 7.9 at B=1 (bands of 2 rows, 180 blocks).
+//                Templates larger than 5x5 take
+//                `depthwise_xcorr_grad_input_any_kernel`, one thread per
+//                element of dx with its taps clipped to g.
 //   grad-kernel: dk[b, dy, dx, c] = sum_{i < Ho, j < Wo} x[b, i + dy, j + dx, c] * g[b, i, j, c]
 //                A block owns one (b, 32-channel tile) and all taps of it, up
 //                to 5x5 (a larger template takes one block per 5x5 group of
@@ -61,19 +75,18 @@
 //                per channel tile); that is as fast as the one-tap-per-block
 //                version was, so the launcher does not split further.
 //
-// What bounds the two redesigned kernels now (inferred from bytes and time;
-// no hardware counters are read): at B=64 each moves ~98 MB (x 55 MB, g or
-// out 41 MB), which at the rate a plain copy reaches on an H100 (~2.85 TB/s)
-// takes ~34 us, against ~51 us measured for each; their FMAs take ~8 us and
-// their load instructions are a few per output. What is left is memory
-// latency: 116-128 registers a thread leave 16 warps an SM, each with one
-// row of loads in flight. More loads in flight per warp cost registers and
-// were slower (a second prefetched row, a fifth block per SM with spills).
+// What bounds the three kernels now (inferred from bytes and time; no
+// hardware counters are read): at B=64 each moves ~98 MB (x or dx 55 MB, g
+// or out 41 MB), which at the rate a plain copy reaches on an H100
+// (~2.85 TB/s) takes ~34 us, against ~51 us measured for the forward and
+// grad-kernel and ~56 us for grad-input; their FMAs take ~8 us and their
+// load instructions are a few per output. What is left is memory latency:
+// 116-128 registers a thread leave 16 warps an SM, each with one row of
+// loads in flight. More loads in flight per warp cost registers and were
+// slower (a second prefetched row, a fifth block per SM with spills).
 // A three-stage cp.async ring per warp in shared memory was ~9% faster for
 // grad-kernel in fp32 but is not used: cp.async copies at least 4 bytes, so
 // bf16 and ragged C would need a second path. PERF.md has the times.
-// grad-input is unchanged: one thread per output, ~2.8 GB of L1/L2 loads at
-// B=64, bound by load instructions.
 //
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,47 +110,59 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 constexpr int kChannelTile = 32;  // threadIdx.x: one warp across channels
 constexpr int kTapRows = 5;       // the template (or tap group) held in registers:
 constexpr int kTapCols = 5;       // SiamMask's 5x5
-constexpr int kFwdWarps = 4;      // forward: warps per block, each its own unit
-constexpr int kStrip = 5;         // forward: outputs along j per thread
-constexpr int kFwdWarpsPerSM = 8; // forward: bands are split until the grid has this many
-constexpr int kFwdBandRows = 16;  // forward: the longest band of output rows
-constexpr int kGradWarps = 8;     // grad-kernel, threadIdx.y: warps splitting the items
-constexpr int kGradChunk = 5;     // grad-kernel: outputs along j per item
+constexpr int kStripWarps = 4;      // strip kernel: warps per block, each its own unit
+constexpr int kStrip = 5;           // strip kernel: outputs along a row per thread
+constexpr int kStripWarpsPerSM = 8; // strip kernel: bands are split until the grid has this many
+constexpr int kStripBandRows = 16;  // strip kernel: the longest band of output rows
+constexpr int kGradWarps = 8;       // grad-kernel, threadIdx.y: warps splitting the items
+constexpr int kGradChunk = 5;       // grad-kernel: outputs along j per item
 
-// dst[t] = p[t * c] for t < n, 0 beyond: one coalesced load per element.
+// dst[t] = p[t * c] for lo <= t < n, 0 elsewhere: one coalesced load per element.
 template <typename T, int N>
-__device__ __forceinline__ void load_row(float (&dst)[N], const T* p, int c, int n) {
+__device__ __forceinline__ void load_row(float (&dst)[N], const T* p, int c, int lo, int n) {
 #pragma unroll
-  for (int t = 0; t < N; ++t) dst[t] = t < n ? to_float(p[t * c]) : 0.0f;
+  for (int t = 0; t < N; ++t) dst[t] = t >= lo && t < n ? to_float(p[t * c]) : 0.0f;
 }
 
-// One output row of a strip: acc[s] = sum_{dy, dx} w[dy][s + dx] * kr[dy][dx],
-// taps in (dy, dx) order. kFull: the template is exactly kTapRows x kTapCols.
-template <bool kFull>
+// One output row of a strip, taps in (dy, dx) order. kFull: the template is
+// exactly kTapRows x kTapCols.
+//   valid (forward):     acc[s] = sum_{dy, dx} w[dy][s + dx] * kr[dy][dx]
+//   kFull correlation:   acc[s] = sum_{dy, dx} w[kTapRows-1-dy][s + kTapCols-1-dx] * kr[dy][dx]
+template <bool kFull, bool kFullCorr>
 __device__ __forceinline__ void xcorr_row(float (&acc)[kStrip],
                                           const float (&w)[kTapRows][kStrip + kTapCols - 1],
                                           const float (&kr)[kTapRows][kTapCols], int hk, int wk) {
 #pragma unroll
   for (int dy = 0; dy < kTapRows; ++dy) {
     if (!kFull && dy >= hk) break;
+    const int d = kFullCorr ? kTapRows - 1 - dy : dy;
 #pragma unroll
     for (int dx = 0; dx < kTapCols; ++dx) {
       if (!kFull && dx >= wk) break;
+      const int t = kFullCorr ? kTapCols - 1 - dx : dx;
 #pragma unroll
-      for (int s = 0; s < kStrip; ++s) acc[s] = fmaf(w[dy][s + dx], kr[dy][dx], acc[s]);
+      for (int s = 0; s < kStrip; ++s) acc[s] = fmaf(w[d][s + t], kr[dy][dx], acc[s]);
     }
   }
 }
 
-// A warp owns (b, strip of kStrip outputs along j, band of output rows, 32
-// channels); units are numbered with the channel tile fastest.
-template <typename T>
-__global__ void __launch_bounds__(kChannelTile * kFwdWarps)
-    depthwise_xcorr_kernel(const T* __restrict__ x, const T* __restrict__ k, T* __restrict__ out,
-                           int hx, int wx, int c, int hk, int wk, int ho, int wo, int strips,
-                           int band, int bands, long long units) {
+// A warp owns (b, strip of kStrip outputs along a row, band of output rows,
+// 32 channels); units are numbered with the channel tile fastest. It reads
+// src (b, hs, ws, c) and writes dst (b, hd, wd, c).
+//   forward (kFullCorr false): src = x, dst = out; the window's row d holds
+//     x row i + d, columns j0 .. j0 + kStrip + kTapCols - 2.
+//   grad-input (kFullCorr true): src = g, dst = dx; the window starts
+//     kTapRows - 1 rows above and kTapCols - 1 columns left of that, and g's
+//     rows and columns outside g read as zero: the full correlation.
+template <typename T, bool kFullCorr>
+__global__ void __launch_bounds__(kChannelTile * kStripWarps)
+    depthwise_xcorr_strip_kernel(const T* __restrict__ src, const T* __restrict__ k,
+                                 T* __restrict__ dst, int hs, int ws, int c, int hk, int wk,
+                                 int hd, int wd, int strips, int band, int bands,
+                                 long long units) {
   constexpr int S = kStrip, W = S + kTapCols - 1;
-  const long long unit = (long long)blockIdx.x * kFwdWarps + threadIdx.y;
+  constexpr int oy = kFullCorr ? kTapRows - 1 : 0, ox = kFullCorr ? kTapCols - 1 : 0;
+  const long long unit = (long long)blockIdx.x * kStripWarps + threadIdx.y;
   const int tiles = (c + kChannelTile - 1) / kChannelTile;
   const int ch = (int)(unit % tiles) * kChannelTile + threadIdx.x;
   if (unit >= units || ch >= c) return;
@@ -146,8 +171,11 @@ __global__ void __launch_bounds__(kChannelTile * kFwdWarps)
   rest /= bands;
   const int j0 = (int)(rest % strips) * S;
   const long long b = rest / strips;
-  const int i1 = min(ho, i0 + band);
-  const int loads = min(S + wk - 1, wx - j0);  // columns j0 .. the strip's last tap
+  const int i1 = min(hd, i0 + band);
+  // window column t is src column j0 - ox + t; [lo, hi) lie inside src (and,
+  // in the forward, under the strip's taps)
+  const int lo = kFullCorr ? max(0, ox - j0) : 0;
+  const int hi = kFullCorr ? min(W, ws - j0 + ox) : min(S + wk - 1, ws - j0);
 
   float kr[kTapRows][kTapCols];
   const T* kb = k + b * hk * wk * c + ch;
@@ -157,32 +185,34 @@ __global__ void __launch_bounds__(kChannelTile * kFwdWarps)
     for (int dx = 0; dx < kTapCols; ++dx)
       kr[dy][dx] = dy < hk && dx < wk ? to_float(kb[(dy * wk + dx) * c]) : 0.0f;
 
-  // w[d] holds x row i + d; nx prefetches the row that output row i + 1 adds
-  const long long row = (long long)wx * c;
-  const T* xb = x + ((b * hx + i0) * wx + j0) * c + ch;
-  auto load_x = [&](float(&dst)[W], int r) {  // x row r
-    load_row(dst, xb + (r - i0) * row, c, r < hx ? loads : 0);
+  // w[d] holds src row i - oy + d; nx prefetches the row that output row
+  // i + 1 adds. Rows outside src are zero and are never loaded.
+  const long long row = (long long)ws * c;
+  const T* sb = src + ((b * hs + i0) * ws + j0 - ox) * c + ch;  // src[b, i0, j0 - ox, ch]
+  auto load_src = [&](float(&dst)[W], int r) {  // src row r
+    const bool inside = (!kFullCorr || r >= 0) && r < hs;
+    load_row(dst, sb + (r - i0) * row, c, lo, inside ? hi : 0);
   };
   float w[kTapRows][W], nx[W];
 #pragma unroll
-  for (int d = 0; d < kTapRows - 1; ++d) load_x(w[d], i0 + d);
-  load_x(nx, i0 + kTapRows - 1);
+  for (int d = 0; d < kTapRows - 1; ++d) load_src(w[d], i0 - oy + d);
+  load_src(nx, i0 - oy + kTapRows - 1);
   const bool full = hk == kTapRows && wk == kTapCols;
-  T* ob = out + ((b * ho + i0) * wo + j0) * c + ch;
+  T* ob = dst + ((b * hd + i0) * wd + j0) * c + ch;
   for (int i = i0; i < i1; ++i) {
 #pragma unroll
     for (int t = 0; t < W; ++t) w[kTapRows - 1][t] = nx[t];
-    if (i + 1 < i1) load_x(nx, i + kTapRows);
+    if (i + 1 < i1) load_src(nx, i + 1 - oy + kTapRows - 1);
     float acc[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) acc[s] = 0.0f;
     if (full)
-      xcorr_row<true>(acc, w, kr, hk, wk);
+      xcorr_row<true, kFullCorr>(acc, w, kr, hk, wk);
     else
-      xcorr_row<false>(acc, w, kr, hk, wk);
+      xcorr_row<false, kFullCorr>(acc, w, kr, hk, wk);
 #pragma unroll
     for (int s = 0; s < S; ++s)
-      if (j0 + s < wo) ob[(long long)(i - i0) * wo * c + s * c] = from_float<T>(acc[s]);
+      if (j0 + s < wd) ob[(long long)(i - i0) * wd * c + s * c] = from_float<T>(acc[s]);
 #pragma unroll
     for (int d = 0; d < kTapRows - 1; ++d)
 #pragma unroll
@@ -216,11 +246,13 @@ __global__ void depthwise_xcorr_any_kernel(const T* __restrict__ x, const T* __r
   out[idx] = from_float<T>(acc);
 }
 
+// grad-input for templates larger than kTapRows x kTapCols (none on the
+// model's paths): one thread per element of dx, its taps clipped to g.
 template <typename T>
-__global__ void depthwise_xcorr_grad_input_kernel(const T* __restrict__ g, const T* __restrict__ k,
-                                                  T* __restrict__ dx, int hx, int wx, int c,
-                                                  int hk, int wk, int ho, int wo,
-                                                  long long total) {
+__global__ void depthwise_xcorr_grad_input_any_kernel(const T* __restrict__ g,
+                                                      const T* __restrict__ k, T* __restrict__ dx,
+                                                      int hx, int wx, int c, int hk, int wk,
+                                                      int ho, int wo, long long total) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const int ch = (int)(idx % c);
@@ -309,10 +341,10 @@ __global__ void __launch_bounds__(kChannelTile * kGradWarps)
       const T* xc = xb + (long long)j0 * c;
       const T* gc = gb + (long long)j0 * c;
       auto load_x = [&](float(&dst)[W], int r) {  // x row dy0 + r
-        load_row(dst, xc + r * row, c, dy0 + r < hx ? loads : 0);
+        load_row(dst, xc + r * row, c, 0, dy0 + r < hx ? loads : 0);
       };
       auto load_g = [&](float(&dst)[kGradChunk], int r) {  // g row r
-        load_row(dst, gc + (long long)r * wo * c, c, n);
+        load_row(dst, gc + (long long)r * wo * c, c, 0, n);
       };
       float w[kTapRows][W], nx[W], gr[kGradChunk], ng[kGradChunk];
 #pragma unroll
@@ -358,49 +390,46 @@ __global__ void __launch_bounds__(kChannelTile * kGradWarps)
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x_, const void* k_, void* out_, int b, int hx, int wx, int c,
+// The forward (kFullCorr false: src = x (hx, wx), dst = out (ho, wo)) or
+// grad-input (kFullCorr true: src = g (ho, wo), dst = dx (hx, wx)).
+template <typename T, bool kFullCorr>
+cudaError_t launch(const void* src_, const void* k_, void* dst_, int b, int hx, int wx, int c,
                    int hk, int wk, int device, cudaStream_t stream) {
   const int ho = hx - hk + 1, wo = wx - wk + 1;
-  const long long total = (long long)b * ho * wo * c;
+  const int hs = kFullCorr ? ho : hx, ws = kFullCorr ? wo : wx;
+  const int hd = kFullCorr ? hx : ho, wd = kFullCorr ? wx : wo;
+  const long long total = (long long)b * hd * wd * c;
   if (total == 0) return cudaSuccess;
-  const T* x = static_cast<const T*>(x_);
+  const T* src = static_cast<const T*>(src_);
   const T* k = static_cast<const T*>(k_);
-  T* out = static_cast<T*>(out_);
+  T* dst = static_cast<T*>(dst_);
   if (hk > kTapRows || wk > kTapCols) {
-    depthwise_xcorr_any_kernel<T><<<(unsigned int)((total + 255) / 256), 256, 0, stream>>>(
-        x, k, out, hx, wx, c, hk, wk, ho, wo, total);
+    const unsigned int blocks = (unsigned int)((total + 255) / 256);
+    if constexpr (kFullCorr)
+      depthwise_xcorr_grad_input_any_kernel<T><<<blocks, 256, 0, stream>>>(
+          src, k, dst, hx, wx, c, hk, wk, ho, wo, total);
+    else
+      depthwise_xcorr_any_kernel<T><<<blocks, 256, 0, stream>>>(src, k, dst, hx, wx, c, hk, wk,
+                                                                ho, wo, total);
     return cudaGetLastError();
   }
   int sms = 0;
   const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  // bands of at most kFwdBandRows output rows, shorter ones (down to one
-  // row) while the grid has fewer than kFwdWarpsPerSM warps per SM
-  const int strips = (wo + kStrip - 1) / kStrip;
+  // bands of at most kStripBandRows output rows, shorter ones (down to one
+  // row) while the grid has fewer than kStripWarpsPerSM warps per SM
+  const int strips = (wd + kStrip - 1) / kStrip;
   const long long columns = (long long)b * ((c + kChannelTile - 1) / kChannelTile) * strips;
-  const long long fill = ((long long)kFwdWarpsPerSM * sms + columns - 1) / columns;
+  const long long fill = ((long long)kStripWarpsPerSM * sms + columns - 1) / columns;
   const int split = (int)std::min<long long>(
-      ho, std::max<long long>(fill, (ho + kFwdBandRows - 1) / kFwdBandRows));
-  const int band = (ho + split - 1) / split;
-  const int bands = (ho + band - 1) / band;
+      hd, std::max<long long>(fill, (hd + kStripBandRows - 1) / kStripBandRows));
+  const int band = (hd + split - 1) / split;
+  const int bands = (hd + band - 1) / band;
   const long long units = columns * bands;
-  depthwise_xcorr_kernel<T>
-      <<<(unsigned int)((units + kFwdWarps - 1) / kFwdWarps), dim3(kChannelTile, kFwdWarps), 0,
-         stream>>>(x, k, out, hx, wx, c, hk, wk, ho, wo, strips, band, bands, units);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_grad_input(const void* g, const void* k, void* dx, int b, int hx, int wx, int c,
-                              int hk, int wk, cudaStream_t stream) {
-  const long long total = (long long)b * hx * wx * c;
-  if (total == 0) return cudaSuccess;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  depthwise_xcorr_grad_input_kernel<T><<<(unsigned int)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(k), static_cast<T*>(dx), hx, wx, c, hk,
-      wk, hx - hk + 1, wx - wk + 1, total);
+  depthwise_xcorr_strip_kernel<T, kFullCorr>
+      <<<(unsigned int)((units + kStripWarps - 1) / kStripWarps),
+         dim3(kChannelTile, kStripWarps), 0, stream>>>(src, k, dst, hs, ws, c, hk, wk, hd, wd,
+                                                       strips, band, bands, units);
   return cudaGetLastError();
 }
 
@@ -430,8 +459,9 @@ extern "C" int siammask_depthwise_xcorr(const void* x, const void* k, void* out,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(x, k, out, b, hx, wx, c, hk, wk, device, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(x, k, out, b, hx, wx, c, hk, wk, device, s);
+  if (dtype == 0) return (int)launch<float, false>(x, k, out, b, hx, wx, c, hk, wk, device, s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16, false>(x, k, out, b, hx, wx, c, hk, wk, device, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -441,8 +471,9 @@ extern "C" int siammask_depthwise_xcorr_grad_input(const void* g, const void* k,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_grad_input<float>(g, k, dx, b, hx, wx, c, hk, wk, s);
-  if (dtype == 1) return (int)launch_grad_input<__nv_bfloat16>(g, k, dx, b, hx, wx, c, hk, wk, s);
+  if (dtype == 0) return (int)launch<float, true>(g, k, dx, b, hx, wx, c, hk, wk, device, s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16, true>(g, k, dx, b, hx, wx, c, hk, wk, device, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -103,6 +103,8 @@ GRAD_SHAPES = [
     ((2, 29, 29, 256), (2, 5, 5, 256)),  # the training shape at batch 2
     ((3, 17, 23, 13), (3, 4, 3, 13)),    # ragged C and a non-square template
     ((2, 5, 5, 7), (2, 5, 5, 7)),        # 1x1 output
+    ((2, 9, 9, 8), (2, 1, 1, 8)),        # 1x1 template: g is dx's size
+    ((2, 12, 4, 8), (2, 5, 1, 8)),       # 5x1 template, search narrower than one strip
 ]
 
 
@@ -235,6 +237,8 @@ def test_xcorr_kernel_matches_plain_on_card(cuda_device, xs, ks, dtype):
     ((2, 5, 5, 7), (2, 5, 5, 7), torch.float32),            # 1x1 output
     ((3, 17, 23, 13), (3, 4, 3, 13), torch.float32),        # C below one channel tile
     ((64, 20, 20, 64), (64, 7, 7, 64), torch.float32),      # more taps than one 5x5 group
+    ((2, 9, 9, 8), (2, 1, 1, 8), torch.float32),            # 1x1 template
+    ((2, 12, 4, 8), (2, 5, 1, 8), torch.float32),           # 5x1 template, one ragged strip
 ])
 def test_xcorr_grad_kernels_match_plain_on_card(cuda_device, xs, ks, dtype):
     x, k = (torch.from_numpy(a).to(cuda_device, dtype) for a in _pair(xs, ks, seed=8))
@@ -256,13 +260,17 @@ def test_xcorr_grad_kernels_match_plain_on_card(cuda_device, xs, ks, dtype):
 
 
 @pytest.mark.cuda
-def test_xcorr_grad_kernel_is_deterministic_on_card(cuda_device):
+@pytest.mark.parametrize("which", ["input", "kernel"])
+def test_xcorr_grad_kernel_is_deterministic_on_card(cuda_device, which):
     """No atomics: two calls at the training batch give the same bits."""
-    x = torch.from_numpy(_pair((64, 29, 29, 256), (1, 1, 1, 1), seed=13)[0]).to(cuda_device)
+    x, k = (torch.from_numpy(a).to(cuda_device)
+            for a in _pair((64, 29, 29, 256), (64, 5, 5, 256), seed=13))
     g = torch.randn((64, 25, 25, 256), generator=torch.Generator().manual_seed(14))
     g = g.to(cuda_device)
-    first = depthwise_xcorr_grad_kernel(x, g)
-    second = depthwise_xcorr_grad_kernel(x, g)
+    call = {"input": lambda: depthwise_xcorr_grad_input(g, k, 29, 29),
+            "kernel": lambda: depthwise_xcorr_grad_kernel(x, g)}[which]
+    first = call()
+    second = call()
     torch.cuda.synchronize()
     assert torch.equal(first, second)
 
