@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card: ``python3 chip_smoke.py``.
 
-Drives the port's two main paths at the published width (64; 127x127
+Drives the port's main paths at the published width (64; 127x127
 template, 255x255 search, 25x25x5 anchors) in fp32 with TF32 off, on
 synthetic uint8 frames made from a numpy seed, with seeded random weights:
 
 - the SiamMask-sharp track step (``Tracker.init`` / ``Tracker.step``,
   127x127 masks) on 480x854 frames;
+- whole videos: ``Tracker.track_video`` over 64 frames, a CUDA-graph replay
+  per frame, and 16 streams on one frame (``init_batched`` /
+  ``step_batched`` / ``track_video_multi`` over 32 frames);
+- the VOS drivers (``track_vos_batched``, ``track_vos``) on a YouTube-VOS-
+  style video of 41 frames and three objects written under ``build/``;
 - the SiamMask-base stage-1 training step (``Trainer.step``, the
   ``experiments/siammask_base/config.json`` recipe) at batch 64, two steps
   with the backbone frozen and two after the unfreeze.
@@ -28,18 +33,42 @@ Phases, each of which raises on failure:
 6. the same track step on the card and on the CPU from the same state, open
    loop;
 7. per-step track latency and frames/s on the card;
-8. the training slice: per step finite losses, no skip, 3 + 3 + 3 kernel
-   launches, the frozen stages bit-identical and the trainable ones moved;
-   then the loss falling over 8 steps on the repeated batch; peak memory;
-9. one training step on the card and on the CPU from the same weights and
-   batch (B=2), open loop;
-10. the profile of one frozen and one unfrozen step (no backbone backward
+8. the video: ``track_video`` over 64 frames on the card against the eager
+   ``step`` loop from the same state (the same ``best_id`` at every frame,
+   every output bit-identical), one call under ``sync_debug_mode("error")``,
+   3 xcorr kernels a frame, frames/s (median of 5 calls by CUDA events), and
+   device ms a frame, idle share and host calls a frame from one profiled
+   call; peak memory;
+9. 16 streams: ``init_batched`` (centres U(100, 400), sizes U(60, 200)),
+   ``step_batched`` with 3 xcorr launches at B=16 and each stream against
+   the single-stream ``step`` from the same state, ``track_video_multi``
+   over 32 frames against the eager ``step_batched`` loop (bit-identical),
+   aggregate frames/s, the profile of one batched step (top 10 device ops,
+   busy share) and of one graph call; peak memory;
+10. ``step_batched`` at O=2 on the card and on the CPU from the same state,
+    open loop; then the device time of each layer of the step (crop,
+    backbone and heads, decode tail, skip windows, Refine, warp-back, the
+    rest) at O=1 and O=16, on the step's own intermediates;
+11. the VOS drivers: ``track_vos_batched`` (ragged stretches through
+    ``step_batched``, one full window through the graph, a re-init at the
+    late start; 3 xcorr launches a frame) against ``track_vos``, the late
+    object absent before its start, object-frames/s; skipped, with a line
+    that says so, where cv2 or PIL is not installed;
+12. the training slice: per step finite losses, no skip, 3 + 3 + 3 kernel
+    launches, the frozen stages bit-identical and the trainable ones moved;
+    then the loss falling over 8 steps on the repeated batch; peak memory;
+13. one training step on the card and on the CPU from the same weights and
+    batch (B=2), open loop;
+14. the profile of one frozen and one unfrozen step (no backbone backward
     while frozen), and train ms/step and samples/s.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel with its launches on the main paths, error, times, bound and
 the time of the one library call (cuDNN's grouped conv) that computes the
-same function.
+same function. A kernel captured in a CUDA graph passes through its wrapper
+(and its count) once, at capture; on the graph paths its launches are the
+captured launches times the replays, which phases 8 and 9 confirm by kernel
+name in a profiler trace.
 """
 from __future__ import annotations
 
@@ -58,9 +87,11 @@ import torch.nn.functional as F
 
 from siammask_tpu_torch.config import Config
 from siammask_tpu_torch.data.anchor_target import AnchorTarget
+from siammask_tpu_torch.eval.datasets import load_dataset
+from siammask_tpu_torch.models.heads import slice_skip_windows
 from siammask_tpu_torch.models.siammask import SiamMaskBase, SiamMaskSharp
 from siammask_tpu_torch.ops import _build
-from siammask_tpu_torch.ops.sample import subwindow_crop
+from siammask_tpu_torch.ops.sample import subwindow_crop, warp_back_mask
 from siammask_tpu_torch.ops.xcorr import (_to_groups, depthwise_xcorr,
                                           depthwise_xcorr_grad_input,
                                           depthwise_xcorr_grad_input_reference,
@@ -68,7 +99,9 @@ from siammask_tpu_torch.ops.xcorr import (_to_groups, depthwise_xcorr,
                                           depthwise_xcorr_grad_kernel_reference,
                                           depthwise_xcorr_reference)
 from siammask_tpu_torch.tracker.anchors import Anchors
-from siammask_tpu_torch.tracker.tracker import Tracker, TrackState
+from siammask_tpu_torch.tracker.runtime import TrackerRuntime
+from siammask_tpu_torch.tracker.tracker import StepOutput, Tracker, TrackState
+from siammask_tpu_torch.tracker.vos import track_vos, track_vos_batched
 from siammask_tpu_torch.train.lr import build_lr_spaces
 from siammask_tpu_torch.train.trainer import OptimizerConfig, Trainer, TrainSettings
 
@@ -80,6 +113,14 @@ TARGET_POS, TARGET_SZ = (300.0, 200.0), (120.0, 90.0)
 SEED = 0
 STEPS = 20
 TIMED_STEPS = 50
+VIDEO_T = 64              # bench.py's siammask_sharp_scan_fps_T64
+STREAMS, STREAMS_T = 16, 32
+# the VOS phase: a YouTube-VOS-style video, three objects, the third from
+# frame VOS_LATE; frames 1-10 and 27-40 step through step_batched, 11-26 are
+# one full window through the graph
+VOS_FRAMES, VOS_CHUNK, VOS_LATE = 41, 16, 10
+VOS_RAGGED, VOS_FULL = 24, 16
+TIMED_CALLS = 5
 TRAIN_BATCH = 64          # tools/train.py's default
 TRAIN_EPOCHS = 2          # epoch 0 frozen, epoch 1 unfrozen (unfreeze_at 0.5)
 TRAIN_FRAME_HW = (360, 480)
@@ -372,11 +413,10 @@ def build_model(p) -> tuple[SiamMaskSharp, Tracker, np.ndarray]:
     frames = synthetic_frames(STEPS + TIMED_STEPS + 12)
     f0 = torch.from_numpy(frames[0]).cuda()
     avg = f0.mean(dim=(0, 1), dtype=torch.float32)
-    pos = torch.tensor(TARGET_POS, device="cuda")
-    z = subwindow_crop(f0, pos, torch.tensor(180.0, device="cuda"), 127, avg)
-    x = subwindow_crop(f0, pos, torch.tensor(360.0, device="cuda"), 255, avg)
-    calibrate_bn(model, z.permute(2, 0, 1)[None].contiguous(),
-                 x.permute(2, 0, 1)[None].contiguous())
+    pos = torch.tensor([TARGET_POS], device="cuda")
+    z = subwindow_crop(f0, pos, torch.tensor([180.0], device="cuda"), 127, avg[None])
+    x = subwindow_crop(f0, pos, torch.tensor([360.0], device="cuda"), 255, avg[None])
+    calibrate_bn(model, z.permute(0, 3, 1, 2).contiguous(), x.permute(0, 3, 1, 2).contiguous())
     return model, Tracker(model, p, "cuda"), frames
 
 
@@ -437,23 +477,42 @@ def phase_slice(tracker: Tracker, frames: np.ndarray):
     return state, launches
 
 
-def phase_cpu_parity(model, tracker, p, state: TrackState, frame: np.ndarray) -> None:
+def cpu_tracker_of(model: SiamMaskSharp, p) -> Tracker:
+    """The same weights in a tracker on the CPU."""
+    cpu_model = SiamMaskSharp(width=64)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return Tracker(cpu_model.eval(), p, "cpu")
+
+
+def check_step_close(what: str, out: StepOutput, ref: StepOutput) -> float:
+    """A step's outputs against a reference step of other kernels (cuDNN's
+    summation order against the CPU's, or another batch size): the same
+    best_id, positions and sizes within 1e-2 px, the Refine mask within 1e-3
+    of its largest magnitude. Returns the mask's max abs error."""
+    ref = StepOutput(*(v.to(out.best_id.device) for v in ref))
+    if not torch.equal(out.best_id, ref.best_id):
+        raise AssertionError(f"{what}: best_id {out.best_id.tolist()} vs {ref.best_id.tolist()}")
+    torch.testing.assert_close(out.target_pos, ref.target_pos, rtol=0, atol=1e-2)
+    torch.testing.assert_close(out.target_sz, ref.target_sz, rtol=0, atol=1e-2)
+    scale = ref.mask_logits.abs().max().item()
+    torch.testing.assert_close(out.mask_logits, ref.mask_logits, rtol=0, atol=1e-3 * scale)
+    return (out.mask_logits - ref.mask_logits).abs().max().item()
+
+
+def phase_cpu_parity(model, tracker, cpu_tracker, state: TrackState, frame: np.ndarray) -> None:
     """The same step on the card and on the CPU, from the same state, open
     loop. Tolerances cover cuDNN's summation order against the CPU's over a
     ResNet-50 of random weights."""
-    cpu_model = SiamMaskSharp(width=64)
-    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    cpu_model.eval()
-    cpu_tracker = Tracker(cpu_model, p, "cpu")
+    cpu_model = cpu_tracker.model
     cpu_state = TrackState(*(t.cpu() for t in state))
 
     with torch.inference_mode():
-        x = subwindow_crop(torch.from_numpy(frame), cpu_state.target_pos,
-                           torch.tensor(400.0), 255, cpu_state.avg_chans)
-        x = x.permute(2, 0, 1)[None].contiguous()
+        x = subwindow_crop(torch.from_numpy(frame), cpu_state.target_pos[None],
+                           torch.tensor([400.0]), 255, cpu_state.avg_chans[None])
+        x = x.permute(0, 3, 1, 2).contiguous()
         ref = cpu_model.track_mask(cpu_state.zf, x)
         ours = model.track_mask(state.zf, x.cuda())
-        cell = torch.tensor([12, 12])
+        cell = torch.tensor([[12, 12]])
         ref_m = cpu_model.track_refine(ref.skips, ref.corr, cell)
         ours_m = model.track_refine(ours.skips, ours.corr, cell.cuda())
     # maps: relative floor, 1e-3 of the largest magnitude (fp32, TF32 off)
@@ -466,17 +525,10 @@ def phase_cpu_parity(model, tracker, p, state: TrackState, frame: np.ndarray) ->
 
     _, out = tracker.step(state, torch.from_numpy(frame).cuda())
     _, ref_out = cpu_tracker.step(cpu_state, frame)
-    if out.best_id.item() != ref_out.best_id.item():
-        raise AssertionError(f"best_id {out.best_id.item()} vs CPU {ref_out.best_id.item()}")
-    # positions in pixels: 1e-2 px
-    torch.testing.assert_close(out.target_pos.cpu(), ref_out.target_pos, rtol=0, atol=1e-2)
-    torch.testing.assert_close(out.target_sz.cpu(), ref_out.target_sz, rtol=0, atol=1e-2)
-    scale = ref_out.mask_logits.abs().max().item()
-    torch.testing.assert_close(out.mask_logits.cpu(), ref_out.mask_logits, rtol=0,
-                               atol=1e-3 * scale)
+    err = check_step_close("step, card vs CPU", out, ref_out)
     print(f"[parity] step: best_id {out.best_id.item()} on both; pos "
           f"{out.target_pos.cpu().tolist()} vs {ref_out.target_pos.tolist()}; "
-          f"mask max_abs_err {(out.mask_logits.cpu() - ref_out.mask_logits).abs().max().item():.3e}")
+          f"mask max_abs_err {err:.3e}")
 
 
 def phase_timing(tracker: Tracker, state: TrackState, frames: np.ndarray, smi: str) -> None:
@@ -501,6 +553,358 @@ def phase_timing(tracker: Tracker, state: TrackState, frames: np.ndarray, smi: s
           f"median {med:.3f} ms, p80 {p80:.3f} ms (CUDA events), "
           f"{statistics.median(wall_ms):.3f} ms median (host clock to sync) over "
           f"{TIMED_STEPS} steps; {1e3 / med:.1f} frames/s | {smi}")
+
+
+def stacked(outs: list) -> StepOutput:
+    return StepOutput(*(torch.stack(v) for v in zip(*outs)))
+
+
+def check_bit_identical(what: str, outs: StepOutput, ref: StepOutput, final: TrackState,
+                        ref_final: TrackState) -> None:
+    """A graph replay against the eager loop: the same kernels in the same
+    order, so the same best_id at every frame and the same bits."""
+    if not torch.equal(outs.best_id, ref.best_id):
+        bad = (outs.best_id != ref.best_id).nonzero()[:, 0].tolist()
+        raise AssertionError(f"{what}: best_id differs at frames {bad}")
+    for name, a, b in (*zip(StepOutput._fields, outs, ref),
+                       *zip(("final " + f for f in TrackState._fields), final, ref_final)):
+        if not torch.equal(a, b):
+            err = (a.float() - b.float()).abs().max().item()
+            raise AssertionError(f"{what}: {name} is not bit-identical (max abs diff {err:.3e})")
+
+
+def time_calls(fn) -> tuple[list[float], list[float]]:
+    """(CUDA-event ms, host ms to the end of the work) of TIMED_CALLS calls;
+    the caller has run ``fn`` before (a graph's capture and first replays)."""
+    torch.cuda.synchronize()
+    event_ms, wall_ms = [], []
+    for _ in range(TIMED_CALLS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        event_ms.append(start.elapsed_time(end))
+    return event_ms, wall_ms
+
+
+def profile_call(fn) -> tuple[list, float, float]:
+    """One call under torch.profiler: (the averaged events, the device-busy
+    ms summed over kernels and copies, the call's ms by CUDA events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return events, busy, start.elapsed_time(end)
+
+
+def check_graph_profile(what: str, events, busy: float, call_ms: float, frames: int,
+                        streams: int) -> None:
+    """Confirms 3 xcorr kernels a frame by kernel name in the trace of a
+    graph call and prints device ms a frame, the idle share and the host's
+    CUDA calls a frame."""
+    xcorr = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                and "depthwise_xcorr" in e.key)
+    if xcorr != 3 * frames:
+        raise AssertionError(f"{what}: {xcorr} xcorr kernels in the trace of {frames} frames")
+    host = {k: sum(e.count for e in events if e.key == k)
+            for k in ("cudaGraphLaunch", "cudaMemcpyAsync", "cudaLaunchKernel")}
+    print(f"[{what}] profiled call: {xcorr} xcorr kernels by name ({xcorr // frames} a frame); "
+          f"device busy {busy:.3f} ms of {call_ms:.3f} ms, {busy / frames:.3f} ms a frame "
+          f"({busy / (frames * streams):.3f} ms a stream-frame), idle share "
+          f"{100 * (1 - busy / call_ms):.1f}%; host calls a frame: "
+          + ", ".join(f"{k} {v / frames:.1f}" for k, v in host.items()))
+
+
+def phase_video(tracker: Tracker, frames: np.ndarray, smi: str) -> tuple[int, TrackState]:
+    """track_video over VIDEO_T frames on the card: a CUDA-graph replay per
+    frame, against the eager step loop; returns the xcorr launches of the
+    graph path (captured launches times replays) and the final state."""
+    t = VIDEO_T
+    dev = torch.from_numpy(frames[:t + 1]).cuda()
+    state = tracker.init(dev[0], TARGET_POS, TARGET_SZ)
+    st, eager = state, []
+    for f in dev[1:]:
+        st, out = tracker.step(st, f)
+        eager.append(out)
+    eager = stacked(eager)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    final, outs = tracker.track_video(state, dev[1:])    # captures, then T replays
+    torch.cuda.synchronize()
+    counted = read_launches()
+    graph = tracker.graphs[(1, *FRAME_HW, torch.uint8)]
+    if counted[0] == 0 or counted[1:] != [0, 0] or graph.xcorr_launches != 3:
+        raise AssertionError(f"video: {counted} launches through the wrappers, "
+                             f"{graph.xcorr_launches} xcorr kernels captured (expected 3)")
+    peak = torch.cuda.max_memory_allocated()
+    check_bit_identical("video", outs, eager, final, st)
+    for i in range(t):
+        check_output(StepOutput(*(v[i] for v in outs)), FRAME_HW)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = tracker.track_video(state, dev[1:])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check_bit_identical("video, second call", again[1], eager, again[0], st)
+    print(f"[video] track_video, T={t}, width 64, 480x854 uint8: a CUDA graph of the step "
+          f"({graph.xcorr_launches} xcorr kernels captured; {counted[0]} xcorr launches "
+          f"through the wrapper, warm-up and capture), {graph.xcorr_launches * t} xcorr "
+          f"launches by replay; best_id and every output bit-identical to the eager step "
+          f"loop; the second call ran under sync_debug_mode=error; peak memory "
+          f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held before the call)")
+    event_ms, wall_ms = time_calls(lambda: tracker.track_video(state, dev[1:]))
+    med = statistics.median(event_ms)
+    print(f"[video] {TIMED_CALLS} calls of T={t}: median {med:.3f} ms (CUDA events; min "
+          f"{min(event_ms):.3f}, max {max(event_ms):.3f}), {med / t:.3f} ms a frame, "
+          f"{t * 1e3 / med:.1f} frames/s; host clock to the end "
+          f"{statistics.median(wall_ms):.3f} ms | {smi}")
+    check_graph_profile("video", *profile_call(lambda: tracker.track_video(state, dev[1:])),
+                        t, 1)
+    return graph.xcorr_launches * t, final
+
+
+def stream_state(states: TrackState, i: int) -> TrackState:
+    return TrackState(states.target_pos[i], states.target_sz[i], states.zf[i:i + 1],
+                      states.avg_chans[i], states.score[i])
+
+
+def phase_streams(tracker: Tracker, frames: np.ndarray, smi: str) -> tuple[int, TrackState]:
+    """STREAMS objects on one video: init_batched, step_batched against the
+    single-stream step of each stream, track_video_multi against the eager
+    step_batched loop; returns the xcorr launches of the 16-stream paths and
+    the states after one step."""
+    o, t = STREAMS, STREAMS_T
+    rng = np.random.RandomState(SEED)
+    pos = rng.uniform(100, 400, (o, 2)).astype(np.float32)
+    sz = rng.uniform(60, 200, (o, 2)).astype(np.float32)
+    dev = torch.from_numpy(frames[:t + 1]).cuda()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    states = tracker.init_batched(dev[0], pos, sz)
+    reset_launches()
+    stepped, out = tracker.step_batched(states, dev[1])
+    torch.cuda.synchronize()
+    step_launches = read_launches()
+    if step_launches != [3, 0, 0]:
+        raise AssertionError(f"step_batched: {step_launches} launches, expected [3, 0, 0]")
+    errs = []
+    for i in range(o):
+        _, single = tracker.step(stream_state(states, i), dev[1])
+        errs.append(check_step_close(f"stream {i}", StepOutput(*(v[i] for v in out)), single))
+        check_output(single, FRAME_HW)
+    print(f"[streams] init_batched + step_batched at O={o}: 3 xcorr launches at B={o}; each "
+          f"stream against the single-stream step: best_id equal, pos/sz within 1e-2 px, "
+          f"largest mask error {max(errs):.3e}; best_id {out.best_id.tolist()}")
+    events, busy, call_ms = profile_call(lambda: tracker.step_batched(states, dev[1]))
+    kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    print(f"[streams] profiled eager step_batched at O={o}: device busy {busy:.3f} ms of "
+          f"{call_ms:.3f} ms ({100 * busy / call_ms:.1f}% busy), {len(kernels)} kernel names; "
+          "top 10 by self device time: " + "; ".join(
+              f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+              for e in kernels[:10]))
+
+    st, eager = states, []
+    for f in dev[1:]:
+        st, step_out = tracker.step_batched(st, f)
+        eager.append(step_out)
+    eager = stacked(eager)
+    reset_launches()
+    final, outs = tracker.track_video_multi(states, dev[1:])
+    torch.cuda.synchronize()
+    counted = read_launches()
+    graph = tracker.graphs[(o, *FRAME_HW, torch.uint8)]
+    if counted[0] == 0 or counted[1:] != [0, 0] or graph.xcorr_launches != 3:
+        raise AssertionError(f"streams: {counted} launches through the wrappers, "
+                             f"{graph.xcorr_launches} xcorr kernels captured (expected 3)")
+    check_bit_identical("streams", outs, eager, final, st)
+    if outs.mask_in_frame.shape != (t, o, *FRAME_HW) or not torch.isfinite(outs.mask_in_frame).all():
+        raise AssertionError(f"streams: masks {tuple(outs.mask_in_frame.shape)}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[streams] track_video_multi, O={o}, T={t}: {graph.xcorr_launches * t} xcorr "
+          f"launches by replay at B={o}; best_id and every output bit-identical to the eager "
+          f"step_batched loop; peak memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB "
+          "held before the phase)")
+    event_ms, wall_ms = time_calls(lambda: tracker.track_video_multi(states, dev[1:]))
+    med = statistics.median(event_ms)
+    print(f"[streams] {TIMED_CALLS} calls of O={o}, T={t}: median {med:.3f} ms (CUDA events; "
+          f"min {min(event_ms):.3f}, max {max(event_ms):.3f}), {med / t:.3f} ms a frame, "
+          f"{o * t * 1e3 / med:.1f} aggregate frames/s; host clock to the end "
+          f"{statistics.median(wall_ms):.3f} ms | {smi}")
+    check_graph_profile("streams", *profile_call(
+        lambda: tracker.track_video_multi(states, dev[1:])), t, o)
+    return step_launches[0] + graph.xcorr_launches * t, stepped
+
+
+@torch.inference_mode()
+def phase_layers(tracker: Tracker, frame: torch.Tensor, *batches: TrackState) -> None:
+    """Device time of each layer of the step for each batched state (one
+    stream's tracked state, O=1, and the 16 streams' after a step), each a
+    CUDA graph of repeated calls on the step's own intermediates: the crop at
+    the step's crop sizes, the backbone and heads (``track_mask``), the
+    decode tail (decode, penalty, argmax, state update, clamp), the
+    skip-window gather and Refine at the step's best cells, the warp-back of
+    the step's masks with its back-boxes, and the whole step. The rest is the
+    step less the timed layers: the NCHW copy of the crop, the sigmoid, the
+    geometry."""
+    p = tracker.p
+    h, w = frame.shape[:2]
+    for st in batches:
+        o = st.target_pos.shape[0]
+        s_x_full, scale_x = tracker._search_window(st)
+
+        def crop():
+            return subwindow_crop(frame, st.target_pos, s_x_full, p.instance_size, st.avg_chans)
+
+        x = crop().permute(0, 3, 1, 2).contiguous()
+        out = tracker.model.track_mask(st.zf, x)
+        best = tracker._decode(st, out.score, out.loc, scale_x, h, w)[0]
+        cells = tracker._cells(best)
+        masks = torch.sigmoid(tracker.model.track_refine(out.skips, out.corr, cells))
+        masks = masks.reshape(o, p.out_size, p.out_size)
+        boxes = tracker._back_box(st.target_pos, s_x_full, cells, h, w)
+        _, step_out = tracker._step_body(st, frame)
+        if not (torch.equal(step_out.best_id, best) and torch.equal(step_out.mask_logits, masks)):
+            raise AssertionError(f"layers, O={o}: the intermediates are not the step's")
+        us = {"crop": graph_us(crop, n=20),
+              "track_mask": graph_us(tracker.model.track_mask, st.zf, x, n=5),
+              "decode tail": graph_us(tracker._decode, st, out.score, out.loc, scale_x, h, w,
+                                      n=20),
+              "skip windows": graph_us(slice_skip_windows, *out.skips, cells, n=20),
+              "Refine": graph_us(tracker.model.track_refine, out.skips, out.corr, cells, n=10),
+              "warp-back": graph_us(warp_back_mask, masks, boxes, (h, w), n=20),
+              "step": graph_us(tracker._step_body, st, frame, n=5)}
+        rest = us["step"] - sum(v for k, v in us.items() if k not in ("step", "skip windows"))
+        print(f"[layers] O={o}, device us a step on the step's own intermediates (CUDA graphs "
+              "of repeated calls; Refine includes the skip windows): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in us.items())
+              + f"; the rest of the step {rest:.1f}")
+
+
+def phase_streams_cpu_parity(tracker: Tracker, cpu_tracker: Tracker, states: TrackState,
+                             frame: np.ndarray) -> None:
+    """step_batched for two streams on the card and on the CPU, from the same
+    state, open loop, at phase 6's tolerances."""
+    two = TrackState(*(v[:2] for v in states))
+    _, out = tracker.step_batched(two, torch.from_numpy(frame).cuda())
+    _, ref = cpu_tracker.step_batched(TrackState(*(v.cpu() for v in two)), frame)
+    err = check_step_close("step_batched, card vs CPU", out, ref)
+    print(f"[streams-parity] step_batched at O=2, card vs CPU: best_id {out.best_id.tolist()} "
+          f"on both; mask max_abs_err {err:.3e}")
+
+
+def write_vos_video(root: Path) -> None:
+    """A YouTube-VOS valid-split video ``vid`` of VOS_FRAMES 480x854 frames
+    under ``root`` (JPEG frames, a label PNG for every frame, ``meta.json``):
+    three textured rectangles drifting over blocky noise, the third from
+    frame VOS_LATE on."""
+    import cv2
+
+    rng = np.random.RandomState(SEED + 1)
+    h, w = FRAME_HW
+    valid = root / "ytb_vos" / "valid"
+    for sub in ("JPEGImages", "Annotations"):
+        (valid / sub / "vid").mkdir(parents=True)
+    coarse = rng.randint(0, 256, size=(h // 8 + 1, w // 8 + 1, 3)).astype(np.uint8)
+    background = np.repeat(np.repeat(coarse, 8, axis=0), 8, axis=1)[:h, :w]
+    # (top-left x, y, width, height, x drift a frame, first frame); they never overlap
+    objects = ((145, 105, 110, 90, 3, 0), (515, 235, 90, 130, -3, 0),
+               (380, 85, 80, 70, 3, VOS_LATE))
+    patches = [rng.randint(0, 256, size=(oh, ow, 3)).astype(np.uint8)
+               for _, _, ow, oh, _, _ in objects]
+    names = [f"{5 * i:05d}" for i in range(VOS_FRAMES)]
+    for i, name in enumerate(names):
+        im, anno = background.copy(), np.zeros((h, w), np.uint8)
+        for k, ((x0, y0, ow, oh, vx, first), patch) in enumerate(zip(objects, patches)):
+            if i >= first:
+                x, y = x0 + vx * (i - first), y0 + 2 * (i - first)
+                im[y:y + oh, x:x + ow] = patch
+                anno[y:y + oh, x:x + ow] = k + 1
+        cv2.imwrite(str(valid / "JPEGImages" / "vid" / f"{name}.jpg"), im)
+        cv2.imwrite(str(valid / "Annotations" / "vid" / f"{name}.png"), anno)
+    meta = {"videos": {"vid": {"objects": {
+        str(k + 1): {"category": "synthetic", "frames": names[first:]}
+        for k, (*_, first) in enumerate(objects)}}}}
+    (valid / "meta.json").write_text(json.dumps(meta))
+
+
+def phase_vos(model: SiamMaskSharp, p, smi: str) -> int:
+    """The VOS drivers on the card, through ``load_dataset`` as a user calls
+    them: ``track_vos_batched`` (scan_chunk VOS_CHUNK: ragged stretches
+    through ``step_batched``, a full window through the CUDA graph, a re-init
+    of the late object) against the sequential ``track_vos``; the batched
+    driver's object-frames/s. Returns its xcorr launches (through the wrapper
+    and by replay). Needs cv2 and PIL, the drivers' image I/O."""
+    try:
+        import cv2  # noqa: F401
+        import PIL  # noqa: F401
+    except ImportError as e:
+        print(f"[vos] skipped: the VOS drivers' image I/O is not installed ({e})")
+        return 0
+    root = REPO / "build" / "vos_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    write_vos_video(root)
+    video = load_dataset("ytb_vos", str(root))["vid"]
+    if video["start_frame"] != {"1": 0, "2": 0, "3": VOS_LATE}:
+        raise AssertionError(f"vos: start frames {video['start_frame']}")
+    runtime = TrackerRuntime(model, p, "cuda")
+    track_vos_batched(runtime, video, scan_chunk=VOS_CHUNK, log=lambda *_: None)  # captures
+    torch.cuda.synchronize()
+    reset_launches()
+    lines = []
+    t0 = time.perf_counter()
+    iou_b, fps_b = track_vos_batched(runtime, video, scan_chunk=VOS_CHUNK,
+                                     result_dir=str(root / "results"), dataset="ytb_vos",
+                                     save_mask=True, log=lines.append)
+    wall_b = time.perf_counter() - t0
+    launches = read_launches()
+    graph = runtime.tracker.graphs[(3, *FRAME_HW, torch.uint8)]
+    if launches != [3 * VOS_RAGGED, 0, 0] or graph.xcorr_launches != 3:
+        raise AssertionError(f"vos: {launches} launches through the wrappers (expected "
+                             f"{[3 * VOS_RAGGED, 0, 0]}), {graph.xcorr_launches} captured")
+    iou_b = np.asarray(iou_b)
+    if iou_b.shape != (3, 4) or not np.all((iou_b >= 0) & (iou_b <= 1)):
+        raise AssertionError(f"vos: IoU {iou_b}")
+    fused = [cv2.imread(str(f), cv2.IMREAD_UNCHANGED) for f in
+             sorted((root / "results" / "ytb_vos" / "SiamMask" / "vid").glob("*.png"))]
+    gt3 = cv2.imread(video["anno_init_files"][2], cv2.IMREAD_UNCHANGED) == 3
+    if (len(fused) != VOS_FRAMES or any((m == 3).any() for m in fused[:VOS_LATE])
+            or not (fused[VOS_LATE][gt3] == 3).all()):
+        raise AssertionError("vos: object 3 is not absent before its start frame and its "
+                             "annotation at it")
+    t0 = time.perf_counter()
+    iou_s, fps_s = track_vos(runtime, video, log=lambda *_: None)
+    wall_s = time.perf_counter() - t0
+    # the batched and the sequential steps run other conv batch sizes, so the
+    # masks differ in cuDNN's summation order: a pixel may cross a threshold
+    diff = np.abs(iou_b - np.asarray(iou_s)).max()
+    if diff > 1e-2:
+        raise AssertionError(f"vos: batched IoU {iou_b.tolist()} vs sequential "
+                             f"{np.asarray(iou_s).tolist()}")
+    print(f"[vos] track_vos_batched, ytb_vos layout, {VOS_FRAMES} frames 480x854, 3 objects "
+          f"(one from frame {VOS_LATE}), scan_chunk {VOS_CHUNK}: {3 * VOS_RAGGED} xcorr "
+          f"launches through step_batched, {graph.xcorr_launches * VOS_FULL} by replay; "
+          f"IoU at 0.3 {iou_b[:, 0].round(4).tolist()}, within {diff:.2e} of track_vos; object "
+          "3 absent before its start and its annotation at it")
+    print(f"[vos] {fps_b:.1f} object-frames/s batched (driver's clock, file reads excluded; "
+          f"{wall_b:.3f} s for the call), {fps_s:.1f} sequential ({wall_s:.3f} s); "
+          f"{lines[-1].strip()} | {smi}")
+    shutil.rmtree(root, ignore_errors=True)
+    return 3 * VOS_RAGGED + graph.xcorr_launches * VOS_FULL
 
 
 FROZEN_ALWAYS = ("features.features.conv1.", "features.features.bn1.",
@@ -543,9 +947,9 @@ def synthetic_train_batch(cfg: Config, b: int, device, seed: int = SEED) -> dict
         avg = frame.mean(dim=(0, 1), dtype=torch.float32)
         for key, pos, size, model_sz in (("template", (cx, cy), s_z, 127),
                                          ("search", (sx, sy), s_x, 255)):
-            crop = subwindow_crop(frame, torch.tensor(pos, device=device),
-                                  torch.tensor(size, device=device), model_sz, avg)
-            out[key].append(crop.permute(2, 0, 1))
+            crop = subwindow_crop(frame, torch.tensor([pos], device=device),
+                                  torch.tensor([size], device=device), model_sz, avg[None])
+            out[key].append(crop[0].permute(2, 0, 1))
         # frame x -> search pixel (x - origin + 0.5) / scale - 0.5, origin as
         # subwindow_crop rounds it (half to even, as np.round)
         scale = s_x / 255
@@ -742,10 +1146,19 @@ def main() -> None:
     records = [phase_kernels(), *phase_grad_kernels()]
     p = Config.load(str(CONFIG)).tracker_config()
     model, tracker, frames = build_model(p)
+    cpu_tracker = cpu_tracker_of(model, p)
     state, track_launches = phase_slice(tracker, frames)
-    phase_cpu_parity(model, tracker, p, state, frames[STEPS + 2])
+    phase_cpu_parity(model, tracker, cpu_tracker, state, frames[STEPS + 2])
     phase_timing(tracker, state, frames[STEPS + 2:], smi)
-    del model, tracker, state
+    video_launches, video_state = phase_video(tracker, frames, smi)
+    streams_launches, states = phase_streams(tracker, frames, smi)
+    phase_streams_cpu_parity(tracker, cpu_tracker, states, frames[2])
+    one = TrackState(video_state.target_pos[None], video_state.target_sz[None],
+                     video_state.zf, video_state.avg_chans[None], video_state.score[None])
+    phase_layers(tracker, torch.from_numpy(frames[2]).cuda(), one, states)
+    vos_launches = phase_vos(model, p, smi)
+    del model, tracker, cpu_tracker, state, states, video_state, one
+    torch.cuda.empty_cache()
 
     cfg = Config.load(str(TRAIN_CONFIG), clip=10.0)
     batch = synthetic_train_batch(cfg, TRAIN_BATCH, "cuda")
@@ -760,12 +1173,17 @@ def main() -> None:
     phase_train_profile(trainer, batch)
     phase_train_timing(trainer, batch, smi)
 
-    for record, a, b in zip(records, track_launches, train_launches):
-        record["launches"] = a + b
-    print(f"[launches] track slice {track_launches}, training slice {train_launches} "
-          "(forward, grad-input, grad-kernel)")
+    # the forward also runs on the video and 16-stream paths, by graph replay
+    paths = {"track": track_launches, "video": [video_launches, 0, 0],
+             "streams16": [streams_launches, 0, 0], "vos": [vos_launches, 0, 0],
+             "train": train_launches}
+    for i, record in enumerate(records):
+        record["launches_by_path"] = {k: v[i] for k, v in paths.items()}
+        record["launches"] = sum(record["launches_by_path"].values())
+    print("[launches] " + ", ".join(f"{k} {v}" for k, v in paths.items())
+          + " (forward, grad-input, grad-kernel)")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms"]
+             "bound_ms", "bound_by", "library_ms", "launches_by_path"]
     print(smi)
     print(json.dumps({"kernels": [{key: r[key] for key in order} for r in records]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

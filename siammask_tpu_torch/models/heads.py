@@ -153,23 +153,25 @@ class Refine(nn.Module):
 
 
 def slice_skip_windows(p0, p1, p2, pos_yx: torch.Tensor):
-    """Skip windows at one score-map cell, for the inference path.
+    """Skip windows at one score-map cell per sample, for the inference path.
 
-    p0/p1/p2 are the full NCHW search skip maps (1, C, H, W); pos_yx is the
-    (row, col) cell as an integer device tensor, so nothing syncs. The
-    reference pads by (16, 8, 4) and slices windows of (61, 31, 15) at
-    strides (4, 2, 1) from the cell; clamped gathers with an out-of-bounds
-    zero mask give the same windows without padded copies."""
-    y, x = pos_yx[0], pos_yx[1]
+    p0/p1/p2 are the full NCHW search skip maps (B, C, H, W); pos_yx (B, 2)
+    is the (row, col) cell of each sample, an integer device tensor, so
+    nothing syncs. The reference pads by
+    (16, 8, 4) and slices windows of (61, 31, 15) at strides (4, 2, 1) from
+    the cell; clamped gathers, columns first, with an out-of-bounds zero mask
+    give the same windows without padded copies."""
+    y, x = pos_yx[:, :1], pos_yx[:, 1:]
 
     def win_gather(f, pad, scale, win):
-        n = f.shape[2]
+        b, ch, n, _ = f.shape
         ar = torch.arange(win, device=f.device)
-        r = scale * y - pad + ar
+        r = scale * y - pad + ar                      # (B, win)
         c = scale * x - pad + ar
-        g = f.index_select(3, c.clamp(0, n - 1)).index_select(2, r.clamp(0, n - 1))
-        valid = ((r >= 0) & (r < n))[:, None] & ((c >= 0) & (c < n))[None, :]
-        return g * valid.to(g.dtype)
+        g = f.gather(3, c.clamp(0, n - 1)[:, None, None, :].expand(b, ch, n, win))
+        g = g.gather(2, r.clamp(0, n - 1)[:, None, :, None].expand(b, ch, win, win))
+        valid = ((r >= 0) & (r < n))[:, :, None] & ((c >= 0) & (c < n))[:, None, :]
+        return g * valid[:, None].to(g.dtype)
 
     return (win_gather(p0, 16, 4, 61),
             win_gather(p1, 8, 2, 31),

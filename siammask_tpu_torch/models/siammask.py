@@ -116,11 +116,11 @@ class SiamMaskSharp(_SiamMask):
         return TrackOutputs(score, loc, skips, corr)
 
     def track_refine(self, skips, corr, pos_yx: torch.Tensor):
-        """Refined 127x127 mask logits at the (row, col) cell ``pos_yx``, an
-        integer device tensor: the windows are gathered, not sliced on the
-        host."""
+        """Refined 127x127 mask logits at the (row, col) cell of each sample,
+        ``pos_yx`` (B, 2), an integer device tensor: the windows and the corr
+        vectors are gathered, not sliced on the host."""
         w0, w1, w2 = slice_skip_windows(*skips, pos_yx)
         b, c, _, s = corr.shape
-        cell = (pos_yx[0] * s + pos_yx[1]).view(1)
-        cvec = corr.flatten(2).index_select(2, cell).reshape(b, c)
+        cell = pos_yx[:, 0] * s + pos_yx[:, 1]
+        cvec = corr.flatten(2).gather(2, cell[:, None, None].expand(b, c, 1)).reshape(b, c)
         return self.refine_model(w0, w1, w2, cvec)

@@ -17,7 +17,11 @@ k (B, Hk, Wk, C) -> (B, Hx-Hk+1, Wx-Wk+1, C). For SiamMask:
 - ``depthwise_xcorr_grad_input`` / ``depthwise_xcorr_grad_kernel``: the
   gradient wrappers the backward calls; the backward computes each only for
   an input that needs it.
-- Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+- Each wrapper counts its kernel launches in ``<wrapper>.launches``, a
+  host counter that moves where the wrapper launches. A launch captured
+  into a CUDA graph counts once, at capture: each replay launches the kernel
+  again without passing through the wrapper, so a graph path launches its
+  captured count (``tracker.StepGraph.xcorr_launches``) times its replays.
 - ``depthwise_xcorr_reference`` and the two ``*_reference`` gradients: the
   plain versions, grouped convs with groups=B*C.
 """

@@ -1,1 +1,1 @@
-"""Single-object tracker and its host runtime."""
+"""Tracker (one object, O objects, whole videos), its host runtime and the VOS drivers."""

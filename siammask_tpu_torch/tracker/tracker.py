@@ -1,12 +1,29 @@
-"""Single-object SiamMask-sharp tracker on the device.
+"""SiamMask-sharp tracker on the device: one object, O objects at once, and
+whole videos.
 
 Counterpart of the ``mask=True, refine=True`` path of
-``siammask_tpu/tracker/tracker.py``. One ``step`` runs the whole frame on the
+``siammask_tpu/tracker/tracker.py``. One step runs the whole frame on the
 model's device -- sub-window crop, backbone and heads, anchor decode,
 scale/ratio penalty, cosine-window argmax, state update, Refine at the best
 cell, sigmoid and warp-back to the frame -- without a host sync: no
 ``.item()``, no copy to the host, no branch on a device value. Anchors, the
 window and the frame-bound clamps are device constants built once.
+
+There is one step body, ``_step_body``, with a leading stream axis O: the
+JAX package's ``vmap`` of its step over streams, written out. Every stream
+shares the frame and carries its own state. ``step`` is its O=1 case, so
+the single-object and the batched paths run the same kernels.
+
+- ``init`` / ``step``: one object (TrackState leaves (2,), (2,),
+  (1, 256, 7, 7), (3,), ()).
+- ``init_batched`` / ``step_batched``: O objects on one frame (every leaf
+  with a leading O axis: (O, 2), (O, 2), (O, 256, 7, 7), (O, 3), (O,)).
+- ``track_video`` / ``track_video_multi``: T frames (T, H, W, 3), the
+  counterparts of the JAX package's ``lax.scan``; every output is stacked
+  along a leading T axis. On a CUDA device the frames are replayed through a
+  CUDA graph of the step (``StepGraph``), one per (O, H, W, frame dtype),
+  the most recently used kept on the tracker; on the CPU they are a plain
+  loop over the step.
 
 The numerics are the reference's: context-scaled crop sizes rounded half to
 even, the decode/penalty formulas, the EMA size update, the sub-box/back-box
@@ -20,8 +37,12 @@ import numpy as np
 import torch
 
 from siammask_tpu_torch.config import TrackerConfig
+from siammask_tpu_torch.ops import _build
 from siammask_tpu_torch.ops.sample import subwindow_crop, warp_back_mask
+from siammask_tpu_torch.ops.xcorr import depthwise_xcorr
 from siammask_tpu_torch.tracker.anchors import generate_score_map_anchors
+
+MAX_GRAPHS = 2      # captured step graphs a tracker keeps, most recently used
 
 
 class TrackState(NamedTuple):
@@ -41,6 +62,17 @@ class StepOutput(NamedTuple):
     mask_logits: torch.Tensor    # (out_sz, out_sz) sigmoid mask in cell coords
 
 
+def _batch(state: TrackState) -> TrackState:
+    """One object's state as the O=1 batched state (zf has its axis already)."""
+    return TrackState(state.target_pos[None], state.target_sz[None], state.zf,
+                      state.avg_chans[None], state.score[None])
+
+
+def _unbatch(state: TrackState) -> TrackState:
+    return TrackState(state.target_pos[0], state.target_sz[0], state.zf,
+                      state.avg_chans[0], state.score[0])
+
+
 def make_window(p: TrackerConfig) -> np.ndarray:
     s = p.score_size
     if p.windowing == "cosine":
@@ -51,15 +83,77 @@ def make_window(p: TrackerConfig) -> np.ndarray:
 
 
 def _context_size(target_sz, context_amount):
-    wc = target_sz[0] + context_amount * target_sz.sum()
-    hc = target_sz[1] + context_amount * target_sz.sum()
+    """sqrt(wc * hc) of each stream's (..., 2) size."""
+    total = target_sz.sum(-1)
+    wc = target_sz[..., 0] + context_amount * total
+    hc = target_sz[..., 1] + context_amount * total
     return torch.sqrt(wc * hc)
+
+
+class StepGraph:
+    """The batched step captured as one CUDA graph for (O, H, W, frame dtype).
+
+    Inputs and outputs live in static buffers: ``frame`` and ``state`` in,
+    ``out`` out. The captured step ends by copying the new state into
+    ``state``, so a replay advances the state on the device and nothing goes
+    to the host between frames. ``xcorr_launches`` is the number of xcorr
+    kernels captured: each replay launches that many without passing
+    through the wrapper (whose count moves only at capture).
+
+    The warm-up and the capture run on ``side``, one stream kept by the
+    tracker: a library workspace is kept per stream, so a new stream for
+    every capture would hold one more workspace each time (32 MiB each on an
+    H100)."""
+
+    def __init__(self, tracker: Tracker, state: TrackState, frame: torch.Tensor,
+                 side: torch.cuda.Stream):
+        device = frame.device
+        _build.load_library()           # nvcc runs at first use, never under capture
+        self.frame = frame.clone()
+        self.state = TrackState(*(t.clone() for t in state))
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):     # warm-up, as torch.cuda.graph asks
+            for _ in range(2):
+                tracker._step_body(self.state, self.frame)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        before = depthwise_xcorr.launches
+        with torch.cuda.graph(self.graph, stream=side):
+            new_state, self.out = tracker._step_body(self.state, self.frame)
+            for static, new in zip(self.state, new_state):
+                if new is not static:
+                    static.copy_(new)
+        self.xcorr_launches = depthwise_xcorr.launches - before
+
+    def run(self, state: TrackState, frames: torch.Tensor) -> tuple[TrackState, StepOutput]:
+        """Copy ``state`` in, replay once per frame, copy each frame's
+        outputs into fresh (T, ...) stacks; the final state is returned as
+        fresh tensors too, so the caller never holds a static buffer. Per
+        frame the host issues a frame copy, the replay and one copy per
+        output."""
+        for static, value in zip(self.state, state):
+            static.copy_(value)
+        stacks = [torch.empty((frames.shape[0], *v.shape), dtype=v.dtype, device=v.device)
+                  for v in self.out]
+        for t in range(frames.shape[0]):
+            self.frame.copy_(frames[t])
+            self.graph.replay()
+            for stack, value in zip(stacks, self.out):
+                stack[t].copy_(value)
+        return TrackState(*(t.clone() for t in self.state)), StepOutput(*stacks)
 
 
 class Tracker:
     """Tracker for one SiamMaskSharp model (already on ``device``, in eval
     mode) and one config. Frames are (H, W, 3) uint8 or float arrays or
-    tensors; a tensor already on the device is used as it is."""
+    tensors; a tensor already on the device is used as it is.
+
+    ``graphs`` holds the captured ``StepGraph`` of the ``MAX_GRAPHS`` most
+    recently used (O, H, W, frame dtype) keys. Each graph keeps a private
+    memory pool of one step's intermediates, which grows with O and the frame
+    size, so a run over videos of many object counts and sizes drops the
+    least recently used graph, and with it its pool, before it captures
+    another."""
 
     def __init__(self, model, p: TrackerConfig, device: torch.device | str):
         self.model = model
@@ -69,6 +163,8 @@ class Tracker:
             generate_score_map_anchors(p.anchor_config(), p.score_size), device=self.device)
         self.window = torch.as_tensor(make_window(p), device=self.device)
         self._bounds: dict[tuple[int, int], tuple[torch.Tensor, ...]] = {}
+        self.graphs: dict[tuple, StepGraph] = {}
+        self._side: torch.cuda.Stream | None = None   # every capture's stream
 
     def _frame(self, frame) -> torch.Tensor:
         return torch.as_tensor(frame, device=self.device)
@@ -82,49 +178,60 @@ class Tracker:
                                  torch.tensor([im_w, im_h], **f32))
         return self._bounds[key]
 
+    # ---------------- init ----------------
+
     @torch.inference_mode()
     def init(self, frame, target_pos, target_sz) -> TrackState:
         """frame (H, W, 3); target_pos / target_sz: (2,) center and size."""
+        pos = torch.as_tensor(target_pos, dtype=torch.float32, device=self.device)
+        sz = torch.as_tensor(target_sz, dtype=torch.float32, device=self.device)
+        return _unbatch(self.init_batched(frame, pos[None], sz[None]))
+
+    @torch.inference_mode()
+    def init_batched(self, frame, target_pos, target_sz) -> TrackState:
+        """O objects on one frame: target_pos / target_sz (O, 2). One
+        template pass at batch O; every leaf of the state has the O axis."""
         p = self.p
         frame = self._frame(frame)
         self._clamps(frame.shape[0], frame.shape[1])  # built here, not in a step
         target_pos = torch.as_tensor(target_pos, dtype=torch.float32, device=self.device)
         target_sz = torch.as_tensor(target_sz, dtype=torch.float32, device=self.device)
-        avg_chans = frame.mean(dim=(0, 1), dtype=torch.float32)
+        o = target_pos.shape[0]
+        avg_chans = frame.mean(dim=(0, 1), dtype=torch.float32).expand(o, -1).contiguous()
         s_z = torch.round(_context_size(target_sz, p.context_amount))
         z_crop = subwindow_crop(frame, target_pos, s_z, p.exemplar_size, avg_chans)
-        zf = self.model.template(z_crop.permute(2, 0, 1)[None].contiguous())
+        zf = self.model.template(z_crop.permute(0, 3, 1, 2).contiguous())
         return TrackState(target_pos, target_sz, zf, avg_chans,
-                          torch.zeros((), dtype=torch.float32, device=self.device))
+                          torch.zeros(o, dtype=torch.float32, device=self.device))
 
-    @torch.inference_mode()
-    def step(self, state: TrackState, frame) -> tuple[TrackState, StepOutput]:
+    # ---------------- step ----------------
+
+    def _search_window(self, state: TrackState):
+        """Each stream's search crop side in frame pixels, s_x_full (O,), and
+        its scale to the exemplar, scale_x (O,)."""
         p = self.p
-        k, s = p.anchor_num, p.score_size
-        frame = self._frame(frame)
-        im_h, im_w = frame.shape[0], frame.shape[1]
-        target_pos, target_sz = state.target_pos, state.target_sz
-
-        # search-region geometry
-        s_x = _context_size(target_sz, p.context_amount)
+        s_x = _context_size(state.target_sz, p.context_amount)
         scale_x = p.exemplar_size / s_x
         pad = (p.instance_size - p.exemplar_size) / 2 / scale_x
-        s_x_full = torch.round(s_x + 2 * pad)
-        crop_xy = target_pos - s_x_full / 2
+        return torch.round(s_x + 2 * pad), scale_x
 
-        x_crop = subwindow_crop(frame, target_pos, s_x_full, p.instance_size, state.avg_chans)
-        out = self.model.track_mask(state.zf, x_crop.permute(2, 0, 1)[None].contiguous())
-
-        # decode; NCHW channels are blocked (2, k) / (4, k), so a reshape
-        # gives the anchor-major (C, k*S*S) layout of the anchor table
-        logits = out.score.reshape(2, k * s * s)
-        score = torch.sigmoid(logits[1] - logits[0])     # 2-way softmax fg prob
-        delta = out.loc.reshape(4, k * s * s)
-        dx = delta[0] * self.anchor[:, 2] + self.anchor[:, 0]
-        dy = delta[1] * self.anchor[:, 3] + self.anchor[:, 1]
+    def _decode(self, state: TrackState, score_map: torch.Tensor, loc: torch.Tensor,
+                scale_x: torch.Tensor, im_h: int, im_w: int):
+        """The decode tail: anchor decode, scale/ratio penalty, cosine window,
+        argmax over dim 1, EMA size update and the clamp into the frame.
+        Returns best (O,), its score (O,), new_pos and new_sz (O, 2)."""
+        p = self.p
+        o, k, s = score_map.shape[0], p.anchor_num, p.score_size
+        # NCHW channels are blocked (2, k) / (4, k), so a reshape gives the
+        # anchor-major (O, C, k*S*S) layout of the anchor table
+        logits = score_map.reshape(o, 2, k * s * s)
+        score = torch.sigmoid(logits[:, 1] - logits[:, 0])  # 2-way softmax fg prob
+        delta = loc.reshape(o, 4, k * s * s)
+        dx = delta[:, 0] * self.anchor[:, 2] + self.anchor[:, 0]
+        dy = delta[:, 1] * self.anchor[:, 3] + self.anchor[:, 1]
         # exp overflows fp32 past 88; |delta| <= 20 is identity for real boxes
-        dw = torch.exp(delta[2].clamp(-20.0, 20.0)) * self.anchor[:, 2]
-        dh = torch.exp(delta[3].clamp(-20.0, 20.0)) * self.anchor[:, 3]
+        dw = torch.exp(delta[:, 2].clamp(-20.0, 20.0)) * self.anchor[:, 2]
+        dh = torch.exp(delta[:, 3].clamp(-20.0, 20.0)) * self.anchor[:, 3]
 
         def change(r):
             return torch.maximum(r, 1.0 / r)
@@ -133,44 +240,113 @@ class Tracker:
             pad_ = (w + h) * 0.5
             return torch.sqrt((w + pad_) * (h + pad_))
 
-        target_in_crop = target_sz * scale_x
-        s_c = change(ssz(dw, dh) / ssz(target_in_crop[0], target_in_crop[1]))
-        r_c = change((target_in_crop[0] / target_in_crop[1]) / (dw / dh))
+        target_in_crop = state.target_sz * scale_x[:, None]
+        tw, th = target_in_crop[:, :1], target_in_crop[:, 1:]
+        s_c = change(ssz(dw, dh) / ssz(tw, th))
+        r_c = change((tw / th) / (dw / dh))
         penalty = torch.exp(-(r_c * s_c - 1) * p.penalty_k)
         pscore = penalty * score * (1 - p.window_influence) + self.window * p.window_influence
-        best = torch.argmax(pscore)
-        bi = best.view(1)
+        best = torch.argmax(pscore, dim=1)
+        bi = best[:, None]
 
         def at(v):
-            return v.index_select(0, bi)[0]
+            return v.gather(1, bi)[:, 0]
 
-        # state update
-        lr = at(penalty) * at(score) * p.lr
-        new_pos = target_pos + torch.stack([at(dx), at(dy)]) / scale_x
-        pred_wh = torch.stack([at(dw), at(dh)]) / scale_x
-        new_sz = target_sz * (1 - lr) + pred_wh * lr
-
-        # refine at the best cell, then warp back to the frame
-        cell = best % (s * s)
-        delta_y = cell // s
-        delta_x = cell % s
-        logits_m = self.model.track_refine(out.skips, out.corr, torch.stack([delta_y, delta_x]))
-        mask_cell = torch.sigmoid(logits_m.reshape(p.out_size, p.out_size))
-
-        sc = s_x_full / p.instance_size
-        sub_x = crop_xy[0] + (delta_x - p.base_size / 2) * p.total_stride * sc
-        sub_y = crop_xy[1] + (delta_y - p.base_size / 2) * p.total_stride * sc
-        sub_w = sc * p.exemplar_size
-        s2 = p.out_size / sub_w
-        back_box = torch.stack([-sub_x * s2, -sub_y * s2, im_w * s2, im_h * s2])
-        mask_in_frame = warp_back_mask(mask_cell, back_box, (im_h, im_w))
-
-        # clamp into the frame
+        lr = (at(penalty) * at(score) * p.lr)[:, None]
+        new_pos = state.target_pos + torch.stack([at(dx), at(dy)], 1) / scale_x[:, None]
+        pred_wh = torch.stack([at(dw), at(dh)], 1) / scale_x[:, None]
+        new_sz = state.target_sz * (1 - lr) + pred_wh * lr
         zero, ten, wh = self._clamps(im_h, im_w)
         new_pos = torch.minimum(torch.maximum(new_pos, zero), wh)
         new_sz = torch.minimum(torch.maximum(new_sz, ten), wh)
+        return best, at(score).to(torch.float32), new_pos, new_sz
 
-        best_score = at(score).to(torch.float32)
+    def _cells(self, best: torch.Tensor) -> torch.Tensor:
+        """The (row, col) score-map cell (O, 2) of each flat argmax."""
+        s = self.p.score_size
+        cell = best % (s * s)
+        return torch.stack([cell // s, cell % s], 1)
+
+    def _back_box(self, target_pos: torch.Tensor, s_x_full: torch.Tensor, cells: torch.Tensor,
+                  im_h: int, im_w: int) -> torch.Tensor:
+        """(O, 4) [bx, by, bw, bh]: the frame in the 127x127 mask coordinates
+        of each stream's best cell (the reference's sub-box geometry)."""
+        p = self.p
+        crop_xy = target_pos - s_x_full[:, None] / 2
+        sc = s_x_full / p.instance_size
+        sub_x = crop_xy[:, 0] + (cells[:, 1] - p.base_size / 2) * p.total_stride * sc
+        sub_y = crop_xy[:, 1] + (cells[:, 0] - p.base_size / 2) * p.total_stride * sc
+        s2 = p.out_size / (sc * p.exemplar_size)
+        return torch.stack([-sub_x * s2, -sub_y * s2, im_w * s2, im_h * s2], 1)
+
+    def _step_body(self, state: TrackState, frame: torch.Tensor):
+        """One frame for O streams (batched state, shared device frame)."""
+        p = self.p
+        o = state.target_pos.shape[0]
+        im_h, im_w = frame.shape[0], frame.shape[1]
+        s_x_full, scale_x = self._search_window(state)
+        x_crop = subwindow_crop(frame, state.target_pos, s_x_full, p.instance_size,
+                                state.avg_chans)
+        out = self.model.track_mask(state.zf, x_crop.permute(0, 3, 1, 2).contiguous())
+        best, best_score, new_pos, new_sz = self._decode(state, out.score, out.loc, scale_x,
+                                                         im_h, im_w)
+        # refine at each stream's best cell, then warp back to the frame
+        cells = self._cells(best)
+        logits_m = self.model.track_refine(out.skips, out.corr, cells)
+        mask_cell = torch.sigmoid(logits_m.reshape(o, p.out_size, p.out_size))
+        back_box = self._back_box(state.target_pos, s_x_full, cells, im_h, im_w)
+        mask_in_frame = warp_back_mask(mask_cell, back_box, (im_h, im_w))
+
         new_state = state._replace(target_pos=new_pos, target_sz=new_sz, score=best_score)
         return new_state, StepOutput(new_pos, new_sz, best_score, best,
                                      mask_in_frame, mask_cell)
+
+    @torch.inference_mode()
+    def step(self, state: TrackState, frame) -> tuple[TrackState, StepOutput]:
+        """One frame for one object: the O=1 case of ``step_batched``."""
+        new_state, out = self._step_body(_batch(state), self._frame(frame))
+        return _unbatch(new_state), StepOutput(*(v[0] for v in out))
+
+    @torch.inference_mode()
+    def step_batched(self, states: TrackState, frame) -> tuple[TrackState, StepOutput]:
+        """One frame for O objects at once: the crop, backbone, heads and
+        Refine run at batch O; outputs have the leading O axis."""
+        return self._step_body(states, self._frame(frame))
+
+    # ---------------- whole video ----------------
+
+    @torch.inference_mode()
+    def track_video_multi(self, states: TrackState, frames) -> tuple[TrackState, StepOutput]:
+        """T frames (T, H, W, 3) for O objects: returns the final state and
+        the step outputs stacked as (T, O, ...). The frames are uploaded once
+        if they are not on the device. On a CUDA device each frame is a
+        replay of the ``StepGraph`` for (O, H, W, frame dtype), captured at
+        the first call with that key and kept while it is among the
+        ``MAX_GRAPHS`` most recently used; capture or replay errors raise.
+        Elsewhere it is a loop over ``step_batched``."""
+        frames = self._frame(frames)
+        if self.device.type != "cuda":
+            outs = []
+            for frame in frames:
+                states, out = self._step_body(states, frame)
+                outs.append(out)
+            return states, StepOutput(*(torch.stack(v) for v in zip(*outs)))
+        _, h, w, _ = frames.shape
+        key = (states.target_pos.shape[0], h, w, frames.dtype)
+        graph = self.graphs.pop(key, None)
+        if graph is None:
+            while len(self.graphs) >= MAX_GRAPHS:   # drop the least recently used
+                self.graphs.pop(next(iter(self.graphs)))
+            self._clamps(h, w)          # a host-to-device copy: never under capture
+            if self._side is None:
+                self._side = torch.cuda.Stream(self.device)
+            graph = StepGraph(self, states, frames[0], self._side)
+        self.graphs[key] = graph        # now the most recently used
+        return graph.run(states, frames)
+
+    @torch.inference_mode()
+    def track_video(self, state: TrackState, frames) -> tuple[TrackState, StepOutput]:
+        """T frames (T, H, W, 3) for one object: the final state and the
+        outputs stacked as (T, ...); ``track_video_multi`` at O=1."""
+        final, outs = self.track_video_multi(_batch(state), frames)
+        return _unbatch(final), StepOutput(*(v[:, 0] for v in outs))

@@ -145,7 +145,7 @@ def test_track_refine_matches_jax(pair, tracked, cell):
     ref = jax.jit(lambda v, s, c, p: jmodel.apply(v, s, c, p, method="track_refine"))(
         variables, out.skips, out.corr, pos)
     with torch.inference_mode():
-        ours = model.track_refine(tout.skips, tout.corr, torch.tensor(cell))
+        ours = model.track_refine(tout.skips, tout.corr, torch.tensor([cell]))
     assert ours.shape == (1, 127 * 127)
     assert_close(ours, ref)
 
@@ -154,7 +154,7 @@ def test_track_refine_matches_jax(pair, tracked, cell):
 def test_skip_windows_zero_outside_the_map(tracked, cell):
     """The clamped gathers reproduce the reference's zero-padded slices."""
     _, _, _, tout = tracked
-    windows = slice_skip_windows(*tout.skips, torch.tensor(cell))
+    windows = slice_skip_windows(*tout.skips, torch.tensor([cell]))
     for f, w, pad, scale, win in zip(tout.skips, windows, (16, 8, 4), (4, 2, 1),
                                      (61, 31, 15)):
         padded = torch.nn.functional.pad(f, (pad, pad, pad, pad))

@@ -31,11 +31,11 @@ def test_subwindow_crop_matches_jax(pos, crop_sz, model_sz, dtype):
     ref = np.asarray(jsample.subwindow_crop(
         jnp.asarray(frame), jnp.asarray(pos, jnp.float32), jnp.asarray(float(crop_sz)),
         model_sz, jnp.asarray(avg)))
-    ours = subwindow_crop(torch.from_numpy(frame), torch.tensor(pos, dtype=torch.float32),
-                          torch.tensor(float(crop_sz)), model_sz, torch.from_numpy(avg))
-    assert ours.dtype == torch.float32 and ours.shape == (model_sz, model_sz, 3)
+    ours = subwindow_crop(torch.from_numpy(frame), torch.tensor([pos], dtype=torch.float32),
+                          torch.tensor([float(crop_sz)]), model_sz, torch.from_numpy(avg)[None])
+    assert ours.dtype == torch.float32 and ours.shape == (1, model_sz, model_sz, 3)
     # 0-255 values; fp32 rounding of the blend only
-    np.testing.assert_allclose(ours.numpy(), ref, atol=1e-3)
+    np.testing.assert_allclose(ours[0].numpy(), ref, atol=1e-3)
 
 
 @pytest.mark.parametrize("back_box,out_hw", [
@@ -47,9 +47,9 @@ def test_warp_back_matches_jax(back_box, out_hw):
     mask = RNG.uniform(-6, 6, size=(127, 127)).astype(np.float32)
     ref = np.asarray(jsample.warp_back_mask(jnp.asarray(mask),
                                             jnp.asarray(back_box, jnp.float32), out_hw))
-    ours = warp_back_mask(torch.from_numpy(mask), torch.tensor(back_box), out_hw)
-    assert ours.shape == out_hw
-    np.testing.assert_allclose(ours.numpy(), ref, atol=1e-5)
+    ours = warp_back_mask(torch.from_numpy(mask)[None], torch.tensor([back_box]), out_hw)
+    assert ours.shape == (1, *out_hw)
+    np.testing.assert_allclose(ours[0].numpy(), ref, atol=1e-5)
 
 
 @pytest.mark.parametrize("in_sz,out_sz", [(15, 31), (31, 61), (61, 127), (16, 8)])

@@ -55,9 +55,9 @@ def trackers():
     model = SiamMaskSharp(width=WIDTH).init_weights(torch.Generator().manual_seed(0)).eval()
     frame = torch.from_numpy(_frames()[0])
     avg = frame.mean(dim=(0, 1), dtype=torch.float32)
-    crops = [subwindow_crop(frame, torch.tensor(POS), torch.tensor(float(s)), m, avg)
+    crops = [subwindow_crop(frame, torch.tensor([POS]), torch.tensor([float(s)]), m, avg[None])
              for s, m in ((64, 127), (128, 255))]
-    calibrate_bn(model, *(c.permute(2, 0, 1)[None].contiguous() for c in crops))
+    calibrate_bn(model, *(c.permute(0, 3, 1, 2).contiguous() for c in crops))
     variables = convert_state_dict({k: v.numpy() for k, v in model.state_dict().items()})
     jmodel = JaxSiamMaskSharp(width=WIDTH)
     return (JaxTracker(jmodel, p_jax, latency_lowerings=False), variables,
