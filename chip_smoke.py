@@ -12,6 +12,12 @@ synthetic uint8 frames made from a numpy seed, with seeded random weights:
   ``step_batched`` / ``track_video_multi`` over 32 frames);
 - the VOS drivers (``track_vos_batched``, ``track_vos``) on a YouTube-VOS-
   style video of 41 frames and three objects written under ``build/``;
+- the other two families through the same tracker: SiamRPN (box only,
+  ``Tracker(mask=False)``) and SiamMask-base (``Tracker(refine=False)``,
+  63x63 masks), step by step and as ``track_video`` graphs;
+- the VOT reset-on-failure driver (``track_vot``) for all three families
+  and the test CLI (``siammask_tpu_torch.tools.test.main``) on two VOT2018-
+  layout videos written under ``build/``;
 - the SiamMask-base stage-1 training step (``Trainer.step``, the
   ``experiments/siammask_base/config.json`` recipe) at batch 64, two steps
   with the backbone frozen and two after the unfreeze.
@@ -54,21 +60,42 @@ Phases, each of which raises on failure:
     late start; 3 xcorr launches a frame) against ``track_vos``, the late
     object absent before its start, object-frames/s; skipped, with a line
     that says so, where cv2 or PIL is not installed;
-12. the training slice: per step finite losses, no skip, 3 + 3 + 3 kernel
+12. ``[rpn]``: SiamRPN (``experiments/siamrpn_resnet/config.json``, BN
+    calibrated as for sharp) as phases 5, 6 and 8 run sharp: init + steps
+    with 2 xcorr launches a step, one under ``sync_debug_mode("error")``;
+    one step card vs CPU; ``track_video`` over 64 frames through the graph,
+    bit-identical to the eager loop, frames/s, profile (2 xcorr kernels a
+    frame by name), peak memory;
+13. ``[base]``: SiamMask-base with ``refine=False``
+    (``experiments/siammask_base/config.json``, out_size 63), the same with 3
+    launches a step, and ``step_batched`` at O=2 card vs CPU;
+14. ``[vot]``: ``track_vot`` for sharp (mask + Refine), base (mask) and
+    SiamRPN (box) on two 40-frame 480x854 VOT2018-layout videos; in one the
+    target and its gt jump far outside the search region at frame 20, which
+    forces a lost frame (2), four skipped (0) and a re-init (1) whatever the
+    weights (the box heads damped by ``damp_box_head``, so that the target is
+    still held when the jump comes and the forced sequence shows; other
+    losses may occur and are counted); the region library built before the
+    drivers' clocks start, its build time printed; the result files checked
+    line by line, the xcorr launches against the stepped frames, the region
+    overlap's host us a call; then the CLI's ``main`` with the sharp weights as a ``.pth``, its
+    results against the driver's; cv2 is required;
+15. the training slice: per step finite losses, no skip, 3 + 3 + 3 kernel
     launches, the frozen stages bit-identical and the trainable ones moved;
     then the loss falling over 8 steps on the repeated batch; peak memory;
-13. one training step on the card and on the CPU from the same weights and
+16. one training step on the card and on the CPU from the same weights and
     batch (B=2), open loop;
-14. the profile of one frozen and one unfrozen step (no backbone backward
+17. the profile of one frozen and one unfrozen step (no backbone backward
     while frozen), and train ms/step and samples/s.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel with its launches on the main paths, error, times, bound and
 the time of the one library call (cuDNN's grouped conv) that computes the
-same function. A kernel captured in a CUDA graph passes through its wrapper
-(and its count) once, at capture; on the graph paths its launches are the
-captured launches times the replays, which phases 8 and 9 confirm by kernel
-name in a profiler trace.
+same function, with ``launches_by_path`` (track, video, streams16, vos,
+rpn, base, vot, train). A kernel captured in a CUDA graph passes through
+its wrapper (and its count) once, at capture; on the graph paths its
+launches are the captured launches times the replays, which phases 8, 9,
+12 and 13 confirm by kernel name in a profiler trace.
 """
 from __future__ import annotations
 
@@ -88,8 +115,9 @@ import torch.nn.functional as F
 from siammask_tpu_torch.config import Config
 from siammask_tpu_torch.data.anchor_target import AnchorTarget
 from siammask_tpu_torch.eval.datasets import load_dataset
+from siammask_tpu_torch.eval.region import vot_overlap
 from siammask_tpu_torch.models.heads import slice_skip_windows
-from siammask_tpu_torch.models.siammask import SiamMaskBase, SiamMaskSharp
+from siammask_tpu_torch.models.siammask import SiamMaskBase, SiamMaskSharp, SiamRPN
 from siammask_tpu_torch.ops import _build
 from siammask_tpu_torch.ops.sample import subwindow_crop, warp_back_mask
 from siammask_tpu_torch.ops.xcorr import (_to_groups, depthwise_xcorr,
@@ -100,14 +128,18 @@ from siammask_tpu_torch.ops.xcorr import (_to_groups, depthwise_xcorr,
                                           depthwise_xcorr_reference)
 from siammask_tpu_torch.tracker.anchors import Anchors
 from siammask_tpu_torch.tracker.runtime import TrackerRuntime
-from siammask_tpu_torch.tracker.tracker import StepOutput, Tracker, TrackState
+from siammask_tpu_torch.tracker.tracker import BoxStepOutput, StepOutput, Tracker, TrackState
 from siammask_tpu_torch.tracker.vos import track_vos, track_vos_batched
+from siammask_tpu_torch.tracker.vot import SKIP, track_vot
 from siammask_tpu_torch.train.lr import build_lr_spaces
 from siammask_tpu_torch.train.trainer import OptimizerConfig, Trainer, TrainSettings
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "experiments" / "siammask_sharp" / "config_davis.json"
 TRAIN_CONFIG = REPO / "experiments" / "siammask_base" / "config.json"
+RPN_CONFIG = REPO / "experiments" / "siamrpn_resnet" / "config.json"
+BASE_CONFIG = TRAIN_CONFIG
+VOT_CONFIG = REPO / "experiments" / "siammask_sharp" / "config_vot.json"
 FRAME_HW = (480, 854)
 TARGET_POS, TARGET_SZ = (300.0, 200.0), (120.0, 90.0)
 SEED = 0
@@ -120,6 +152,10 @@ STREAMS, STREAMS_T = 16, 32
 # one full window through the graph
 VOS_FRAMES, VOS_CHUNK, VOS_LATE = 41, 16, 10
 VOS_RAGGED, VOS_FULL = 24, 16
+# the VOT phase: two videos of VOT_FRAMES frames; in vid1 the target and its
+# gt jump VOT_DX px right at frame VOT_JUMP, far outside the search region
+VOT_FRAMES, VOT_JUMP, VOT_DX = 40, 20, 480
+VOT_FORCED = ["2", *["0"] * (SKIP - 1), "1"]     # lost, skipped frames, re-init
 TIMED_CALLS = 5
 TRAIN_BATCH = 64          # tools/train.py's default
 TRAIN_EPOCHS = 2          # epoch 0 frozen, epoch 1 unfrozen (unfreeze_at 0.5)
@@ -166,15 +202,29 @@ def bn_calibration(model: torch.nn.Module):
 
 
 @torch.inference_mode()
-def calibrate_bn(model: SiamMaskSharp, z: torch.Tensor, x: torch.Tensor) -> None:
+def calibrate_bn(model: SiamRPN, z: torch.Tensor, x: torch.Tensor) -> None:
     """Scale every BatchNorm by the overall standard deviation of its input on
     one template/search pair (running_mean 0, one running_var per layer), so
     random-weight activations stay O(1) like a trained model's and the scores
     do not saturate. One scalar per layer, not per channel, so that nearly dead
-    channels are not amplified."""
+    channels are not amplified. Any of the three families: the search pass is
+    ``track_mask`` where the model has one, else ``track``."""
     with bn_calibration(model):
         zf = model.template(z)
-        model.track_mask(zf, x)
+        getattr(model, "track_mask", model.track)(zf, x)
+
+
+@torch.no_grad()
+def damp_box_head(model: SiamRPN, factor: float = 0.1) -> None:
+    """Scale the loc head's last 1x1 conv by ``factor``. Seeded random
+    weights, even BN-calibrated, regress box deltas of O(1), a box's width a
+    frame, so the box leaves a slow target at once; at 0.1 the box mostly
+    holds a target that moves a few pixels a frame, so that the VOT data's
+    forced loss is not preempted by an earlier one. It does not rule out
+    other losses: random weights still lose the target now and then."""
+    head = model.rpn_model.loc.head[3]
+    head.weight.mul_(factor)
+    head.bias.mul_(factor)
 
 
 def smi_line() -> str:
@@ -407,8 +457,11 @@ def phase_grad_kernels() -> list[dict]:
              **times[(which, TRAIN_BATCH)]} for which in ("input", "kernel")]
 
 
-def build_model(p) -> tuple[SiamMaskSharp, Tracker, np.ndarray]:
-    model = SiamMaskSharp(width=64).init_weights(torch.Generator().manual_seed(SEED))
+def build_model(p, cls=SiamMaskSharp, mask: bool = True,
+                refine: bool = True) -> tuple[SiamRPN, Tracker, np.ndarray]:
+    """A seeded model of ``cls`` at width 64 on the card, its BN calibrated
+    on a crop pair of the first frame, its tracker and the frames."""
+    model = cls(width=64).init_weights(torch.Generator().manual_seed(SEED))
     model = model.to("cuda").eval()
     frames = synthetic_frames(STEPS + TIMED_STEPS + 12)
     f0 = torch.from_numpy(frames[0]).cuda()
@@ -417,10 +470,15 @@ def build_model(p) -> tuple[SiamMaskSharp, Tracker, np.ndarray]:
     z = subwindow_crop(f0, pos, torch.tensor([180.0], device="cuda"), 127, avg[None])
     x = subwindow_crop(f0, pos, torch.tensor([360.0], device="cuda"), 255, avg[None])
     calibrate_bn(model, z.permute(0, 3, 1, 2).contiguous(), x.permute(0, 3, 1, 2).contiguous())
-    return model, Tracker(model, p, "cuda"), frames
+    return model, Tracker(model, p, "cuda", mask=mask, refine=refine), frames
 
 
-def check_output(out, hw) -> None:
+def xcorr_per_step(tracker: Tracker) -> int:
+    """cls and loc, and the mask branch's corr with the mask."""
+    return 3 if tracker.mask else 2
+
+
+def check_output(out, hw, out_size: int = 127) -> None:
     h, w = hw
     for name in out._fields:
         v = getattr(out, name)
@@ -432,7 +490,10 @@ def check_output(out, hw) -> None:
         raise AssertionError(f"target_sz {sz} outside [10, {bounds}]")
     if not (torch.all(pos >= 0.0) and torch.all(pos <= bounds)):
         raise AssertionError(f"target_pos {pos} outside [0, {bounds}]")
-    if tuple(out.mask_in_frame.shape) != (h, w) or tuple(out.mask_logits.shape) != (127, 127):
+    if isinstance(out, BoxStepOutput):
+        return
+    if (tuple(out.mask_in_frame.shape) != (h, w)
+            or tuple(out.mask_logits.shape) != (out_size, out_size)):
         raise AssertionError(f"mask shapes {tuple(out.mask_in_frame.shape)}, "
                              f"{tuple(out.mask_logits.shape)}")
 
@@ -446,7 +507,7 @@ def read_launches() -> list[int]:
     return [fn.launches for fn in KERNELS]
 
 
-def phase_slice(tracker: Tracker, frames: np.ndarray):
+def phase_slice(tracker: Tracker, frames: np.ndarray, tag: str = "slice"):
     dev_frames = [torch.from_numpy(f).cuda() for f in frames[1:STEPS + 2]]
     torch.cuda.synchronize()
     reset_launches()
@@ -464,69 +525,83 @@ def phase_slice(tracker: Tracker, frames: np.ndarray):
     torch.cuda.synchronize()
     launches = read_launches()
     steps = len(outs)
-    if launches != [3 * steps, 0, 0]:
-        raise AssertionError(f"{launches} forward/grad-input/grad-kernel launches in {steps} "
-                             f"steps, expected {[3 * steps, 0, 0]}")
+    expected = [xcorr_per_step(tracker) * steps, 0, 0]
+    if launches != expected:
+        raise AssertionError(f"{tag}: {launches} forward/grad-input/grad-kernel launches in "
+                             f"{steps} steps, expected {expected}")
     for out in outs:
-        check_output(out, FRAME_HW)
+        check_output(out, FRAME_HW, tracker.p.out_size)
     last = outs[-1]
-    print(f"[slice] init + {steps} steps at width 64: {launches[0]} xcorr launches; "
+    print(f"[{tag}] init + {steps} steps at width 64: {launches[0]} xcorr launches; "
           f"step {steps} ran under sync_debug_mode=error; last pos "
           f"{last.target_pos.cpu().tolist()} sz {last.target_sz.cpu().tolist()} "
           f"score {last.score.item():.4f} best_id {last.best_id.item()}")
     return state, launches
 
 
-def cpu_tracker_of(model: SiamMaskSharp, p) -> Tracker:
-    """The same weights in a tracker on the CPU."""
-    cpu_model = SiamMaskSharp(width=64)
-    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    return Tracker(cpu_model.eval(), p, "cpu")
+def cpu_tracker_of(tracker: Tracker) -> Tracker:
+    """The same weights and path in a tracker on the CPU."""
+    cpu_model = type(tracker.model)(width=64)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in tracker.model.state_dict().items()})
+    return Tracker(cpu_model.eval(), tracker.p, "cpu", mask=tracker.mask, refine=tracker.refine)
 
 
-def check_step_close(what: str, out: StepOutput, ref: StepOutput) -> float:
+def check_step_close(what: str, out, ref) -> float:
     """A step's outputs against a reference step of other kernels (cuDNN's
     summation order against the CPU's, or another batch size): the same
-    best_id, positions and sizes within 1e-2 px, the Refine mask within 1e-3
-    of its largest magnitude. Returns the mask's max abs error."""
-    ref = StepOutput(*(v.to(out.best_id.device) for v in ref))
+    best_id, positions and sizes within 1e-2 px, the mask (Refine's or the
+    63x63 head's) within 1e-3 of its largest magnitude. Returns the mask's
+    max abs error (0 for a box-only step)."""
+    ref = type(ref)(*(v.to(out.best_id.device) for v in ref))
     if not torch.equal(out.best_id, ref.best_id):
         raise AssertionError(f"{what}: best_id {out.best_id.tolist()} vs {ref.best_id.tolist()}")
     torch.testing.assert_close(out.target_pos, ref.target_pos, rtol=0, atol=1e-2)
     torch.testing.assert_close(out.target_sz, ref.target_sz, rtol=0, atol=1e-2)
+    if isinstance(ref, BoxStepOutput):
+        return 0.0
     scale = ref.mask_logits.abs().max().item()
     torch.testing.assert_close(out.mask_logits, ref.mask_logits, rtol=0, atol=1e-3 * scale)
     return (out.mask_logits - ref.mask_logits).abs().max().item()
 
 
-def phase_cpu_parity(model, tracker, cpu_tracker, state: TrackState, frame: np.ndarray) -> None:
+def head_maps(model, zf: torch.Tensor, x: torch.Tensor) -> dict:
+    """The model's raw maps on one search crop: score and loc, the 63x63
+    mask head's map (base) or Refine's logits at the centre cell (sharp)."""
+    if isinstance(model, SiamMaskSharp):
+        out = model.track_mask(zf, x)
+        cell = torch.tensor([[12, 12]], device=x.device)
+        return {"score": out.score, "loc": out.loc,
+                "refine logits": model.track_refine(out.skips, out.corr, cell)}
+    if isinstance(model, SiamMaskBase):
+        return dict(zip(("score", "loc", "mask head"), model.track_mask(zf, x)))
+    return dict(zip(("score", "loc"), model.track(zf, x)))
+
+
+def phase_cpu_parity(tracker, cpu_tracker, state: TrackState, frame: np.ndarray,
+                     tag: str = "parity") -> None:
     """The same step on the card and on the CPU, from the same state, open
     loop. Tolerances cover cuDNN's summation order against the CPU's over a
     ResNet-50 of random weights."""
-    cpu_model = cpu_tracker.model
     cpu_state = TrackState(*(t.cpu() for t in state))
 
     with torch.inference_mode():
         x = subwindow_crop(torch.from_numpy(frame), cpu_state.target_pos[None],
                            torch.tensor([400.0]), 255, cpu_state.avg_chans[None])
         x = x.permute(0, 3, 1, 2).contiguous()
-        ref = cpu_model.track_mask(cpu_state.zf, x)
-        ours = model.track_mask(state.zf, x.cuda())
-        cell = torch.tensor([[12, 12]])
-        ref_m = cpu_model.track_refine(ref.skips, ref.corr, cell)
-        ours_m = model.track_refine(ours.skips, ours.corr, cell.cuda())
+        refs = head_maps(cpu_tracker.model, cpu_state.zf, x)
+        ours = head_maps(tracker.model, state.zf, x.cuda())
     # maps: relative floor, 1e-3 of the largest magnitude (fp32, TF32 off)
-    for name, a, b in (("score", ours.score, ref.score), ("loc", ours.loc, ref.loc),
-                       ("refine logits", ours_m, ref_m)):
+    for name, b in refs.items():
+        a = ours[name]
         scale = b.abs().max().item()
         err = (a.cpu() - b).abs().max().item()
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-3 * scale)
-        print(f"[parity] {name}: max_abs_err {err:.3e} (atol {1e-3 * scale:.3e})")
+        print(f"[{tag}] {name}: max_abs_err {err:.3e} (atol {1e-3 * scale:.3e})")
 
     _, out = tracker.step(state, torch.from_numpy(frame).cuda())
     _, ref_out = cpu_tracker.step(cpu_state, frame)
     err = check_step_close("step, card vs CPU", out, ref_out)
-    print(f"[parity] step: best_id {out.best_id.item()} on both; pos "
+    print(f"[{tag}] step: best_id {out.best_id.item()} on both; pos "
           f"{out.target_pos.cpu().tolist()} vs {ref_out.target_pos.tolist()}; "
           f"mask max_abs_err {err:.3e}")
 
@@ -555,18 +630,20 @@ def phase_timing(tracker: Tracker, state: TrackState, frames: np.ndarray, smi: s
           f"{TIMED_STEPS} steps; {1e3 / med:.1f} frames/s | {smi}")
 
 
-def stacked(outs: list) -> StepOutput:
-    return StepOutput(*(torch.stack(v) for v in zip(*outs)))
+def stacked(outs: list):
+    return type(outs[0])(*(torch.stack(v) for v in zip(*outs)))
 
 
-def check_bit_identical(what: str, outs: StepOutput, ref: StepOutput, final: TrackState,
+def check_bit_identical(what: str, outs, ref, final: TrackState,
                         ref_final: TrackState) -> None:
     """A graph replay against the eager loop: the same kernels in the same
     order, so the same best_id at every frame and the same bits."""
     if not torch.equal(outs.best_id, ref.best_id):
         bad = (outs.best_id != ref.best_id).nonzero()[:, 0].tolist()
         raise AssertionError(f"{what}: best_id differs at frames {bad}")
-    for name, a, b in (*zip(StepOutput._fields, outs, ref),
+    if type(outs) is not type(ref):
+        raise AssertionError(f"{what}: {type(outs).__name__} vs {type(ref).__name__}")
+    for name, a, b in (*zip(outs._fields, outs, ref),
                        *zip(("final " + f for f in TrackState._fields), final, ref_final)):
         if not torch.equal(a, b):
             err = (a.float() - b.float()).abs().max().item()
@@ -609,13 +686,13 @@ def profile_call(fn) -> tuple[list, float, float]:
 
 
 def check_graph_profile(what: str, events, busy: float, call_ms: float, frames: int,
-                        streams: int) -> None:
-    """Confirms 3 xcorr kernels a frame by kernel name in the trace of a
-    graph call and prints device ms a frame, the idle share and the host's
-    CUDA calls a frame."""
+                        streams: int, per_frame: int = 3) -> None:
+    """Confirms ``per_frame`` xcorr kernels a frame by kernel name in the
+    trace of a graph call and prints device ms a frame, the idle share and
+    the host's CUDA calls a frame."""
     xcorr = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                 and "depthwise_xcorr" in e.key)
-    if xcorr != 3 * frames:
+    if xcorr != per_frame * frames:
         raise AssertionError(f"{what}: {xcorr} xcorr kernels in the trace of {frames} frames")
     host = {k: sum(e.count for e in events if e.key == k)
             for k in ("cudaGraphLaunch", "cudaMemcpyAsync", "cudaLaunchKernel")}
@@ -626,11 +703,13 @@ def check_graph_profile(what: str, events, busy: float, call_ms: float, frames: 
           + ", ".join(f"{k} {v / frames:.1f}" for k, v in host.items()))
 
 
-def phase_video(tracker: Tracker, frames: np.ndarray, smi: str) -> tuple[int, TrackState]:
+def phase_video(tracker: Tracker, frames: np.ndarray, smi: str,
+                tag: str = "video") -> tuple[int, TrackState]:
     """track_video over VIDEO_T frames on the card: a CUDA-graph replay per
     frame, against the eager step loop; returns the xcorr launches of the
     graph path (captured launches times replays) and the final state."""
     t = VIDEO_T
+    per_frame = xcorr_per_step(tracker)
     dev = torch.from_numpy(frames[:t + 1]).cuda()
     state = tracker.init(dev[0], TARGET_POS, TARGET_SZ)
     st, eager = state, []
@@ -646,20 +725,21 @@ def phase_video(tracker: Tracker, frames: np.ndarray, smi: str) -> tuple[int, Tr
     torch.cuda.synchronize()
     counted = read_launches()
     graph = tracker.graphs[(1, *FRAME_HW, torch.uint8)]
-    if counted[0] == 0 or counted[1:] != [0, 0] or graph.xcorr_launches != 3:
-        raise AssertionError(f"video: {counted} launches through the wrappers, "
-                             f"{graph.xcorr_launches} xcorr kernels captured (expected 3)")
+    if counted[0] == 0 or counted[1:] != [0, 0] or graph.xcorr_launches != per_frame:
+        raise AssertionError(f"{tag}: {counted} launches through the wrappers, "
+                             f"{graph.xcorr_launches} xcorr kernels captured "
+                             f"(expected {per_frame})")
     peak = torch.cuda.max_memory_allocated()
-    check_bit_identical("video", outs, eager, final, st)
+    check_bit_identical(tag, outs, eager, final, st)
     for i in range(t):
-        check_output(StepOutput(*(v[i] for v in outs)), FRAME_HW)
+        check_output(type(outs)(*(v[i] for v in outs)), FRAME_HW, tracker.p.out_size)
     torch.cuda.set_sync_debug_mode("error")
     try:
         again = tracker.track_video(state, dev[1:])
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    check_bit_identical("video, second call", again[1], eager, again[0], st)
-    print(f"[video] track_video, T={t}, width 64, 480x854 uint8: a CUDA graph of the step "
+    check_bit_identical(f"{tag}, second call", again[1], eager, again[0], st)
+    print(f"[{tag}] track_video, T={t}, width 64, 480x854 uint8: a CUDA graph of the step "
           f"({graph.xcorr_launches} xcorr kernels captured; {counted[0]} xcorr launches "
           f"through the wrapper, warm-up and capture), {graph.xcorr_launches * t} xcorr "
           f"launches by replay; best_id and every output bit-identical to the eager step "
@@ -667,12 +747,12 @@ def phase_video(tracker: Tracker, frames: np.ndarray, smi: str) -> tuple[int, Tr
           f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held before the call)")
     event_ms, wall_ms = time_calls(lambda: tracker.track_video(state, dev[1:]))
     med = statistics.median(event_ms)
-    print(f"[video] {TIMED_CALLS} calls of T={t}: median {med:.3f} ms (CUDA events; min "
+    print(f"[{tag}] {TIMED_CALLS} calls of T={t}: median {med:.3f} ms (CUDA events; min "
           f"{min(event_ms):.3f}, max {max(event_ms):.3f}), {med / t:.3f} ms a frame, "
           f"{t * 1e3 / med:.1f} frames/s; host clock to the end "
           f"{statistics.median(wall_ms):.3f} ms | {smi}")
-    check_graph_profile("video", *profile_call(lambda: tracker.track_video(state, dev[1:])),
-                        t, 1)
+    check_graph_profile(tag, *profile_call(lambda: tracker.track_video(state, dev[1:])),
+                        t, 1, per_frame)
     return graph.xcorr_launches * t, final
 
 
@@ -796,14 +876,14 @@ def phase_layers(tracker: Tracker, frame: torch.Tensor, *batches: TrackState) ->
 
 
 def phase_streams_cpu_parity(tracker: Tracker, cpu_tracker: Tracker, states: TrackState,
-                             frame: np.ndarray) -> None:
+                             frame: np.ndarray, tag: str = "streams-parity") -> None:
     """step_batched for two streams on the card and on the CPU, from the same
     state, open loop, at phase 6's tolerances."""
     two = TrackState(*(v[:2] for v in states))
     _, out = tracker.step_batched(two, torch.from_numpy(frame).cuda())
     _, ref = cpu_tracker.step_batched(TrackState(*(v.cpu() for v in two)), frame)
     err = check_step_close("step_batched, card vs CPU", out, ref)
-    print(f"[streams-parity] step_batched at O=2, card vs CPU: best_id {out.best_id.tolist()} "
+    print(f"[{tag}] step_batched at O=2, card vs CPU: best_id {out.best_id.tolist()} "
           f"on both; mask max_abs_err {err:.3e}")
 
 
@@ -905,6 +985,175 @@ def phase_vos(model: SiamMaskSharp, p, smi: str) -> int:
           f"{lines[-1].strip()} | {smi}")
     shutil.rmtree(root, ignore_errors=True)
     return 3 * VOS_RAGGED + graph.xcorr_launches * VOS_FULL
+
+
+def phase_family(tag: str, cls, config: Path, mask: bool, refine: bool, smi: str):
+    """Another model family through the port's tracker on the card, as the
+    sharp phases 5, 6 and 8 drive SiamMask-sharp: init and STEPS steps (one
+    under sync_debug_mode("error")), one step on the card against the CPU
+    from the same state, ``track_video`` over VIDEO_T frames through the
+    CUDA graph against the eager step loop, its frames/s, profile and peak
+    memory; with the mask, ``step_batched`` at O=2 on the card against the
+    CPU. Returns the model and the xcorr launches of the init-and-steps run
+    and the graph's replays."""
+    p = Config.load(str(config)).tracker_config()
+    model, tracker, frames = build_model(p, cls, mask, refine)
+    cpu_tracker = cpu_tracker_of(tracker)
+    state, launches = phase_slice(tracker, frames, tag)
+    phase_cpu_parity(tracker, cpu_tracker, state, frames[STEPS + 2], tag)
+    video_launches, _ = phase_video(tracker, frames, smi, tag)
+    if mask:
+        rng = np.random.RandomState(SEED)
+        states = tracker.init_batched(frames[0], rng.uniform(100, 400, (2, 2)).astype(np.float32),
+                                      rng.uniform(60, 200, (2, 2)).astype(np.float32))
+        phase_streams_cpu_parity(tracker, cpu_tracker, states, frames[2], f"{tag}-parity")
+    return model, launches[0] + video_launches
+
+
+def write_vot_dataset(root: Path) -> None:
+    """Two VOT2018-layout videos under ``root`` (``list.txt``; per video
+    VOT_FRAMES JPEG frames of 480x854 in ``color/`` and an 8-point
+    ``groundtruth.txt``): a textured rectangle moving over blocky noise. In
+    ``vid1`` the target and its gt jump VOT_DX px right at frame VOT_JUMP."""
+    import cv2
+
+    rng = np.random.RandomState(SEED + 2)
+    h, w = FRAME_HW
+    # (top-left x, y, width, height, drift x, y a frame, jump)
+    videos = {"vid0": (150, 150, 110, 90, 3, 2, 0), "vid1": (120, 250, 100, 80, 2, -1, VOT_DX)}
+    for name, (x0, y0, tw, th, vx, vy, jump) in videos.items():
+        (root / name / "color").mkdir(parents=True)
+        coarse = rng.randint(0, 256, size=(h // 8 + 1, w // 8 + 1, 3)).astype(np.uint8)
+        background = np.repeat(np.repeat(coarse, 8, axis=0), 8, axis=1)[:h, :w]
+        patch = rng.randint(0, 256, size=(th, tw, 3)).astype(np.uint8)
+        gt = []
+        for f in range(VOT_FRAMES):
+            x = x0 + vx * f + (jump if f >= VOT_JUMP else 0)
+            y = y0 + vy * f
+            im = background.copy()
+            im[y:y + th, x:x + tw] = patch
+            cv2.imwrite(str(root / name / "color" / f"{f + 1:08d}.jpg"), im)
+            gt.append([x, y, x + tw, y, x + tw, y + th, x, y + th])
+        np.savetxt(root / name / "groundtruth.txt", np.array(gt, float), delimiter=",",
+                   fmt="%.4f")
+    (root / "list.txt").write_text("".join(f"{name}\n" for name in videos))
+
+
+def check_vot_lines(what: str, lines: list[str], numbers: int, jumps: bool) -> int:
+    """A VOT result file: 1 first; each 2 followed by the skipped 0s and the
+    re-init 1; every other line a region of ``numbers`` numbers; in the
+    jumping video the forced lost / skip / re-init at VOT_JUMP. Returns the
+    frames the tracker stepped (the regions and the 2s)."""
+    if len(lines) != VOT_FRAMES or lines[0] != "1":
+        raise AssertionError(f"{what}: {len(lines)} lines, the first {lines[:1]}")
+    i = 1
+    while i < len(lines):
+        if lines[i] == "2":
+            tail = lines[i:i + len(VOT_FORCED)]
+            if tail != VOT_FORCED[:len(tail)]:
+                raise AssertionError(f"{what}: frames {i}-: {tail}")
+            i += len(VOT_FORCED)
+        elif len(lines[i].split(",")) != numbers:
+            raise AssertionError(f"{what}: frame {i}: {lines[i]!r}")
+        else:
+            i += 1
+    if jumps and lines[VOT_JUMP:VOT_JUMP + len(VOT_FORCED)] != VOT_FORCED:
+        raise AssertionError(f"{what}: frames {VOT_JUMP}-: "
+                             f"{lines[VOT_JUMP:VOT_JUMP + len(VOT_FORCED)]}")
+    return sum(line not in ("0", "1") for line in lines)
+
+
+def phase_vot(models: dict, smi: str) -> int:
+    """The VOT driver on the card, through ``load_dataset`` as a user calls
+    it: ``track_vot`` for sharp (mask and Refine, ``config_vot.json``), base
+    (mask) and SiamRPN (box) on two videos written under ``build/``, the
+    result files checked line by line; then the test CLI's ``main`` on the
+    same data with the sharp weights saved as a ``.pth``. The box heads are
+    damped first (``damp_box_head``), so that the target is still held when
+    the forced jump comes; other losses can occur and are printed. The
+    region library is built and loaded before the drivers' clocks start.
+    Returns the xcorr launches, which the result files account for."""
+    import cv2  # noqa: F401  (the driver reads frames with it; a missing cv2 fails here)
+
+    from siammask_tpu_torch.tools import test as cli
+
+    root = REPO / "build" / "vot_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    write_vot_dataset(root / "VOT2018")
+    dataset = load_dataset("VOT2018", str(root))
+    t0 = time.perf_counter()
+    vot_overlap([0, 0, 4, 4], [1, 1, 4, 4])         # g++ builds the library at first use
+    print(f"[vot] region library built and loaded in {time.perf_counter() - t0:.3f} s "
+          f"(g++ -O2, host clock), before the drivers' clocks start")
+    families = {"sharp": (VOT_CONFIG, True, True), "base": (BASE_CONFIG, True, False),
+                "rpn": (RPN_CONFIG, False, False)}
+    torch.cuda.synchronize()
+    reset_launches()
+    stepped = {}
+    for name, (config, mask, refine) in families.items():
+        damp_box_head(models[name])
+        runtime = TrackerRuntime(models[name], Config.load(str(config)).tracker_config(),
+                                 "cuda", mask=mask, refine=refine)
+        lines, lost, speeds, stepped[name] = [], [], [], 0
+        for video in dataset.values():
+            n, fps = track_vot(runtime, video, mask_enable=mask,
+                               result_dir=str(root / "results"), tracker_name=name,
+                               log=lines.append)
+            result = (root / "results" / "VOT2018" / name / "baseline" / video["name"]
+                      / f"{video['name']}_001.txt").read_text().splitlines()
+            stepped[name] += check_vot_lines(f"vot {name} {video['name']}", result,
+                                             8 if mask else 4, video["name"] == "vid1")
+            lost.append(n)
+            speeds.append(fps)
+        print(f"[vot] {name} ({'mask' if mask else 'box'}{', Refine' if refine else ''}): "
+              f"lost {lost} in {list(dataset)}, the jump's 2 / {SKIP - 1} x 0 / 1 at frames "
+              f"{VOT_JUMP}-{VOT_JUMP + SKIP}; driver's fps (file reads excluded) "
+              + ", ".join(f"{v:.1f}" for v in speeds) + f" | {smi}")
+    launches = read_launches()
+    gt = dataset["vid1"]["gt"][VOT_JUMP - 1]
+    pred = gt + np.tile([7.5, -4.25], 4)
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        vot_overlap(gt, pred, FRAME_HW[::-1])
+    print(f"[vot] region overlap (host C++, 8-point polygons, frame bounds): "
+          f"{(time.perf_counter() - t0) / 2000 * 1e6:.2f} us a call, host clock over 2000 calls")
+    expected = sum(k * stepped[n] for n, k in (("sharp", 3), ("base", 3), ("rpn", 2)))
+    if launches != [expected, 0, 0]:
+        raise AssertionError(f"vot: {launches} launches, expected {[expected, 0, 0]} from "
+                             f"the stepped frames {stepped}")
+
+    ckpt = root / "sharp.pth"
+    torch.save({"state_dict": {f"module.{k}": v.cpu()
+                               for k, v in models["sharp"].state_dict().items()}}, ckpt)
+    t0 = time.perf_counter()
+    totals = cli.main(["--config", str(VOT_CONFIG), "--resume", str(ckpt), "--mask", "--refine",
+                       "--dataset", "VOT2018", "--data-dir", str(root),
+                       "--result-dir", str(root / "cli"), "--tracker-name", "cli"])
+    wall = time.perf_counter() - t0
+    cli_launches = read_launches()[0] - expected
+    worst = 0.0
+    for name in dataset:
+        ours, driver = ((root / sub / "VOT2018" / tracker / "baseline" / name / f"{name}_001.txt")
+                        .read_text().splitlines()
+                        for sub, tracker in (("cli", "cli"), ("results", "sharp")))
+        # the same weights through a fresh model on the card: the same
+        # markers, the same regions up to the conv algorithms' rounding
+        for a, b in zip(ours, driver):
+            if (a in ("0", "1", "2") or b in ("0", "1", "2")) and a != b:
+                raise AssertionError(f"vot: the CLI's {name} markers differ from the driver's")
+            if a not in ("0", "1", "2"):
+                worst = max(worst, float(np.abs(np.array(a.split(","), float)
+                                                - np.array(b.split(","), float)).max()))
+        if len(ours) != len(driver) or worst > 1e-2:
+            raise AssertionError(f"vot: the CLI's {name} result differs from the driver's "
+                                 f"({len(ours)} lines, largest region difference {worst})")
+    if totals["videos"] != 2 or cli_launches != 3 * stepped["sharp"]:
+        raise AssertionError(f"vot: CLI totals {totals}, {cli_launches} launches")
+    print(f"[vot] CLI main --mask --refine --resume sharp.pth: totals {totals}; the driver's "
+          f"markers, regions within {worst:.4f} px; {cli_launches} xcorr launches; "
+          f"{wall:.2f} s for the call")
+    shutil.rmtree(root, ignore_errors=True)
+    return expected + cli_launches
 
 
 FROZEN_ALWAYS = ("features.features.conv1.", "features.features.bn1.",
@@ -1146,9 +1395,9 @@ def main() -> None:
     records = [phase_kernels(), *phase_grad_kernels()]
     p = Config.load(str(CONFIG)).tracker_config()
     model, tracker, frames = build_model(p)
-    cpu_tracker = cpu_tracker_of(model, p)
+    cpu_tracker = cpu_tracker_of(tracker)
     state, track_launches = phase_slice(tracker, frames)
-    phase_cpu_parity(model, tracker, cpu_tracker, state, frames[STEPS + 2])
+    phase_cpu_parity(tracker, cpu_tracker, state, frames[STEPS + 2])
     phase_timing(tracker, state, frames[STEPS + 2:], smi)
     video_launches, video_state = phase_video(tracker, frames, smi)
     streams_launches, states = phase_streams(tracker, frames, smi)
@@ -1157,7 +1406,14 @@ def main() -> None:
                      video_state.zf, video_state.avg_chans[None], video_state.score[None])
     phase_layers(tracker, torch.from_numpy(frames[2]).cuda(), one, states)
     vos_launches = phase_vos(model, p, smi)
-    del model, tracker, cpu_tracker, state, states, video_state, one
+    del tracker, cpu_tracker, state, states, video_state, one
+    torch.cuda.empty_cache()
+    rpn_model, rpn_launches = phase_family("rpn", SiamRPN, RPN_CONFIG, False, False, smi)
+    torch.cuda.empty_cache()
+    base_model, base_launches = phase_family("base", SiamMaskBase, BASE_CONFIG, True, False, smi)
+    torch.cuda.empty_cache()
+    vot_launches = phase_vot({"sharp": model, "base": base_model, "rpn": rpn_model}, smi)
+    del model, rpn_model, base_model
     torch.cuda.empty_cache()
 
     cfg = Config.load(str(TRAIN_CONFIG), clip=10.0)
@@ -1176,7 +1432,8 @@ def main() -> None:
     # the forward also runs on the video and 16-stream paths, by graph replay
     paths = {"track": track_launches, "video": [video_launches, 0, 0],
              "streams16": [streams_launches, 0, 0], "vos": [vos_launches, 0, 0],
-             "train": train_launches}
+             "rpn": [rpn_launches, 0, 0], "base": [base_launches, 0, 0],
+             "vot": [vot_launches, 0, 0], "train": train_launches}
     for i, record in enumerate(records):
         record["launches_by_path"] = {k: v[i] for k, v in paths.items()}
         record["launches"] = sum(record["launches_by_path"].values())

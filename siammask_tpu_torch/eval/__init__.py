@@ -1,1 +1,1 @@
-"""Benchmark datasets for the port."""
+"""Benchmark datasets and the VOT region overlap for the port."""

@@ -1,18 +1,21 @@
-"""SiamMask assemblies: backbone + neck + RPN heads + mask head (+ Refine).
+"""The three model families: SiamRPN (box only), SiamMaskBase (63x63 masks)
+and SiamMaskSharp (Refine to 127x127).
 
-Counterparts of ``SiamMaskBase`` and ``SiamMaskSharp`` in
-``siammask_tpu/models/siammask.py``, in NCHW, with the reference
-checkpoint's module tree: ``features.features`` (ResNet),
-``features.downsample`` (neck), ``rpn_model``, ``mask_model`` and, for
-sharp, ``refine_model``. Entry points:
+Counterparts of ``siammask_tpu/models/siammask.py``, in NCHW, with the
+reference checkpoint's module tree: ``features.features`` (ResNet),
+``features.downsample`` (neck), ``rpn_model``, then ``mask_model`` for the
+mask families and ``refine_model`` for sharp. Each family's state_dict holds
+only its own modules. Entry points:
 
 - ``template(z)``                        -> zf (B, 256, 7, 7)
-- ``SiamMaskBase.forward_train(z, x)``   -> (score, loc, mask):
-  (B, 2k, 25, 25), (B, 4k, 25, 25), (B, 63*63, 25, 25)
+- ``track(zf, x)``                       -> (score, loc): (B, 2k, S, S), (B, 4k, S, S)
+- ``SiamMaskBase.track_mask(zf, x)``     -> (score, loc, mask), mask (B, 63*63, S, S)
+- ``SiamMaskBase.forward_train(z, x)``   -> the same, with train-mode BN
 - ``SiamMaskSharp.track_mask(zf, x)``    -> TrackOutputs(score, loc, skips, corr)
 - ``SiamMaskSharp.track_refine(skips, corr, pos_yx)`` -> (B, 127*127) logits
 
-cls channels are ordered (2, k) and loc channels (4, k), as the reference.
+``build_model(arch)`` maps the reference's ``--arch`` names onto them. cls
+channels are ordered (2, k) and loc channels (4, k), as the reference.
 """
 from __future__ import annotations
 
@@ -47,10 +50,10 @@ class ResDown(nn.Module):
         return (p0, p1, p2), self.downsample(p3)
 
 
-class _SiamMask(nn.Module):
-    """What base and sharp share: backbone + neck, the RPN heads and the mask
-    head. ``width`` is the backbone stem width: 64 is the published model;
-    smaller widths keep the module tree and the spatial geometry."""
+class SiamRPN(nn.Module):
+    """Box-only tracker: backbone + neck + the RPN heads. ``width`` is the
+    backbone stem width: 64 is the published model; smaller widths keep the
+    module tree and the spatial geometry."""
 
     def __init__(self, anchor_num: int = 5, width: int = 64):
         super().__init__()
@@ -58,10 +61,14 @@ class _SiamMask(nn.Module):
         self.width = width
         self.features = ResDown(width)
         self.rpn_model = UP(anchor_num, 4 * width, 4 * width)
-        self.mask_model = MaskCorr(63, 4 * width, 4 * width)
 
     def template(self, z):
         return self.features(z)[1]
+
+    def track(self, zf, x):
+        """One search pass through the RPN heads: (score, loc)."""
+        _, xf = self.features(x)
+        return self.rpn_model(zf, xf)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -86,18 +93,30 @@ class _SiamMask(nn.Module):
         return self
 
 
+class _SiamMask(SiamRPN):
+    """What base and sharp share: SiamRPN plus the mask head."""
+
+    def __init__(self, anchor_num: int = 5, width: int = 64):
+        super().__init__(anchor_num, width)
+        self.mask_model = MaskCorr(63, 4 * width, 4 * width)
+
+
 class SiamMaskBase(_SiamMask):
     """Mask tracker without refinement: the mask head emits a 63x63 mask per
     score-map cell. Trained as stage 1 of the two-stage recipe."""
+
+    def track_mask(self, zf, x):
+        """One search pass: (score, loc, mask), the raw mask head over every
+        cell, (B, 63*63, S, S)."""
+        _, xf = self.features(x)
+        score, loc = self.rpn_model(zf, xf)
+        return score, loc, self.mask_model(zf, xf)
 
     def forward_train(self, template, search):
         """Template then search through the backbone, as two calls (each
         train-mode BN updates its running statistics twice, template first,
         as the JAX package's ``apply`` does); raw head outputs."""
-        zf = self.template(template)
-        _, xf = self.features(search)
-        score, loc = self.rpn_model(zf, xf)
-        return score, loc, self.mask_model(zf, xf)
+        return self.track_mask(self.template(template), search)
 
 
 class SiamMaskSharp(_SiamMask):
@@ -124,3 +143,13 @@ class SiamMaskSharp(_SiamMask):
         cell = pos_yx[:, 0] * s + pos_yx[:, 1]
         cvec = corr.flatten(2).gather(2, cell[:, None, None].expand(b, c, 1)).reshape(b, c)
         return self.refine_model(w0, w1, w2, cvec)
+
+
+def build_model(arch: str, anchor_num: int = 5, width: int = 64) -> SiamRPN:
+    """The model of a reference ``--arch`` name (``tools/test.py``):
+    ``Custom``/``SiamMaskSharp``, ``SiamMaskBase`` or ``SiamRPN``."""
+    families = {"Custom": SiamMaskSharp, "SiamMaskSharp": SiamMaskSharp,
+                "SiamMaskBase": SiamMaskBase, "SiamRPN": SiamRPN}
+    if arch not in families:
+        raise ValueError(f"unknown arch {arch!r}")
+    return families[arch](anchor_num, width)

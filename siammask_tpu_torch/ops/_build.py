@@ -5,7 +5,8 @@ are compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared library in
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
 named by a hash of the sources and flags, and loaded with ``ctypes``. The
 first call in a fresh checkout builds it (a few seconds); later calls load
-the cached library.
+the cached library. ``compile_library`` is the same build for any compiler
+(``eval/region.py`` builds the host C++ region overlap with it).
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -37,33 +38,40 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+def library_path(stem: str, flags, sources) -> Path:
+    """``BUILD_DIR/lib<stem>_<hash of flags and sources>.so``."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libsiammask_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
-    out = library_path()
+def compile_library(compiler: str, flags, sources, stem: str) -> Path:
+    """Compile ``sources`` with ``compiler`` and ``flags`` into
+    ``BUILD_DIR/lib<stem>_<hash>.so`` unless that library exists."""
+    out = library_path(stem, flags, sources)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
+        cmd = [compiler, *flags, "-o", tmp, *map(str, sources)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            raise RuntimeError(f"{compiler} failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                                f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    return compile_library(_nvcc(), NVCC_FLAGS, SOURCES, "siammask_kernels")
 
 
 @functools.cache

@@ -1,1 +1,1 @@
-"""Tracker (one object, O objects, whole videos), its host runtime and the VOS drivers."""
+"""Tracker (one object, O objects, whole videos), its host runtime and the VOS and VOT drivers."""

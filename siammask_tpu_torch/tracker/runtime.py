@@ -35,10 +35,12 @@ def mask_to_rotated_box(target_mask: np.ndarray, target_pos, target_sz):
 
 
 class TrackerRuntime:
-    """Stateful wrapper over ``Tracker`` with the reference's init/track API."""
+    """Stateful wrapper over ``Tracker`` with the reference's init/track API;
+    ``mask`` and ``refine`` as ``Tracker`` takes them."""
 
-    def __init__(self, model, p: TrackerConfig, device: torch.device | str):
-        self.tracker = Tracker(model, p, device)
+    def __init__(self, model, p: TrackerConfig, device: torch.device | str,
+                 mask: bool = True, refine: bool = True):
+        self.tracker = Tracker(model, p, device, mask=mask, refine=refine)
         self.p = p
         self.state: TrackState | None = None
 
@@ -51,13 +53,16 @@ class TrackerRuntime:
     def track(self, im: np.ndarray, soft_mask: bool = True) -> dict:
         """One frame. ``soft_mask=False`` thresholds the mask on the device and
         fetches a uint8 binary mask ("mask_bin") instead of the float32 soft
-        mask ("mask")."""
+        mask ("mask"). Without the mask the result has neither, and no
+        polygon."""
         self.state, out = self.tracker.step(self.state, im)
         result = {
             "target_pos": out.target_pos.cpu().numpy(),
             "target_sz": out.target_sz.cpu().numpy(),
             "score": float(out.score),
         }
+        if not self.tracker.mask:
+            return result
         if soft_mask:
             mask_in_frame = out.mask_in_frame.cpu().numpy()
             target_mask = (mask_in_frame > self.p.seg_thr).astype(np.uint8)

@@ -1,13 +1,22 @@
-"""SiamMask-sharp tracker on the device: one object, O objects at once, and
-whole videos.
+"""The tracker on the device: one object, O objects at once, and whole
+videos, for the three model families.
 
-Counterpart of the ``mask=True, refine=True`` path of
-``siammask_tpu/tracker/tracker.py``. One step runs the whole frame on the
-model's device -- sub-window crop, backbone and heads, anchor decode,
-scale/ratio penalty, cosine-window argmax, state update, Refine at the best
-cell, sigmoid and warp-back to the frame -- without a host sync: no
-``.item()``, no copy to the host, no branch on a device value. Anchors, the
-window and the frame-bound clamps are device constants built once.
+Counterpart of ``siammask_tpu/tracker/tracker.py``. ``mask`` and ``refine``
+pick the path, as the reference's ``--mask``/``--refine``:
+
+- ``mask=True, refine=True``: SiamMask-sharp, Refine at the best cell to a
+  127x127 mask;
+- ``mask=True, refine=False``: the raw 63x63 mask head's vector at the
+  best cell (SiamMask-base, or SiamMask-sharp without its Refine);
+- ``mask=False``: box only (any family; SiamRPN has nothing else), and the
+  step returns a ``BoxStepOutput`` with no mask fields.
+
+One step runs the whole frame on the model's device -- sub-window crop,
+backbone and heads, anchor decode, scale/ratio penalty, cosine-window
+argmax, state update and, with the mask, the cell's mask, its sigmoid and
+the warp-back to the frame -- without a host sync: no ``.item()``, no copy
+to the host, no branch on a device value. Anchors, the window and the
+frame-bound clamps are device constants built once.
 
 There is one step body, ``_step_body``, with a leading stream axis O: the
 JAX package's ``vmap`` of its step over streams, written out. Every stream
@@ -37,6 +46,7 @@ import numpy as np
 import torch
 
 from siammask_tpu_torch.config import TrackerConfig
+from siammask_tpu_torch.models.siammask import SiamMaskBase, SiamMaskSharp, TrackOutputs
 from siammask_tpu_torch.ops import _build
 from siammask_tpu_torch.ops.sample import subwindow_crop, warp_back_mask
 from siammask_tpu_torch.ops.xcorr import depthwise_xcorr
@@ -60,6 +70,14 @@ class StepOutput(NamedTuple):
     best_id: torch.Tensor        # () flat argmax over (k, S, S)
     mask_in_frame: torch.Tensor  # (im_h, im_w) soft mask in frame coords
     mask_logits: torch.Tensor    # (out_sz, out_sz) sigmoid mask in cell coords
+
+
+class BoxStepOutput(NamedTuple):
+    """A box-only step's outputs: tensors only, so a CUDA graph can hold them."""
+    target_pos: torch.Tensor
+    target_sz: torch.Tensor
+    score: torch.Tensor
+    best_id: torch.Tensor
 
 
 def _batch(state: TrackState) -> TrackState:
@@ -125,7 +143,7 @@ class StepGraph:
                     static.copy_(new)
         self.xcorr_launches = depthwise_xcorr.launches - before
 
-    def run(self, state: TrackState, frames: torch.Tensor) -> tuple[TrackState, StepOutput]:
+    def run(self, state: TrackState, frames: torch.Tensor):
         """Copy ``state`` in, replay once per frame, copy each frame's
         outputs into fresh (T, ...) stacks; the final state is returned as
         fresh tensors too, so the caller never holds a static buffer. Per
@@ -140,13 +158,16 @@ class StepGraph:
             self.graph.replay()
             for stack, value in zip(stacks, self.out):
                 stack[t].copy_(value)
-        return TrackState(*(t.clone() for t in self.state)), StepOutput(*stacks)
+        return TrackState(*(t.clone() for t in self.state)), type(self.out)(*stacks)
 
 
 class Tracker:
-    """Tracker for one SiamMaskSharp model (already on ``device``, in eval
-    mode) and one config. Frames are (H, W, 3) uint8 or float arrays or
-    tensors; a tensor already on the device is used as it is.
+    """Tracker for one model (already on ``device``, in eval mode) and one
+    config. Frames are (H, W, 3) uint8 or float arrays or tensors; a tensor
+    already on the device is used as it is. ``mask=True`` needs a mask
+    family: with ``refine=True`` a ``SiamMaskSharp``, with ``refine=False``
+    either (the 63x63 head, so ``p.out_size`` must be 63). Steps return a
+    ``StepOutput``, or a ``BoxStepOutput`` with ``mask=False``.
 
     ``graphs`` holds the captured ``StepGraph`` of the ``MAX_GRAPHS`` most
     recently used (O, H, W, frame dtype) keys. Each graph keeps a private
@@ -155,9 +176,20 @@ class Tracker:
     least recently used graph, and with it its pool, before it captures
     another."""
 
-    def __init__(self, model, p: TrackerConfig, device: torch.device | str):
+    def __init__(self, model, p: TrackerConfig, device: torch.device | str,
+                 mask: bool = True, refine: bool = True):
+        families = (SiamMaskSharp,) if refine else (SiamMaskBase, SiamMaskSharp)
+        if mask and not isinstance(model, families):
+            raise ValueError(f"mask={mask}, refine={refine} needs a "
+                             f"{' or '.join(f.__name__ for f in families)}, "
+                             f"not a {type(model).__name__}")
+        if mask and not refine and p.out_size != 63:
+            raise ValueError(f"refine=False reads the 63x63 mask head, "
+                             f"but p.out_size is {p.out_size}")
         self.model = model
         self.p = p
+        self.mask = mask
+        self.refine = refine
         self.device = torch.device(device)
         self.anchor = torch.as_tensor(
             generate_score_map_anchors(p.anchor_config(), p.score_size), device=self.device)
@@ -269,8 +301,9 @@ class Tracker:
 
     def _back_box(self, target_pos: torch.Tensor, s_x_full: torch.Tensor, cells: torch.Tensor,
                   im_h: int, im_w: int) -> torch.Tensor:
-        """(O, 4) [bx, by, bw, bh]: the frame in the 127x127 mask coordinates
-        of each stream's best cell (the reference's sub-box geometry)."""
+        """(O, 4) [bx, by, bw, bh]: the frame in the out_size x out_size mask
+        coordinates of each stream's best cell (the reference's sub-box
+        geometry)."""
         p = self.p
         crop_xy = target_pos - s_x_full[:, None] / 2
         sc = s_x_full / p.instance_size
@@ -279,36 +312,62 @@ class Tracker:
         s2 = p.out_size / (sc * p.exemplar_size)
         return torch.stack([-sub_x * s2, -sub_y * s2, im_w * s2, im_h * s2], 1)
 
+    def _cell_mask(self, out, cells: torch.Tensor) -> torch.Tensor:
+        """The sigmoid mask (O, out_size, out_size) at each stream's best
+        cell: Refine's, or the raw 63*63 head's vector there. Base's head
+        map (O, 63*63, S, S) is read by a gather along its flattened S*S
+        axis on the device; sharp computes no head map, so its 1x1 head runs
+        on the corr vector gathered at the cell."""
+        p = self.p
+        o = cells.shape[0]
+        if self.refine:
+            logits = self.model.track_refine(out.skips, out.corr, cells)
+        else:
+            cell = cells[:, 0] * p.score_size + cells[:, 1]
+
+            def at_cell(m):                                       # (O, C, S, S) -> (O, C, 1)
+                m = m.flatten(2)
+                return m.gather(2, cell[:, None, None].expand(o, m.shape[1], 1))
+
+            if isinstance(out, TrackOutputs):
+                logits = self.model.mask_model.mask.head(at_cell(out.corr)[..., None])
+            else:
+                logits = at_cell(out[2])
+        return torch.sigmoid(logits.reshape(o, p.out_size, p.out_size))
+
     def _step_body(self, state: TrackState, frame: torch.Tensor):
         """One frame for O streams (batched state, shared device frame)."""
         p = self.p
-        o = state.target_pos.shape[0]
         im_h, im_w = frame.shape[0], frame.shape[1]
         s_x_full, scale_x = self._search_window(state)
         x_crop = subwindow_crop(frame, state.target_pos, s_x_full, p.instance_size,
-                                state.avg_chans)
-        out = self.model.track_mask(state.zf, x_crop.permute(0, 3, 1, 2).contiguous())
-        best, best_score, new_pos, new_sz = self._decode(state, out.score, out.loc, scale_x,
+                                state.avg_chans).permute(0, 3, 1, 2).contiguous()
+        if self.mask:
+            out = self.model.track_mask(state.zf, x_crop)
+            score_map, loc = out[0], out[1]
+        else:
+            score_map, loc = self.model.track(state.zf, x_crop)
+        best, best_score, new_pos, new_sz = self._decode(state, score_map, loc, scale_x,
                                                          im_h, im_w)
-        # refine at each stream's best cell, then warp back to the frame
+        new_state = state._replace(target_pos=new_pos, target_sz=new_sz, score=best_score)
+        if not self.mask:
+            return new_state, BoxStepOutput(new_pos, new_sz, best_score, best)
+        # the mask at each stream's best cell, warped back to the frame
         cells = self._cells(best)
-        logits_m = self.model.track_refine(out.skips, out.corr, cells)
-        mask_cell = torch.sigmoid(logits_m.reshape(o, p.out_size, p.out_size))
+        mask_cell = self._cell_mask(out, cells)
         back_box = self._back_box(state.target_pos, s_x_full, cells, im_h, im_w)
         mask_in_frame = warp_back_mask(mask_cell, back_box, (im_h, im_w))
-
-        new_state = state._replace(target_pos=new_pos, target_sz=new_sz, score=best_score)
         return new_state, StepOutput(new_pos, new_sz, best_score, best,
                                      mask_in_frame, mask_cell)
 
     @torch.inference_mode()
-    def step(self, state: TrackState, frame) -> tuple[TrackState, StepOutput]:
+    def step(self, state: TrackState, frame):
         """One frame for one object: the O=1 case of ``step_batched``."""
         new_state, out = self._step_body(_batch(state), self._frame(frame))
-        return _unbatch(new_state), StepOutput(*(v[0] for v in out))
+        return _unbatch(new_state), type(out)(*(v[0] for v in out))
 
     @torch.inference_mode()
-    def step_batched(self, states: TrackState, frame) -> tuple[TrackState, StepOutput]:
+    def step_batched(self, states: TrackState, frame):
         """One frame for O objects at once: the crop, backbone, heads and
         Refine run at batch O; outputs have the leading O axis."""
         return self._step_body(states, self._frame(frame))
@@ -316,7 +375,7 @@ class Tracker:
     # ---------------- whole video ----------------
 
     @torch.inference_mode()
-    def track_video_multi(self, states: TrackState, frames) -> tuple[TrackState, StepOutput]:
+    def track_video_multi(self, states: TrackState, frames):
         """T frames (T, H, W, 3) for O objects: returns the final state and
         the step outputs stacked as (T, O, ...). The frames are uploaded once
         if they are not on the device. On a CUDA device each frame is a
@@ -330,7 +389,7 @@ class Tracker:
             for frame in frames:
                 states, out = self._step_body(states, frame)
                 outs.append(out)
-            return states, StepOutput(*(torch.stack(v) for v in zip(*outs)))
+            return states, type(out)(*(torch.stack(v) for v in zip(*outs)))
         _, h, w, _ = frames.shape
         key = (states.target_pos.shape[0], h, w, frames.dtype)
         graph = self.graphs.pop(key, None)
@@ -345,8 +404,8 @@ class Tracker:
         return graph.run(states, frames)
 
     @torch.inference_mode()
-    def track_video(self, state: TrackState, frames) -> tuple[TrackState, StepOutput]:
+    def track_video(self, state: TrackState, frames):
         """T frames (T, H, W, 3) for one object: the final state and the
         outputs stacked as (T, ...); ``track_video_multi`` at O=1."""
         final, outs = self.track_video_multi(_batch(state), frames)
-        return _unbatch(final), StepOutput(*(v[:, 0] for v in outs))
+        return _unbatch(final), type(outs)(*(v[:, 0] for v in outs))

@@ -1,8 +1,9 @@
 """Box geometry helpers (host-side numpy), with the reference's formulas.
 
-Counterpart of the parts of ``siammask_tpu/utils/bbox.py`` that the tracker
-and the anchor-target code use: the ``Corner``/``Center`` tuples, the
-conversions between them, ``cxy_wh_2_rect`` and the vectorised ``bbox_iou``.
+Counterpart of the parts of ``siammask_tpu/utils/bbox.py`` that the tracker,
+the VOT driver and the anchor-target code use: the ``Corner``/``Center``
+tuples, the conversions between them, ``cxy_wh_2_rect``, ``rect_2_cxy_wh``,
+``get_axis_aligned_bbox`` and the vectorised ``bbox_iou``.
 """
 from __future__ import annotations
 
@@ -44,6 +45,34 @@ def center2corner(center):
 def cxy_wh_2_rect(pos, sz):
     """Center + size -> [x, y, w, h] rect (0-indexed top-left)."""
     return np.array([pos[0] - sz[0] / 2, pos[1] - sz[1] / 2, sz[0], sz[1]])
+
+
+def rect_2_cxy_wh(rect):
+    """[x, y, w, h] rect -> (center, size) arrays."""
+    return (np.array([rect[0] + rect[2] / 2, rect[1] + rect[3] / 2]),
+            np.array([rect[2], rect[3]]))
+
+
+def get_axis_aligned_bbox(region):
+    """VOT region -> axis-aligned (cx, cy, w, h). An 8-point polygon keeps its
+    area: the axis box is scaled to the rotated box's area, with the
+    reference's +1 on each side; a 4-number rect is [x, y, w, h]."""
+    region = np.asarray(region)
+    if region.size == 8:
+        cx = np.mean(region[0::2])
+        cy = np.mean(region[1::2])
+        x1, x2 = min(region[0::2]), max(region[0::2])
+        y1, y2 = min(region[1::2]), max(region[1::2])
+        a1 = np.linalg.norm(region[0:2] - region[2:4]) * np.linalg.norm(region[2:4] - region[4:6])
+        a2 = (x2 - x1) * (y2 - y1)
+        s = np.sqrt(a1 / a2)
+        w = s * (x2 - x1) + 1
+        h = s * (y2 - y1) + 1
+    else:
+        x, y, w, h = region[0], region[1], region[2], region[3]
+        cx = x + w / 2
+        cy = y + h / 2
+    return cx, cy, w, h
 
 
 def bbox_iou(rect1, rect2):

@@ -1,6 +1,7 @@
 """The CUDA-graph video paths on the card: ``track_video`` and
 ``track_video_multi`` replay a captured step and must give the bits of the
-eager step loop, and the tracker keeps only its most recently used graphs.
+eager step loop, for each model family (the box-only step's graph holds
+no mask outputs), and the tracker keeps only its most recently used graphs.
 Marked ``cuda``; they skip without a card. The file imports
 only the port, not the JAX package, so it runs where PyTorch alone is
 installed: ``python -m pytest tests/test_torch_graph.py -m cuda -q``."""
@@ -11,10 +12,18 @@ import pytest
 import torch
 
 from siammask_tpu_torch.config import Config
-from siammask_tpu_torch.models.siammask import SiamMaskSharp
-from siammask_tpu_torch.tracker.tracker import MAX_GRAPHS, StepOutput, Tracker
+from siammask_tpu_torch.models.siammask import SiamMaskBase, SiamMaskSharp, SiamRPN
+from siammask_tpu_torch.tracker.tracker import MAX_GRAPHS, Tracker
 
-CONFIG = Path(__file__).resolve().parents[1] / "experiments" / "siammask_sharp" / "config_davis.json"
+EXPERIMENTS = Path(__file__).resolve().parents[1] / "experiments"
+CONFIG = EXPERIMENTS / "siammask_sharp" / "config_davis.json"
+# family -> (model class, config, Tracker's mask and refine, xcorr launches a step)
+FAMILIES = {"sharp": (SiamMaskSharp, CONFIG, True, True, 3),
+            "base": (SiamMaskBase, EXPERIMENTS / "siammask_base" / "config.json", True, False, 3),
+            # sharp without its Refine: the 63x63 head on the gathered corr vector
+            "sharp-raw": (SiamMaskSharp, EXPERIMENTS / "siammask_base" / "config.json", True,
+                          False, 3),
+            "rpn": (SiamRPN, EXPERIMENTS / "siamrpn_resnet" / "config.json", False, False, 2)}
 WIDTH = 8
 # three streams; the second starts across the left border of the frame
 POS = np.array([(84.0, 58.0), (12.0, 96.0), (130.0, 34.0)], np.float32)
@@ -27,7 +36,7 @@ def _frames(n, h=120, w=160):
 
 
 def _stacked(outs):
-    return StepOutput(*(torch.stack(v) for v in zip(*outs)))
+    return type(outs[0])(*(torch.stack(v) for v in zip(*outs)))
 
 
 @pytest.fixture
@@ -39,18 +48,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _tracker(device) -> Tracker:
-    p = Config.load(str(CONFIG)).tracker_config()
-    model = SiamMaskSharp(width=WIDTH).init_weights(torch.Generator().manual_seed(0))
-    return Tracker(model.to(device).eval(), p, device)
+def _tracker(device, family: str = "sharp") -> Tracker:
+    cls, config, mask, refine, _ = FAMILIES[family]
+    p = Config.load(str(config)).tracker_config()
+    model = cls(width=WIDTH).init_weights(torch.Generator().manual_seed(0))
+    return Tracker(model.to(device).eval(), p, device, mask=mask, refine=refine)
 
 
 @pytest.mark.cuda
-def test_graph_track_video_matches_eager_on_card(cuda_device):
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_graph_track_video_matches_eager_on_card(cuda_device, family):
     """The CUDA-graph replay of ``track_video`` / ``track_video_multi`` gives
     the bits of the eager step loop from the same state: the same kernels in
     the same order."""
-    tracker = _tracker(cuda_device)
+    tracker = _tracker(cuda_device, family)
     frames = torch.from_numpy(_frames(6)).to(cuda_device)
     for states, run, step in (
             (tracker.init(frames[0], POS[0], SZ[0]), tracker.track_video, tracker.step),
@@ -62,12 +73,14 @@ def test_graph_track_video_matches_eager_on_card(cuda_device):
         for frame in frames[1:]:
             st, out = step(st, frame)
             loop.append(out)
-        for name, a, b, c in zip(StepOutput._fields, outs, again, _stacked(loop)):
+        assert type(outs) is type(loop[0])
+        for name, a, b, c in zip(outs._fields, outs, again, _stacked(loop)):
             assert torch.equal(a, c) and torch.equal(b, c), name
         assert all(torch.equal(a, b) for a, b in zip(final, st))
         assert all(torch.equal(a, b) for a, b in zip(again_final, st))
     assert sorted(k[0] for k in tracker.graphs) == [1, 3]
-    assert all(g.xcorr_launches == 3 for g in tracker.graphs.values())
+    per_step = FAMILIES[family][4]
+    assert all(g.xcorr_launches == per_step for g in tracker.graphs.values())
 
 
 @pytest.mark.cuda

@@ -18,6 +18,8 @@ from siammask_tpu_torch.models.heads import slice_skip_windows
 from siammask_tpu_torch.models.siammask import SiamMaskSharp
 from siammask_tpu_torch.utils.convert import load_reference_state_dict, state_dict_from_jax
 
+from test_torch_tracker import one_torch_thread  # noqa: F401  (autouse)
+
 WIDTH = 8
 
 

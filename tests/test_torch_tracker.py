@@ -34,6 +34,21 @@ WIDTH = 8
 POS, SZ = (84.0, 58.0), (44.0, 30.0)
 
 
+# Tier-1 runs the suite in six worker processes at once, and torch's default
+# of one intra-op thread per core then oversubscribes the cores: the port's
+# parity files, many small steps each, ran several times slower so, and the
+# load reached the other files' tests that time two processes against each
+# other. Every port parity module takes this fixture (the others import it).
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for the module, the count restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _frames(n=4, h=120, w=160):
     """Noise with a textured rectangle that drifts a few pixels a frame."""
     rng = np.random.RandomState(11)

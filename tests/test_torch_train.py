@@ -56,6 +56,8 @@ from siammask_tpu_torch.train.trainer import (OptimizerConfig, Trainer, TrainSet
                                               build_optimizer, label_params)
 from siammask_tpu_torch.utils.convert import _torch_name, state_dict_from_jax
 
+from test_torch_tracker import one_torch_thread  # noqa: F401  (autouse)
+
 CONFIG = Path(__file__).resolve().parents[1] / "experiments" / "siammask_base" / "config.json"
 WIDTH = 8
 B = 2

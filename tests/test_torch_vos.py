@@ -25,6 +25,7 @@ from siammask_tpu_torch.tracker.runtime import TrackerRuntime
 from siammask_tpu_torch.tracker.vos import THRS, multi_batch_iou, track_vos, track_vos_batched
 
 from chip_smoke import calibrate_bn
+from test_torch_tracker import one_torch_thread  # noqa: F401  (autouse)
 from test_vos_e2e import HP, _make_davis, _make_ytb_vos_valid
 
 WIDTH = 8
