@@ -20,19 +20,27 @@ synthetic uint8 frames made from a numpy seed, with seeded random weights:
   layout videos written under ``build/``;
 - the SiamMask-base stage-1 training step (``Trainer.step``, the
   ``experiments/siammask_base/config.json`` recipe) at batch 64, two steps
-  with the backbone frozen and two after the unfreeze.
+  with the backbone frozen and two after the unfreeze;
+- the rest of training at batch 64 on a synthetic crop511 set written
+  under ``build/``: the data pipeline (``PairDataset``, ``DataLoader``,
+  ``to_device``), stage-2 refine training
+  (``experiments/siammask_sharp/config.json``, warm-started from a stage-1
+  checkpoint), SiamRPN training (``experiments/siamrpn_resnet/config.json``),
+  ``Trainer.restore`` and the train CLI (``siammask_tpu_torch.tools.train``).
 
 Phases, each of which raises on failure:
 
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: the hand-written kernels are compiled from ``siammask_tpu_torch/csrc``;
 3. the forward xcorr kernel vs its plain version at the tracking shape, B=16,
-   the training batch (B=64), a ragged shape and bf16; kernel and plain times
-   at B=1 (fp32, bf16), B=16 and B=64 (fp32);
-4. the two gradient kernels vs their plain versions at B=1, B=16, B=64, a
-   ragged shape and bf16; two B=64 calls of each bit-identical; kernel and
-   plain times at B=1, B=16 and B=64 beside each kernel's bound, and the
-   eager autograd backward through the kernels vs through the plain forward;
+   the training batch (B=64), stage 2's (64,7,7,256)*(64,5,5,256), a ragged
+   shape and bf16; kernel and plain times at B=1 (fp32, bf16), B=16, B=64
+   and stage 2's shape (fp32);
+4. the two gradient kernels vs their plain versions at B=1, B=16, B=64,
+   stage 2's shape, a ragged shape and bf16; two calls of each at B=64 and
+   at stage 2's shape bit-identical; kernel and plain times at B=1, B=16,
+   B=64 and stage 2's shape beside each kernel's bound, and the eager
+   autograd backward through the kernels vs through the plain forward;
 5. the track slice: init + steps, with finite outputs in bounds, three xcorr
    kernel launches per step, and one step under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
@@ -86,13 +94,36 @@ Phases, each of which raises on failure:
 16. one training step on the card and on the CPU from the same weights and
     batch (B=2), open loop;
 17. the profile of one frozen and one unfrozen step (no backbone backward
-    while frozen), and train ms/step and samples/s.
+    while frozen), and train ms/step and samples/s;
+18. ``[data]``: 8 batches of 64 from ``PairDataset(seed)`` through
+    ``DataLoader`` for the stage-2 and the SiamRPN config, with thread and
+    with process workers (min(16, cores)): samples/s of each, the host's
+    cores, the two modes' batches bit-identical;
+19. ``[train-refine]``: stage 2 warm-started from the stage-1 trainer's
+    checkpoint (``merge_state_dict`` reports exactly the ``refine_model.*``
+    entries missing), 4 steps on loader batches through ``to_device`` with
+    3 / 1 / 1 launches each, backbone, neck and RPN bit-identical
+    (parameters and BN buffers), the unused mask head moved by weight decay
+    alone; the loss over 8 repeated steps; card vs CPU at B=2, both held to
+    the CPU's float64 step; a profile (idle share, top 10) and ms/step,
+    samples/s and peak memory;
+20. ``[train-rpn]``: SiamRPN, 2 frozen and 2 unfrozen steps on loader
+    batches with 2 / 2 / 2 launches each, card vs CPU at B=2, a profile and
+    the timings of each phase;
+21. ``[train-resume]``: 2 SiamRPN steps, a checkpoint, ``Trainer.restore``
+    into a fresh trainer, then step 3 bit-identical (weights, BN statistics,
+    momentum) to the uninterrupted run, in phase and across the unfreeze
+    boundary (where the restore warns and momentum restarts);
+22. ``[train-cli]``: ``tools.train.main`` for SiamMask-base (one epoch of 2
+    steps), then ``sharp_refine --pretrained`` its checkpoint, then
+    ``--resume``: finite losses and a checkpoint from each.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel with its launches on the main paths, error, times, bound and
 the time of the one library call (cuDNN's grouped conv) that computes the
 same function, with ``launches_by_path`` (track, video, streams16, vos,
-rpn, base, vot, train). A kernel captured in a CUDA graph passes through
+rpn, base, vot, train, train_refine, train_rpn) and the times at stage 2's
+shape (``stage2``). A kernel captured in a CUDA graph passes through
 its wrapper (and its count) once, at capture; on the graph paths its
 launches are the captured launches times the replays, which phases 8, 9,
 12 and 13 confirm by kernel name in a profiler trace.
@@ -102,6 +133,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -114,6 +146,7 @@ import torch.nn.functional as F
 
 from siammask_tpu_torch.config import Config
 from siammask_tpu_torch.data.anchor_target import AnchorTarget
+from siammask_tpu_torch.data.dataset import DataLoader, PairDataset, to_device
 from siammask_tpu_torch.eval.datasets import load_dataset
 from siammask_tpu_torch.eval.region import vot_overlap
 from siammask_tpu_torch.models.heads import slice_skip_windows
@@ -131,6 +164,8 @@ from siammask_tpu_torch.tracker.runtime import TrackerRuntime
 from siammask_tpu_torch.tracker.tracker import BoxStepOutput, StepOutput, Tracker, TrackState
 from siammask_tpu_torch.tracker.vos import track_vos, track_vos_batched
 from siammask_tpu_torch.tracker.vot import SKIP, track_vot
+from siammask_tpu_torch.tools import train as train_cli
+from siammask_tpu_torch.train.checkpoint import merge_state_dict, read_state_dict, save_checkpoint
 from siammask_tpu_torch.train.lr import build_lr_spaces
 from siammask_tpu_torch.train.trainer import OptimizerConfig, Trainer, TrainSettings
 
@@ -160,6 +195,13 @@ TIMED_CALLS = 5
 TRAIN_BATCH = 64          # tools/train.py's default
 TRAIN_EPOCHS = 2          # epoch 0 frozen, epoch 1 unfrozen (unfreeze_at 0.5)
 TRAIN_FRAME_HW = (360, 480)
+# the xcorr of stage-2 refine training (143x143 search): the neck's 9x9
+# crop through the 3x3 adjust convs, against the 5x5 template
+STAGE2_X, STAGE2_K = (TRAIN_BATCH, 7, 7, 256), (TRAIN_BATCH, 5, 5, 256)
+TRAIN_WIDTH = 64
+DEV = "cuda"
+SHARP_TRAIN_CONFIG = REPO / "experiments" / "siammask_sharp" / "config.json"
+SMOKE_TRAIN = REPO / "build" / "train_smoke"
 KERNELS = (depthwise_xcorr, depthwise_xcorr_grad_input, depthwise_xcorr_grad_kernel)
 # an H100 SXM's published peaks at 700 W: HBM3 and fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -365,6 +407,7 @@ def phase_kernels() -> dict:
     cases = [((1, 29, 29, 256), (1, 5, 5, 256), torch.float32),
              ((16, 29, 29, 256), (16, 5, 5, 256), torch.float32),
              ((TRAIN_BATCH, 29, 29, 256), (TRAIN_BATCH, 5, 5, 256), torch.float32),
+             (STAGE2_X, STAGE2_K, torch.float32),
              ((3, 17, 23, 200), (3, 4, 3, 200), torch.float32),
              ((1, 29, 29, 256), (1, 5, 5, 256), torch.bfloat16)]
     errors = {}
@@ -385,11 +428,17 @@ def phase_kernels() -> dict:
         times[(b, dtype)] = time_kernel(
             f"[kernel] ({b},29,29,256)*({b},5,5,256) {str(dtype)[6:]}", depthwise_xcorr,
             depthwise_xcorr_reference, (x, k), "forward", (x, k), x, k)
+    # stage-2 refine training's shape: one partial strip, a 3x3 output
+    x = torch.randn(STAGE2_X, generator=g).to("cuda")
+    k = torch.randn(STAGE2_K, generator=g).to("cuda")
+    stage2 = time_kernel(f"[kernel] stage 2 {STAGE2_X}*{STAGE2_K} fp32", depthwise_xcorr,
+                         depthwise_xcorr_reference, (x, k), "forward", (x, k), x, k)
     return {"name": "depthwise_xcorr", "route": "cuda",
             "source": "siammask_tpu_torch/csrc/xcorr.cu",
             "replaces": "siammask_tpu/ops/xcorr_pallas.py:67",
             "max_abs_err": errors[((1, 29, 29, 256), torch.float32)],
-            **times[(1, torch.float32)]}
+            **times[(1, torch.float32)],
+            "stage2": {"max_abs_err": errors[(STAGE2_X, torch.float32)], **stage2}}
 
 
 def phase_grad_kernels() -> list[dict]:
@@ -405,6 +454,7 @@ def phase_grad_kernels() -> list[dict]:
     for xs, ks, dtype in [((1, 29, 29, 256), (1, 5, 5, 256), torch.float32),
                           ((16, 29, 29, 256), (16, 5, 5, 256), torch.float32),
                           ((TRAIN_BATCH, 29, 29, 256), (TRAIN_BATCH, 5, 5, 256), torch.float32),
+                          (STAGE2_X, STAGE2_K, torch.float32),
                           ((3, 17, 23, 200), (3, 4, 3, 200), torch.float32),
                           ((1, 29, 29, 256), (1, 5, 5, 256), torch.bfloat16)]:
         x, k, go = inputs(xs, ks, dtype)
@@ -449,12 +499,23 @@ def phase_grad_kernels() -> list[dict]:
         print(f"[grad] autograd backward (dx and dk) B={b} fp32, eager: kernels "
               f"{kernel:.2f} us; plain autograd {plain:.2f} us")
 
+    # stage-2 refine training's shape: a 3x3 upstream grad
+    x, k, go = inputs(STAGE2_X, STAGE2_K, torch.float32)
+    times[("input", "stage2")] = time_kernel(
+        "[grad] grad-input stage 2 fp32", depthwise_xcorr_grad_input,
+        depthwise_xcorr_grad_input_reference, (go, k, *STAGE2_X[1:3]), "input", (go, k), x, k)
+    times[("kernel", "stage2")] = time_kernel(
+        "[grad] grad-kernel stage 2 fp32", depthwise_xcorr_grad_kernel,
+        depthwise_xcorr_grad_kernel_reference, (x, go), "kernel", (x, go), x, k)
+
     # the custom_vjp backward of depthwise_xcorr_ad
     return [{"name": f"depthwise_xcorr_grad_{which}", "route": "cuda",
              "source": "siammask_tpu_torch/csrc/xcorr.cu",
              "replaces": "siammask_tpu/ops/xcorr_pallas.py:48",
              "max_abs_err": errors[(which, (TRAIN_BATCH, 29, 29, 256), torch.float32)],
-             **times[(which, TRAIN_BATCH)]} for which in ("input", "kernel")]
+             **times[(which, TRAIN_BATCH)],
+             "stage2": {"max_abs_err": errors[(which, STAGE2_X, torch.float32)],
+                        **times[(which, "stage2")]}} for which in ("input", "kernel")]
 
 
 def build_model(p, cls=SiamMaskSharp, mask: bool = True,
@@ -685,15 +746,26 @@ def profile_call(fn) -> tuple[list, float, float]:
     return events, busy, start.elapsed_time(end)
 
 
-def check_graph_profile(what: str, events, busy: float, call_ms: float, frames: int,
-                        streams: int, per_frame: int = 3) -> None:
-    """Confirms ``per_frame`` xcorr kernels a frame by kernel name in the
-    trace of a graph call and prints device ms a frame, the idle share and
-    the host's CUDA calls a frame."""
-    xcorr = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                and "depthwise_xcorr" in e.key)
-    if xcorr != per_frame * frames:
-        raise AssertionError(f"{what}: {xcorr} xcorr kernels in the trace of {frames} frames")
+def check_graph_profile(what: str, call, frames: int, streams: int,
+                        per_frame: int = 3) -> None:
+    """Profiles one graph call, confirms ``per_frame`` xcorr kernels a
+    frame by kernel name in its trace and prints device ms a frame, the idle
+    share and the host's CUDA calls a frame. A trace has come back short of
+    a few kernels (189 of 192 once on an H100, the replays all
+    bit-identical to the eager loop): a short trace is taken once more
+    before the check fails."""
+    expected = per_frame * frames
+    for attempt in (1, 2):
+        events, busy, call_ms = profile_call(call)
+        xcorr = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "depthwise_xcorr" in e.key)
+        if xcorr == expected:
+            break
+        if attempt == 2 or xcorr > expected:
+            raise AssertionError(f"{what}: {xcorr} xcorr kernels in the trace of {frames} "
+                                 f"frames, expected {expected}")
+        print(f"[{what}] the profiler's trace held {xcorr} of {expected} xcorr kernels; "
+              "profiling the call once more")
     host = {k: sum(e.count for e in events if e.key == k)
             for k in ("cudaGraphLaunch", "cudaMemcpyAsync", "cudaLaunchKernel")}
     print(f"[{what}] profiled call: {xcorr} xcorr kernels by name ({xcorr // frames} a frame); "
@@ -751,7 +823,7 @@ def phase_video(tracker: Tracker, frames: np.ndarray, smi: str,
           f"{min(event_ms):.3f}, max {max(event_ms):.3f}), {med / t:.3f} ms a frame, "
           f"{t * 1e3 / med:.1f} frames/s; host clock to the end "
           f"{statistics.median(wall_ms):.3f} ms | {smi}")
-    check_graph_profile(tag, *profile_call(lambda: tracker.track_video(state, dev[1:])),
+    check_graph_profile(tag, lambda: tracker.track_video(state, dev[1:]),
                         t, 1, per_frame)
     return graph.xcorr_launches * t, final
 
@@ -825,8 +897,7 @@ def phase_streams(tracker: Tracker, frames: np.ndarray, smi: str) -> tuple[int, 
           f"min {min(event_ms):.3f}, max {max(event_ms):.3f}), {med / t:.3f} ms a frame, "
           f"{o * t * 1e3 / med:.1f} aggregate frames/s; host clock to the end "
           f"{statistics.median(wall_ms):.3f} ms | {smi}")
-    check_graph_profile("streams", *profile_call(
-        lambda: tracker.track_video_multi(states, dev[1:])), t, o)
+    check_graph_profile("streams", lambda: tracker.track_video_multi(states, dev[1:]), t, o)
     return step_launches[0] + graph.xcorr_launches * t, stepped
 
 
@@ -1217,7 +1288,7 @@ def synthetic_train_batch(cfg: Config, b: int, device, seed: int = SEED) -> dict
 
 
 def train_parts(cfg: Config):
-    settings = TrainSettings(loss_weight=cfg.loss_weight)
+    settings = TrainSettings(task="base", loss_weight=cfg.loss_weight, mask_pad=32)
     opt_cfg = OptimizerConfig.from_lr_cfg(cfg.lr, clip=10.0, clip_cfg=cfg.clip)
     return settings, opt_cfg, build_lr_spaces(cfg.lr, TRAIN_EPOCHS)
 
@@ -1296,24 +1367,31 @@ def _momentum(trainer: Trainer) -> dict:
     return {names[p]: s["momentum_buffer"].cpu() for p, s in trainer.optimizer.state.items()}
 
 
-def phase_train_parity(cfg: Config, init_state: dict, batch: dict) -> None:
+def loaded_model(cls, state: dict, device):
+    model = cls(width=TRAIN_WIDTH)
+    model.load_state_dict(state)
+    return model.to(device)
+
+
+def phase_train_parity(make_trainer, init_state: dict, batch: dict,
+                       tag: str = "train-parity") -> None:
     """One frozen-phase step from the same weights and batch (B=2) on the
-    card and on the CPU, open loop. Tolerances cover cuDNN's summation order
+    card and on the CPU, open loop; ``make_trainer(device)`` builds the
+    trainer on ``init_state``. Tolerances cover cuDNN's summation order
     against the CPU's (TF32 off): metrics 1e-4 relative; momentum buffers
     (the clipped, decayed gradients) 1e-3 of each tensor's largest entry plus
     1e-5 of the step's, for the tensors whose exact gradient is 0 (the neck's
     BN bias); parameters the same of their update plus two ulps."""
     small = {k: v[:2] for k, v in batch.items()}
     runs = {}
-    for device in ("cuda", "cpu"):
-        model = SiamMaskBase(width=64)
-        model.load_state_dict(init_state)
-        trainer = Trainer(model.to(device), *train_parts(cfg), epochs=TRAIN_EPOCHS)
+    for device in (DEV, "cpu"):
+        trainer = make_trainer(device)
+        model = trainer.model
         metrics = trainer.step({k: v.to(device) for k, v in small.items()}, 0)
         runs[device] = ({k: v.item() for k, v in metrics.items()},
                         {n: p.detach().cpu() for n, p in model.named_parameters()},
                         _momentum(trainer), trainer.labels)
-    (m_gpu, p_gpu, b_gpu, labels), (m_cpu, p_cpu, b_cpu, _) = runs["cuda"], runs["cpu"]
+    (m_gpu, p_gpu, b_gpu, labels), (m_cpu, p_cpu, b_cpu, _) = runs[DEV], runs["cpu"]
     for k in m_cpu:
         if not math.isclose(m_gpu[k], m_cpu[k], rel_tol=1e-4, abs_tol=1e-6):
             raise AssertionError(f"metric {k}: card {m_gpu[k]} vs CPU {m_cpu[k]}")
@@ -1335,9 +1413,63 @@ def phase_train_parity(cfg: Config, init_state: dict, batch: dict) -> None:
         torch.testing.assert_close(p_gpu[name], ref, rtol=2.0 ** -22,
                                    atol=1e-3 * updates[name] + floor,
                                    msg=lambda m, name=name: f"param {name}: {m}")
-    print(f"[train-parity] B=2 frozen step, card vs CPU: total loss {m_gpu['total_loss']:.6f} "
+    print(f"[{tag}] B=2 frozen step, card vs CPU: total loss {m_gpu['total_loss']:.6f} "
           f"vs {m_cpu['total_loss']:.6f}; largest momentum error {worst[0]:.3e} of its "
           f"tensor's largest entry ({worst[1]}); parameters within tolerance")
+
+
+def _step_error(ours: dict, ref: dict) -> float:
+    """A step's relative error over all its tensors,
+    sqrt(sum |ours - ref|^2 / sum |ref|^2), in float64."""
+    err = sum(((ours[n].double() - ref[n].double()) ** 2).sum().item() for n in ref)
+    return math.sqrt(err / sum((ref[n].double() ** 2).sum().item() for n in ref))
+
+
+def phase_refine_parity(make_trainer, init_state: dict, batch: dict, tag: str) -> None:
+    """One B=2 stage-2 step from the same weights and batch on the card
+    (float32) and on the CPU in float32 and in float64. Stage 2's mask corr
+    normalises 50 values a channel in train-mode BN at B=2 (its 5x5
+    template map), which leaves float32 rounding of ~1% of a tensor in some
+    gradients (0.9% in one H100 run, more than ``phase_train_parity``'s
+    1e-3): so both float32 steps are held to the float64 one. The card's
+    whole-step error in momentum and in parameter updates is at most 10
+    times the CPU float32 step's own, or 1e-2 where that is larger (cuDNN's
+    FFT and Winograd convs round more than the CPU's direct ones; a wrong
+    kernel is off by O(1)). Metrics within 1e-4 of the CPU float32 step's;
+    frozen entries exact."""
+    small = {k: v[:2] for k, v in batch.items()}
+    runs = {}
+    for name, device, dtype in ((DEV, DEV, torch.float32), ("cpu", "cpu", torch.float32),
+                                ("cpu64", "cpu", torch.float64)):
+        trainer = make_trainer(device)
+        trainer.model.to(dtype)
+        data = {k: v.to(device, dtype) if v.is_floating_point() else v.to(device)
+                for k, v in small.items()}
+        metrics = trainer.step(data, 0)
+        runs[name] = ({k: v.item() for k, v in metrics.items()},
+                      {n: p.detach().cpu() for n, p in trainer.model.named_parameters()},
+                      _momentum(trainer), trainer.labels)
+    (m_gpu, p_gpu, b_gpu, labels), (m_cpu, p_cpu, b_cpu, _) = runs[DEV], runs["cpu"]
+    p_64, b_64 = runs["cpu64"][1], runs["cpu64"][2]
+    for k in m_cpu:
+        if not math.isclose(m_gpu[k], m_cpu[k], rel_tol=1e-4, abs_tol=1e-6):
+            raise AssertionError(f"[{tag}] metric {k}: card {m_gpu[k]} vs CPU {m_cpu[k]}")
+    trained = [n for n, label in labels.items() if label != "frozen"]
+    for n, label in labels.items():
+        if label == "frozen" and not torch.equal(p_gpu[n], init_state[n]):
+            raise AssertionError(f"[{tag}] frozen {n} moved")
+    update = lambda params: {n: params[n].double() - init_state[n].double() for n in trained}
+    errors = {what: (_step_error(ours, ref), _step_error(cpu, ref)) for what, ours, cpu, ref in
+              (("momentum", b_gpu, b_cpu, b_64),
+               ("updates", update(p_gpu), update(p_cpu), update(p_64)))}
+    for what, (card, cpu) in errors.items():
+        if not card <= max(10 * cpu, 1e-2):
+            raise AssertionError(f"[{tag}] {what}: the card's float32 step is {card:.3e} off "
+                                 f"the float64 step, the CPU's float32 step {cpu:.3e}")
+    print(f"[{tag}] B=2 step, card vs CPU: total loss {m_gpu['total_loss']:.6f} vs "
+          f"{m_cpu['total_loss']:.6f}; whole-step error against the CPU's float64 step: "
+          + "; ".join(f"{what} card {card:.3e}, CPU float32 {cpu:.3e}"
+                      for what, (card, cpu) in errors.items()))
 
 
 def phase_train_profile(trainer: Trainer, batch: dict) -> None:
@@ -1370,11 +1502,15 @@ def phase_train_profile(trainer: Trainer, batch: dict) -> None:
             raise AssertionError(f"{label}: {conv_bwd} conv backwards, expected {expected}")
 
 
-def phase_train_timing(trainer: Trainer, batch: dict, smi: str) -> None:
-    for epoch, label in ((0, "frozen"), (1, "unfrozen")):
+def phase_train_timing(trainer: Trainer, batch: dict, smi: str, tag: str = "train-timing",
+                       phases=((0, "frozen"), (1, "unfrozen"))) -> None:
+    """ms/step and samples/s of each phase (median of 10 warm steps by CUDA
+    events), and the peak memory of those steps."""
+    for epoch, label in phases:
         for _ in range(3):
             trainer.step(batch, epoch)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         times = []
         for _ in range(10):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1384,9 +1520,388 @@ def phase_train_timing(trainer: Trainer, batch: dict, smi: str) -> None:
             end.synchronize()
             times.append(start.elapsed_time(end))
         med = statistics.median(times)
-        print(f"[train-timing] {label} step, B={TRAIN_BATCH}, width 64, fp32, TF32 off: "
+        b = batch["template"].shape[0]
+        print(f"[{tag}] {label} step, B={b}, width {TRAIN_WIDTH}, fp32, TF32 off: "
               f"median {med:.2f} ms (CUDA events, 10 warm steps; min {min(times):.2f}, "
-              f"max {max(times):.2f}); {TRAIN_BATCH * 1e3 / med:.1f} samples/s | {smi}")
+              f"max {max(times):.2f}); {b * 1e3 / med:.1f} samples/s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}")
+
+
+HEAD = "mask_model.mask.head."
+REFINE_FROZEN = ("features.", "rpn_model.")
+
+
+def write_crop_dataset(root: Path, videos: int = 8, tracks: int = 2, frames: int = 4,
+                       seed: int = SEED) -> tuple[str, str]:
+    """A synthetic crop511 training set in the COCO layout the training
+    configs read: ``{video}/{frame:06d}.{track:02d}.x.jpg`` (blocky noise
+    with a textured target near the centre), its ``.m.png`` mask and a
+    ``train.json`` of corner boxes. Returns (root, anno path)."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    anno = {}
+    for v in range(videos):
+        video = root / f"video_{v}"
+        video.mkdir(parents=True)
+        anno[video.name] = {}
+        for t in range(tracks):
+            boxes = {}
+            for f in range(frames):
+                coarse = rng.randint(0, 256, size=(65, 65, 3)).astype(np.uint8)
+                img = np.repeat(np.repeat(coarse, 8, axis=0), 8, axis=1)[:511, :511].copy()
+                w, h = (int(x) for x in rng.randint(90, 200, size=2))
+                x0 = int(255 - w // 2 + rng.randint(-12, 13))
+                y0 = int(255 - h // 2 + rng.randint(-12, 13))
+                img[y0:y0 + h, x0:x0 + w] = rng.randint(0, 256, size=(h, w, 3))
+                mask = np.zeros((511, 511), np.uint8)
+                mask[y0:y0 + h, x0:x0 + w] = 255
+                cv2.imwrite(str(video / f"{f:06d}.{t:02d}.x.jpg"), img)
+                cv2.imwrite(str(video / f"{f:06d}.{t:02d}.m.png"), mask)
+                boxes[f"{f:06d}"] = [x0, y0, x0 + w - 1, y0 + h - 1]
+            anno[video.name][f"{t:02d}"] = boxes
+    (root / "train.json").write_text(json.dumps(anno))
+    return str(root), str(root / "train.json")
+
+
+def train_data_config(config: Path, root: str, anno: str, num: int) -> dict:
+    """An experiment config (JSON dict) with the synthetic set as its only
+    training source, ``num`` pairs an epoch."""
+    raw = json.loads(config.read_text())
+    raw["train_datasets"]["datasets"] = {"coco": {"root": root, "anno": anno,
+                                                  "frame_range": 2}}
+    raw["train_datasets"]["num"] = num
+    return raw
+
+
+def phase_data(configs: dict) -> dict:
+    """``PairDataset(seed)`` through ``DataLoader``, 8 batches of
+    TRAIN_BATCH for each config, with thread and with process workers:
+    samples/s of each and the host's cores; the two modes give the same
+    batches bit for bit. Returns the thread run's first 4 batches of each
+    config."""
+    workers = min(16, os.cpu_count() or 1)
+    kept = {}
+    for name, raw in configs.items():
+        cfg = Config.from_dict(raw)
+        runs = {}
+        for mode in ("thread", "process"):
+            dataset = PairDataset(cfg.train_datasets, cfg.anchors, seed=SEED)
+            loader = DataLoader(dataset, TRAIN_BATCH, num_workers=workers, workers_mode=mode)
+            t0 = time.perf_counter()
+            runs[mode] = list(loader)
+            dt = time.perf_counter() - t0
+            n = sum(len(b["template"]) for b in runs[mode])
+            print(f"[data] {name} ({cfg.train_datasets['search_size']}^2 search): {len(runs[mode])} "
+                  f"batches of {TRAIN_BATCH} through DataLoader, {workers} {mode} workers: "
+                  f"{dt:.2f} s, {n / dt:.1f} samples/s")
+        search = cfg.train_datasets["search_size"]
+        for a, b in zip(runs["thread"], runs["process"]):
+            if a.keys() != b.keys() or not all(np.array_equal(a[k], b[k]) for k in a):
+                raise AssertionError(f"[data] {name}: thread and process batches differ")
+            if a["search"].shape != (TRAIN_BATCH, search, search, 3):
+                raise AssertionError(f"[data] {name}: search {a['search'].shape}")
+        positives = sum(int((b["label_mask_weight"].reshape(TRAIN_BATCH, -1).max(1) > 0).sum())
+                        for b in runs["thread"])
+        print(f"[data] {name}: thread and process batches bit-identical; "
+              f"{positives} of {len(runs['thread']) * TRAIN_BATCH} pairs with mask positives")
+        kept[name] = runs["thread"][:4]
+    print(f"[data] host: {os.cpu_count()} cores (os.cpu_count)")
+    return kept
+
+
+def task_trainer(raw: dict, task: str, model) -> Trainer:
+    """A ``Trainer`` of ``task`` over ``model`` with the recipe of the
+    config ``raw``, TRAIN_EPOCHS epochs, unfreezing at half of them."""
+    cfg = Config.from_dict(raw, clip=10.0)
+    settings = TrainSettings.for_search(task, cfg.loss_weight,
+                                        cfg.train_datasets["search_size"])
+    opt_cfg = OptimizerConfig.from_lr_cfg(cfg.lr, clip=10.0, clip_cfg=cfg.clip)
+    return Trainer(model, settings, opt_cfg, build_lr_spaces(cfg.lr, TRAIN_EPOCHS),
+                   epochs=TRAIN_EPOCHS, unfreeze_at=0.5)
+
+
+def run_train_steps(tag: str, trainer: Trainer, batches, epochs, per_step: list[int],
+                    groups, frozen, on_step=None) -> list[int]:
+    """One step a batch at ``epochs``, each checked: finite metrics and no
+    skip, ``per_step`` (forward, grad-input, grad-kernel) launches, the
+    entries under ``frozen(epoch)`` (parameters and BN buffers)
+    bit-identical to their values before the first step, and every
+    trainable group of ``groups(epoch)`` moved. Returns the launches."""
+    model = trainer.model
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    reset_launches()
+    for step, (batch, epoch) in enumerate(zip(batches, epochs)):
+        counts = read_launches()
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        bufs = {n: trainer.optimizer.state[p]["momentum_buffer"].clone()
+                for n, p in model.named_parameters() if p in trainer.optimizer.state}
+        metrics = {k: v.item() for k, v in trainer.step(batch, epoch).items()}
+        counts = [a - b for a, b in zip(read_launches(), counts)]
+        if not all(math.isfinite(v) for v in metrics.values()) or metrics["skipped"] != 0:
+            raise AssertionError(f"[{tag}] step {step}: {metrics}")
+        if counts != per_step:
+            raise AssertionError(f"[{tag}] step {step}: {counts} forward/grad-input/"
+                                 f"grad-kernel launches, expected {per_step}")
+        now = model.state_dict()
+        held = [k for k in start if k.startswith(frozen(epoch))]
+        if not held or not all(torch.equal(now[k], start[k]) for k in held):
+            raise AssertionError(f"[{tag}] step {step}: a frozen entry changed")
+        moved = {}
+        for name, p in model.named_parameters():
+            label = trainer.labels[name]
+            if label != "frozen":
+                moved.setdefault(label, []).append(not torch.equal(p, before[name]))
+        if set(moved) != groups(epoch) or not all(any(v) for v in moved.values()):
+            raise AssertionError(f"[{tag}] step {step}: trainable groups moved: {moved}")
+        if on_step is not None:
+            on_step(before, bufs)
+        print(f"[{tag}] step {step} epoch {epoch}: "
+              + " ".join(f"{k} {v:.4f}" for k, v in metrics.items() if k != "skipped")
+              + f"; launches {counts}; {len(held)} frozen entries bit-identical; tensors "
+              "moved " + ", ".join(f"{k} {sum(v)}/{len(v)}" for k, v in sorted(moved.items())))
+    return read_launches()
+
+
+def check_head_decay(trainer: Trainer, before: dict, bufs: dict) -> None:
+    """The mask corr's 1x1 head, which sharp's training graph never calls:
+    zero gradient, momentum ``0.9 m + wd w`` and ``w - lr m``, so it moves by
+    weight decay alone, as the JAX package's optax chain moves it."""
+    opt = trainer.optimizer
+    group = next(g for g in opt.param_groups if g["name"] == "mask")
+    for name, p in trainer.model.named_parameters():
+        if not name.startswith(HEAD):
+            continue
+        if p.grad is None or torch.count_nonzero(p.grad):
+            raise AssertionError(f"{name}: the loss reached the unused head")
+        buf = opt.state[p]["momentum_buffer"]
+        expected = group["weight_decay"] * before[name]
+        if name in bufs:
+            expected = expected + group["momentum"] * bufs[name]
+        torch.testing.assert_close(buf, expected, rtol=1e-5, atol=1e-12)
+        torch.testing.assert_close(p.detach(), before[name] - group["lr"] * buf,
+                                   rtol=1e-6, atol=1e-12)
+        if before[name].any() and torch.equal(p, before[name]):
+            raise AssertionError(f"{name} did not decay")
+
+
+def loss_falls(tag: str, trainer: Trainer, batch: dict, epoch: int) -> None:
+    """8 steps on one batch: the mean loss of the last four is below the
+    first. Stage 2's loss swings by ~10% from step to step under momentum
+    (14.17 12.70 13.67 14.95 14.74 13.22 12.05 12.66 on an H100), so one
+    step against one would be a coin toss near the end."""
+    losses = [trainer.step(batch, epoch)["total_loss"].item() for _ in range(8)]
+    if not statistics.mean(losses[4:]) < losses[0]:
+        raise AssertionError(f"[{tag}] the loss did not fall on a repeated batch: {losses}")
+    print(f"[{tag}] repeated batch, 8 steps: total loss " + " ".join(f"{v:.4f}" for v in losses))
+
+
+def train_profile(tag: str, trainer: Trainer, batch: dict, epoch: int, label: str,
+                  launches: int) -> None:
+    """One profiled step: device busy against the step's CUDA-event time
+    (the idle share), the xcorr kernels by name (``launches`` of them) and
+    the top 10 device ops."""
+    trainer.step(batch, epoch)
+    for attempt in (1, 2):   # a short trace is taken once more (check_graph_profile)
+        events, busy, call_ms = profile_call(lambda: trainer.step(batch, epoch))
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        xcorr = {e.key.split("::")[-1].split("(")[0]: e.count for e in kernels
+                 if "depthwise_xcorr" in e.key}
+        if sum(xcorr.values()) == launches:
+            break
+        if attempt == 2 or sum(xcorr.values()) > launches:
+            raise AssertionError(f"[{tag}] {xcorr} xcorr kernels in the trace, "
+                                 f"expected {launches}")
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    print(f"[{tag}] profiled {label} step: device busy {busy:.2f} ms of {call_ms:.2f} ms, idle "
+          f"share {100 * (1 - busy / call_ms):.1f}%; xcorr kernels by name {xcorr}; top 10: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
+                      for e in top))
+
+
+def phase_train_refine(base_trainer: Trainer, raw: dict, batches: list, smi: str) -> list[int]:
+    """Stage 2 of the two-stage recipe at TRAIN_BATCH, warm-started from a
+    stage-1 checkpoint of ``base_trainer``: 4 steps on loader batches
+    through ``to_device`` (3 / 1 / 1 launches a step, backbone, neck and RPN
+    bit-identical, the unused head decaying), the loss over 8 repeated
+    steps, card vs CPU at B=2, a profile, ms/step and peak memory."""
+    path = str(SMOKE_TRAIN / "stage1.pth")
+    save_checkpoint(path, base_trainer.model.state_dict(), base_trainer.optimizer.state_dict(),
+                    epoch=TRAIN_EPOCHS, arch="SiamMaskBase",
+                    anchor_cfg=Config.from_dict(raw).anchors.to_dict())
+    model = SiamMaskSharp(width=TRAIN_WIDTH).init_weights(torch.Generator().manual_seed(SEED + 1))
+    missing, unused = merge_state_dict(model, read_state_dict(path))
+    refine = sorted(k for k in model.state_dict() if k.startswith("refine_model."))
+    if sorted(missing) != refine or unused:
+        raise AssertionError(f"[train-refine] warm start: missing {missing}, unused {unused}")
+    print(f"[train-refine] warm start from a stage-1 checkpoint: {len(missing)} entries kept at "
+          f"init, all refine_model.*; none unused")
+    init_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    trainer = task_trainer(raw, "sharp_refine", model.to(DEV))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = run_train_steps(
+        "train-refine", trainer, to_device(iter(batches), DEV), (0, 0, 1, 1), [3, 1, 1],
+        lambda epoch: {"mask", "refine"}, lambda epoch: REFINE_FROZEN,
+        on_step=lambda before, bufs: check_head_decay(trainer, before, bufs))
+    print(f"[train-refine] 4 steps at B={TRAIN_BATCH}, 143^2 search, 3x3 grid: launches "
+          f"{launches}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the "
+          "mask head decayed by weight decay alone at every step")
+    batch = next(to_device(iter(batches[:1]), DEV))
+    loss_falls("train-refine", trainer, batch, 1)
+    phase_refine_parity(lambda device: task_trainer(
+        raw, "sharp_refine", loaded_model(SiamMaskSharp, init_state, device)),
+        init_state, batch, "train-refine-parity")
+    train_profile("train-refine", trainer, batch, 1, "stage-2", 5)
+    phase_train_timing(trainer, batch, smi, "train-refine-timing", ((1, "stage-2"),))
+    return launches
+
+
+def phase_train_rpn(raw: dict, batches: list, smi: str) -> tuple[list[int], dict]:
+    """SiamRPN at TRAIN_BATCH, 255^2 search: two frozen and two unfrozen
+    steps on loader batches (2 / 2 / 2 launches a step), card vs CPU at
+    B=2, a profile and ms/step per phase. Returns the launches and the
+    initial weights."""
+    model = SiamRPN(width=TRAIN_WIDTH).init_weights(torch.Generator().manual_seed(SEED + 2))
+    dev_batches = list(to_device(iter(batches), DEV))
+    model = model.to(DEV).eval()
+    with torch.inference_mode(), bn_calibration(model):
+        model.forward_train(dev_batches[0]["template"][:1], dev_batches[0]["search"][:1])
+    init_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    trainer = task_trainer(raw, "siamrpn", model)
+    launches = run_train_steps(
+        "train-rpn", trainer, dev_batches, (0, 0, 1, 1), [2, 2, 2],
+        lambda epoch: {"neck", "rpn"} | ({"resnet"} if epoch else set()),
+        lambda epoch: FROZEN_ALWAYS if epoch else FROZEN_ALWAYS + LAYER2)
+    print(f"[train-rpn] 4 steps at B={TRAIN_BATCH} (2 frozen, 2 unfrozen): launches {launches}")
+    phase_train_parity(lambda device: task_trainer(
+        raw, "siamrpn", loaded_model(SiamRPN, init_state, device)),
+        init_state, dev_batches[0], "train-rpn-parity")
+    for epoch, label in ((0, "frozen"), (1, "unfrozen")):
+        train_profile("train-rpn", trainer, dev_batches[0], epoch, label, 6)
+    phase_train_timing(trainer, dev_batches[0], smi, "train-rpn-timing")
+    return launches, init_state
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms and PyTorch's deterministic kernels
+    while open (warning where an op has none)."""
+    flags = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = flags[0]
+        torch.use_deterministic_algorithms(flags[1])
+
+
+def phase_train_resume(raw: dict, init_state: dict, batches: list) -> None:
+    """SiamRPN at TRAIN_BATCH: k=2 steps, a checkpoint, ``Trainer.restore``
+    into a fresh trainer and model, then step k+1 on both, which must give
+    the same bits, weights, BN statistics and momentum; then the same across
+    the unfreeze boundary (saved after epoch 0, resumed at epoch 1), where
+    the restore warns and momentum restarts on both sides. Deterministic
+    cuDNN algorithms while it runs."""
+    dev_batches = list(to_device(iter(batches), DEV))
+
+    def snapshot(trainer):
+        names = {p: n for n, p in trainer.model.named_parameters()}
+        return ({k: v.clone() for k, v in trainer.model.state_dict().items()},
+                {names[p]: s["momentum_buffer"].clone()
+                 for p, s in trainer.optimizer.state.items()})
+
+    with deterministic():
+        for boundary in (False, True):
+            resume_epoch = 1 if boundary else 0
+            straight = task_trainer(raw, "siamrpn",
+                                     loaded_model(SiamRPN, init_state, DEV))
+            for batch in dev_batches[:2]:
+                straight.step(batch, 0)
+            path = str(SMOKE_TRAIN / f"resume_{resume_epoch}.pth")
+            save_checkpoint(path, straight.model.state_dict(), straight.optimizer.state_dict(),
+                            epoch=resume_epoch)
+            straight.step(dev_batches[2], resume_epoch)
+            fresh = SiamRPN(width=TRAIN_WIDTH).init_weights(
+                torch.Generator().manual_seed(SEED + 9)).to(DEV)
+            resumed = task_trainer(raw, "siamrpn", fresh)
+            with _captured_warnings() as warnings:
+                if resumed.restore(path) != resume_epoch:
+                    raise AssertionError("[train-resume] restore returned another epoch")
+            if bool(warnings) != boundary or (len(resumed.optimizer.state) == 0) != boundary:
+                raise AssertionError(f"[train-resume] boundary {boundary}: warnings "
+                                     f"{warnings}, {len(resumed.optimizer.state)} momenta")
+            resumed.step(dev_batches[2], resume_epoch)
+            (s_a, m_a), (s_b, m_b) = snapshot(straight), snapshot(resumed)
+            if s_a.keys() != s_b.keys() or m_a.keys() != m_b.keys():
+                raise AssertionError("[train-resume] the two runs hold other entries")
+            differ = [k for k in s_a if not torch.equal(s_a[k], s_b[k])]
+            differ += [k for k in m_a if not torch.equal(m_a[k], m_b[k])]
+            if differ:
+                raise AssertionError(f"[train-resume] step 3 differs: {differ[:5]}")
+            print(f"[train-resume] {'across the unfreeze boundary' if boundary else 'in phase'}"
+                  f": 2 steps, checkpoint (epoch {resume_epoch}), restore into a fresh trainer"
+                  f"{' (warned: momentum restarts)' if boundary else ''}, step 3 at epoch "
+                  f"{resume_epoch}: {len(s_a)} state entries and {len(m_a)} momentum buffers "
+                  "bit-identical to the uninterrupted run")
+
+
+@contextlib.contextmanager
+def _captured_warnings():
+    """The WARNING records of the trainer's logger while open."""
+    import logging
+
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    log = logging.getLogger("siammask_tpu_torch.train.trainer")
+    handler = Keep(level=logging.WARNING)
+    log.addHandler(handler)
+    try:
+        yield records
+    finally:
+        log.removeHandler(handler)
+
+
+def phase_train_cli(configs: dict) -> None:
+    """``tools.train.main`` on the synthetic set at TRAIN_BATCH, width 64:
+    SiamMask-base for one epoch of 2 steps, then ``sharp_refine``
+    warm-started from its checkpoint, then resumed for a second epoch.
+    Each run's losses are finite and it writes its checkpoint."""
+    workers = str(min(16, os.cpu_count() or 1))
+    paths = {}
+    for name, raw in configs.items():
+        raw = dict(raw, train_datasets=dict(raw["train_datasets"], num=2 * TRAIN_BATCH))
+        paths[name] = SMOKE_TRAIN / f"cli_{name}.json"
+        paths[name].write_text(json.dumps(raw))
+    out = SMOKE_TRAIN / "cli"
+    common = ["--batch", str(TRAIN_BATCH), "--workers", workers, "--width", str(TRAIN_WIDTH),
+              "--log-interval", "1", "--seed", str(SEED), "--device", DEV]
+    runs = [("base", ["--config", str(paths["base"]), "--task", "base", "--epochs", "1",
+                      "--save-dir", str(out / "base")], out / "base" / "checkpoint_e1.pth"),
+            ("sharp_refine --pretrained",
+             ["--config", str(paths["sharp"]), "--task", "sharp_refine", "--epochs", "1",
+              "--save-dir", str(out / "sharp"), "--pretrained",
+              str(out / "base" / "checkpoint_e1.pth")], out / "sharp" / "checkpoint_e1.pth"),
+            ("sharp_refine --resume",
+             ["--config", str(paths["sharp"]), "--task", "sharp_refine", "--epochs", "2",
+              "--save-dir", str(out / "sharp"), "--resume",
+              str(out / "sharp" / "checkpoint_e1.pth")], out / "sharp" / "checkpoint_e2.pth")]
+    for label, argv, written in runs:
+        t0 = time.perf_counter()
+        metrics = train_cli.main([*argv, *common])
+        dt = time.perf_counter() - t0
+        if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"[train-cli] {label}: {metrics}")
+        if not written.exists():
+            raise AssertionError(f"[train-cli] {label}: no {written.name}")
+        print(f"[train-cli] {label}: {dt:.2f} s for 2 steps of {TRAIN_BATCH} (model build, "
+              f"loader, steps, checkpoint); total loss {metrics['total_loss']:.4f}; wrote "
+              f"{written.relative_to(SMOKE_TRAIN)}")
 
 
 def main() -> None:
@@ -1425,22 +1940,41 @@ def main() -> None:
     init_state = {k: v.detach().cpu().clone() for k, v in train_model.state_dict().items()}
     trainer = Trainer(train_model, *train_parts(cfg), epochs=TRAIN_EPOCHS, unfreeze_at=0.5)
     train_launches = phase_train(trainer, batch)
-    phase_train_parity(cfg, init_state, batch)
+    phase_train_parity(lambda device: Trainer(loaded_model(SiamMaskBase, init_state, device),
+                                              *train_parts(cfg), epochs=TRAIN_EPOCHS),
+                       init_state, batch)
     phase_train_profile(trainer, batch)
     phase_train_timing(trainer, batch, smi)
+
+    # the data pipeline and the other training tasks, on a synthetic set
+    shutil.rmtree(SMOKE_TRAIN, ignore_errors=True)
+    root, anno = write_crop_dataset(SMOKE_TRAIN / "crop511")
+    configs = {"sharp": train_data_config(SHARP_TRAIN_CONFIG, root, anno, 8 * TRAIN_BATCH),
+               "rpn": train_data_config(RPN_CONFIG, root, anno, 8 * TRAIN_BATCH)}
+    loaded = phase_data(configs)
+    train_refine_launches = phase_train_refine(trainer, configs["sharp"], loaded["sharp"], smi)
+    del trainer, train_model, batch
+    torch.cuda.empty_cache()
+    train_rpn_launches, rpn_state = phase_train_rpn(configs["rpn"], loaded["rpn"], smi)
+    torch.cuda.empty_cache()
+    phase_train_resume(configs["rpn"], rpn_state, loaded["rpn"])
+    phase_train_cli({"base": train_data_config(TRAIN_CONFIG, root, anno, 2 * TRAIN_BATCH),
+                     "sharp": configs["sharp"]})
+    shutil.rmtree(SMOKE_TRAIN)
 
     # the forward also runs on the video and 16-stream paths, by graph replay
     paths = {"track": track_launches, "video": [video_launches, 0, 0],
              "streams16": [streams_launches, 0, 0], "vos": [vos_launches, 0, 0],
              "rpn": [rpn_launches, 0, 0], "base": [base_launches, 0, 0],
-             "vot": [vot_launches, 0, 0], "train": train_launches}
+             "vot": [vot_launches, 0, 0], "train": train_launches,
+             "train_refine": train_refine_launches, "train_rpn": train_rpn_launches}
     for i, record in enumerate(records):
         record["launches_by_path"] = {k: v[i] for k, v in paths.items()}
         record["launches"] = sum(record["launches_by_path"].values())
     print("[launches] " + ", ".join(f"{k} {v}" for k, v in paths.items())
           + " (forward, grad-input, grad-kernel)")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms", "launches_by_path"]
+             "bound_ms", "bound_by", "library_ms", "launches_by_path", "stage2"]
     print(smi)
     print(json.dumps({"kernels": [{key: r[key] for key in order} for r in records]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from siammask_tpu_torch.ops.resize import upsample_nearest
+from siammask_tpu_torch.ops.unfold import unfold_windows
 from siammask_tpu_torch.ops.xcorr import depthwise_xcorr
 
 
@@ -176,3 +177,14 @@ def slice_skip_windows(p0, p1, p2, pos_yx: torch.Tensor):
     return (win_gather(p0, 16, 4, 61),
             win_gather(p1, 8, 2, 31),
             win_gather(p2, 4, 1, 15))
+
+
+def unfold_skip_windows(p0, p1, p2):
+    """Skip windows at every score-map cell, for the training path: windows
+    of (61, 31, 15) at strides (4, 2, 1) without padding, each (B*L, C, win,
+    win), batch-major with the L cells row-major within a sample (the
+    reference's ``F.unfold`` then ``view(-1, C, w, w)``)."""
+    merge = lambda w: w.reshape((-1,) + w.shape[2:])
+    return (merge(unfold_windows(p0, (61, 61), stride=4)),
+            merge(unfold_windows(p1, (31, 31), stride=2)),
+            merge(unfold_windows(p2, (15, 15), stride=1)))

@@ -9,16 +9,21 @@ only its own modules. Entry points:
 
 - ``template(z)``                        -> zf (B, 256, 7, 7)
 - ``track(zf, x)``                       -> (score, loc): (B, 2k, S, S), (B, 4k, S, S)
+- ``SiamRPN.forward_train(z, x)``        -> (score, loc), with the modules' BN modes
 - ``SiamMaskBase.track_mask(zf, x)``     -> (score, loc, mask), mask (B, 63*63, S, S)
-- ``SiamMaskBase.forward_train(z, x)``   -> the same, with train-mode BN
+- ``SiamMaskBase.forward_train(z, x)``   -> the same, with the modules' BN modes
 - ``SiamMaskSharp.track_mask(zf, x)``    -> TrackOutputs(score, loc, skips, corr)
 - ``SiamMaskSharp.track_refine(skips, corr, pos_yx)`` -> (B, 127*127) logits
+- ``SiamMaskSharp.refine_all(skips, corr)`` -> (B*S*S, 127*127) logits
+- ``SiamMaskSharp.forward_train(z, x, train_backbone_neck, train_rpn)``
+                                         -> (score, loc, refined masks of every cell)
 
 ``build_model(arch)`` maps the reference's ``--arch`` names onto them. cls
 channels are ordered (2, k) and loc channels (4, k), as the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -26,7 +31,8 @@ import torch
 from torch import nn
 
 from siammask_tpu_torch.models.heads import (MaskCorr, Refine, ResDownS, UP,
-                                             DeconvExpand, slice_skip_windows)
+                                             DeconvExpand, slice_skip_windows,
+                                             unfold_skip_windows)
 from siammask_tpu_torch.models.resnet import ResNet50Tracking
 
 
@@ -69,6 +75,12 @@ class SiamRPN(nn.Module):
         """One search pass through the RPN heads: (score, loc)."""
         _, xf = self.features(x)
         return self.rpn_model(zf, xf)
+
+    def forward_train(self, template, search):
+        """Template then search through the backbone, as two calls (each
+        train-mode BN updates its running statistics twice, template first,
+        as the JAX package's ``apply`` does); raw (score, loc)."""
+        return self.track(self.template(template), search)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -113,18 +125,55 @@ class SiamMaskBase(_SiamMask):
         return score, loc, self.mask_model(zf, xf)
 
     def forward_train(self, template, search):
-        """Template then search through the backbone, as two calls (each
-        train-mode BN updates its running statistics twice, template first,
-        as the JAX package's ``apply`` does); raw head outputs."""
+        """Template then search through the backbone, as two calls, as
+        ``SiamRPN.forward_train``; raw head outputs."""
         return self.track_mask(self.template(template), search)
 
 
+@contextlib.contextmanager
+def _frozen(module: nn.Module, frozen: bool):
+    """While open and ``frozen``: ``module`` runs with eval-mode BN and
+    records no gradient; each submodule's mode is restored after."""
+    if not frozen:
+        yield
+        return
+    modes = [(m, m.training) for m in module.modules()]
+    module.eval()
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        for m, mode in modes:
+            m.training = mode
+
+
 class SiamMaskSharp(_SiamMask):
-    """Flagship: the mask branch plus the U-shaped Refine to 127x127."""
+    """Flagship: the mask branch plus the U-shaped Refine to 127x127.
+
+    ``fix_for_refine(True)`` is stage 2 of the two-stage recipe (the
+    reference's ``train_siammask_refine.py``): the backbone, neck and RPN
+    heads take no gradient and keep eval-mode BN through later ``train()``
+    calls; the mask corr and Refine train."""
 
     def __init__(self, anchor_num: int = 5, width: int = 64):
         super().__init__(anchor_num, width)
         self.refine_model = Refine(width)
+        self.refine_only = False
+
+    def fix_for_refine(self, on: bool = True) -> "SiamMaskSharp":
+        self.refine_only = on
+        for m in (self.features, self.rpn_model):
+            m.requires_grad_(not on)
+        if not on:
+            self.features.features.unfix(self.features.features.unfrozen)
+        return self.train(self.training)
+
+    def train(self, mode: bool = True) -> "SiamMaskSharp":
+        super().train(mode)
+        if self.refine_only:
+            self.features.eval()
+            self.rpn_model.eval()
+        return self
 
     def track_mask(self, zf, x) -> TrackOutputs:
         """One search pass: RPN heads, the skip maps and the mask corr feature
@@ -143,6 +192,37 @@ class SiamMaskSharp(_SiamMask):
         cell = pos_yx[:, 0] * s + pos_yx[:, 1]
         cvec = corr.flatten(2).gather(2, cell[:, None, None].expand(b, c, 1)).reshape(b, c)
         return self.refine_model(w0, w1, w2, cvec)
+
+    def refine_all(self, skips, corr):
+        """Training path: Refine at every score-map cell -> (B*S*S, 127*127)
+        logits, batch-major, cells row-major within a sample."""
+        w0, w1, w2 = unfold_skip_windows(*skips)
+        b, c, h, w = corr.shape
+        cvec = corr.permute(0, 2, 3, 1).reshape(b * h * w, c)
+        return self.refine_model(w0, w1, w2, cvec)
+
+    def forward_train(self, template, search, train_backbone_neck: bool = True,
+                      train_rpn: bool = True):
+        """(score, loc, refined masks of every cell). Template then search
+        through the backbone as two calls. ``train_backbone_neck=False``
+        runs the backbone and neck, ``train_rpn=False`` the RPN heads, with
+        eval-mode BN and no gradient (stage-2 refine training); the mask
+        corr runs in its module's mode."""
+        with _frozen(self.features, not train_backbone_neck):
+            zf = self.template(template)
+            skips, xf = self.features(search)
+        with _frozen(self.rpn_model, not train_rpn):
+            score, loc = self.rpn_model(zf, xf)
+        corr = self.mask_model.mask.forward_corr(zf, xf)
+        return score, loc, self.refine_all(skips, corr)
+
+
+def log_softmax_cls(score: torch.Tensor, anchor_num: int) -> torch.Tensor:
+    """Training-time cls activation of the reference: (B, 2k, S, S) raw
+    scores -> (B, k, S, S, 2) log-softmax over the 2-way axis."""
+    b, _, h, w = score.shape
+    s = score.reshape(b, 2, anchor_num, h, w).permute(0, 2, 3, 4, 1)
+    return torch.log_softmax(s, dim=-1)
 
 
 def build_model(arch: str, anchor_num: int = 5, width: int = 64) -> SiamRPN:

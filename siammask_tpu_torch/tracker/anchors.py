@@ -43,6 +43,13 @@ class AnchorConfig:
         cfg.scales = tuple(cfg.scales)
         return cfg
 
+    def to_dict(self) -> dict:
+        """The reference JSON's ``anchors`` entry (``round_dight`` spelling),
+        as a checkpoint's ``anchor_cfg`` carries it."""
+        return {"stride": self.stride, "ratios": list(self.ratios),
+                "scales": list(self.scales), "round_dight": self.round_digit,
+                "anchor_density": self.anchor_density}
+
 
 def generate_anchors(cfg: AnchorConfig) -> np.ndarray:
     """Per-position anchor set, corner format, (anchor_num, 4) float32."""

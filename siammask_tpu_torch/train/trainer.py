@@ -1,8 +1,19 @@
 """Training engine for one card: per-module LR groups, progressive backbone
-unfreeze, grad clipping, NaN guard.
+unfreeze, grad clipping, NaN guard, resume.
 
 Counterpart of ``siammask_tpu/train/trainer.py`` (the reference's
-``tools/train_siammask.py``), for the SiamMask-base stage-1 task:
+``tools/train_siammask.py``, ``train_siamrpn.py`` and
+``train_siammask_refine.py``), for every task the JAX package trains
+(``TrainSettings.task``):
+
+- ``siamrpn``: SiamRPN, cls and loc losses;
+- ``base``: SiamMask-base stage 1, plus the 63x63 mask loss on 127x127
+  windows of the search mask padded by 32;
+- ``sharp``: SiamMask-sharp end to end, the mask loss on the refined masks
+  of every cell (``forward_train``);
+- ``sharp_refine``: stage 2 of the two-stage recipe: the backbone, neck and
+  RPN heads frozen in eval-mode BN (``SiamMaskSharp.fix_for_refine``), the
+  mask corr and Refine trained, and no unfreeze.
 
 - Optimizer: SGD, momentum 0.9, weight decay 1e-4, no dampening, no
   Nesterov, one param group per label: ``resnet`` (backbone stages, x0.1 of
@@ -11,19 +22,26 @@ Counterpart of ``siammask_tpu/train/trainer.py`` (the reference's
 - ``clip_grad_norm_`` then ``SGD.step`` is the JAX package's optax chain
   (clip_by_global_norm -> add_decayed_weights -> trace -> scale(mult) ->
   x(-lr)): both feed ``g + wd * w`` to the momentum buffer, and on the first
-  step both set the buffer to it.
+  step both set the buffer to it. optax decays every leaf of a group, a
+  leaf the loss does not reach too (sharp's 1x1 mask head, which
+  ``forward_train`` never calls), so such a parameter is given a zero
+  gradient before the step; ``torch.optim.SGD`` would skip it.
 - Progressive unfreeze: at ``epoch / epochs >= unfreeze_at`` layer2/3
   unfreeze (``ResNet50Tracking.unfix``, which owns ``requires_grad`` and the
   BN mode of every backbone stage) and the optimizer is rebuilt with fresh
   momentum, as the reference does.
 - Loss = w_cls * cls + w_loc * loc + w_mask * mask; a step whose loss is
   non-finite or above 1e4 in magnitude changes nothing.
+- ``Trainer.restore`` resumes from a ``train/checkpoint.py`` checkpoint:
+  weights, epoch, and momentum when the checkpoint's param groups are the
+  current phase's.
 
-Not here yet: the data-parallel, fused all-reduce and sync-BN variants,
-``remat``, checkpoints and ``Trainer.restore``.
+Not here: the data-parallel, fused all-reduce and sync-BN variants, and
+``remat``.
 """
 from __future__ import annotations
 
+import logging
 import math
 from dataclasses import dataclass
 
@@ -33,10 +51,9 @@ from torch import nn
 
 from siammask_tpu_torch.models.losses import (select_cross_entropy_loss,
                                               select_mask_logistic_loss, weight_l1_loss)
+from siammask_tpu_torch.train.checkpoint import load_checkpoint
 
-# the base mask loss: 63x63 head rows upsampled to 127x127 windows, taken at
-# stride 8 from the 255 search mask padded by 32
-O_SZ, G_SZ, MASK_PAD = 63, 127, 32
+TASKS = ("siamrpn", "base", "sharp", "sharp_refine")
 GROUPS = ("resnet", "neck", "rpn", "mask", "refine")
 # the split clip's three norms: backbone+neck jointly, rpn, mask+refine
 CLIP_GROUPS = {"resnet": "feature", "neck": "feature", "rpn": "rpn", "mask": "mask",
@@ -123,7 +140,22 @@ def build_optimizer(model: nn.Module, cfg: OptimizerConfig, unfreeze_backbone: b
 
 @dataclass
 class TrainSettings:
+    task: str = "sharp"                     # one of TASKS
     loss_weight: tuple = (1.0, 1.0, 36.0)   # (cls, loc, mask)
+    o_sz: int = 63                          # the base mask head's rows
+    g_sz: int = 127                         # the ground-truth windows
+    mask_pad: int = 32                      # 32 for a 255 search, 0 for 143
+
+    def __post_init__(self):
+        if self.task not in TASKS:
+            raise ValueError(f"unknown task {self.task!r}, expected one of {TASKS}")
+
+    @classmethod
+    def for_search(cls, task: str, loss_weight, search_size: int) -> "TrainSettings":
+        """The training CLI's settings: the mask windows unpadded when the
+        search is under 255 (sharp's 143), else padded by 32."""
+        return cls(task=task, loss_weight=tuple(loss_weight),
+                   mask_pad=0 if search_size < 255 else 32)
 
 
 def _clip(optimizer: torch.optim.Optimizer, cfg: OptimizerConfig) -> None:
@@ -145,11 +177,24 @@ def _train_bn_buffers(model: nn.Module) -> list[torch.Tensor]:
             for buf in m.buffers()]
 
 
+def _forward(model: nn.Module, batch: dict, task: str):
+    """(score, loc, mask prediction or None) of the task's training graph."""
+    if task == "siamrpn":
+        return (*model.forward_train(batch["template"], batch["search"]), None)
+    if task == "base":
+        return model.forward_train(batch["template"], batch["search"])
+    train = task != "sharp_refine"
+    return model.forward_train(batch["template"], batch["search"],
+                               train_backbone_neck=train, train_rpn=train)
+
+
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, lr: float,
                settings: TrainSettings, opt_cfg: OptimizerConfig) -> dict[str, torch.Tensor]:
-    """One SiamMask-base step (the JAX ``make_train_step``): forward, loss,
-    backward, clip, NaN guard, SGD step. Returns the JAX package's metrics,
-    as 0-d tensors on the model's device.
+    """One step of ``settings.task`` (the JAX ``make_train_step``): forward,
+    loss, backward, clip, NaN guard, SGD step. Returns the JAX package's
+    metrics for the task, as 0-d tensors on the model's device: SiamRPN has
+    no mask prediction and so no mask loss and no mask metrics; the mask
+    families report every term, a zero-weighted one too.
 
     Train-mode BN keeps ``nn.BatchNorm2d``'s running variance, which is
     updated with the unbiased batch variance as the original PyTorch
@@ -162,13 +207,26 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, 
     bn_before = [buf.clone() for buf in _train_bn_buffers(model)]
     optimizer.zero_grad(set_to_none=True)
 
-    score, loc, pred_mask = model.forward_train(batch["template"], batch["search"])
+    score, loc, pred_mask = _forward(model, batch, settings.task)
     cls_loss = select_cross_entropy_loss(score, batch["label_cls"])
     loc_loss = weight_l1_loss(loc, batch["label_loc"], batch["label_loc_weight"])
-    m = select_mask_logistic_loss(pred_mask, batch["label_mask"], batch["label_mask_weight"],
-                                  o_sz=O_SZ, g_sz=G_SZ, padding=MASK_PAD)
-    total = w_cls * cls_loss + w_loc * loc_loss + w_mask * m.loss
+    metrics = {"cls_loss": cls_loss, "loc_loss": loc_loss}
+    total = w_cls * cls_loss + w_loc * loc_loss
+    if pred_mask is not None:
+        m = select_mask_logistic_loss(pred_mask, batch["label_mask"],
+                                      batch["label_mask_weight"], o_sz=settings.o_sz,
+                                      g_sz=settings.g_sz, padding=settings.mask_pad)
+        total = total + w_mask * m.loss
+        metrics.update(mask_loss=m.loss, iou_mean=m.iou_mean, iou_at_5=m.iou_at_5,
+                       iou_at_7=m.iou_at_7, mask_pos_overflow=m.pos_overflow)
+    metrics["total_loss"] = total
     total.backward()
+    # optax decays and carries momentum for every leaf of a group, reached
+    # by the loss or not: give such a parameter a zero gradient
+    for g in optimizer.param_groups:
+        for p in g["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
     _clip(optimizer, opt_cfg)
 
     # NaN/huge-loss guard (reference train_siammask.py): decided on the host
@@ -182,9 +240,6 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, 
         with torch.no_grad():
             for buf, old in zip(_train_bn_buffers(model), bn_before):
                 buf.copy_(old)
-    metrics = {"cls_loss": cls_loss, "loc_loss": loc_loss, "mask_loss": m.loss,
-               "iou_mean": m.iou_mean, "iou_at_5": m.iou_at_5, "iou_at_7": m.iou_at_7,
-               "mask_pos_overflow": m.pos_overflow, "total_loss": total}
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["skipped"] = torch.tensor(0.0 if ok else 1.0, device=total.device)
     return metrics
@@ -192,9 +247,10 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, 
 
 class Trainer:
     """Epoch-driven loop for one card: owns the optimizer rebuild at the
-    unfreeze boundary and the LR schedule. IO-free: callers drive it with
-    batches of device tensors, NCHW images (B, 3, H, W) in 0..255 and the
-    labels of ``AnchorTarget``."""
+    unfreeze boundary, the LR schedule and resume. IO-free: callers drive it
+    with batches of device tensors, NCHW images (B, 3, H, W) in 0..255 and
+    the labels of ``AnchorTarget`` (``data/dataset.py``'s ``to_device``
+    gives them)."""
 
     def __init__(self, model: nn.Module, settings: TrainSettings, opt_cfg: OptimizerConfig,
                  lr_spaces: np.ndarray, epochs: int, unfreeze_at: float = 0.5):
@@ -211,16 +267,48 @@ class Trainer:
 
     def _ensure_phase(self, epoch: int) -> None:
         """At the unfreeze boundary: flip layer2/3 (gradients and BN mode)
-        and rebuild the optimizer with fresh momentum."""
-        unfrozen = epoch / self.epochs >= self.unfreeze_at
+        and rebuild the optimizer with fresh momentum. ``sharp_refine``
+        never unfreezes."""
+        refine_only = self.settings.task == "sharp_refine"
+        unfrozen = not refine_only and epoch / self.epochs >= self.unfreeze_at
         if unfrozen == self._unfrozen:
             return
         self._unfrozen = unfrozen
         self.model.features.features.unfix(unfrozen)
+        if refine_only:
+            self.model.fix_for_refine(True)
         self.model.train()
-        self.optimizer, self.labels = build_optimizer(self.model, self.opt_cfg, unfrozen)
+        self.optimizer, self.labels = build_optimizer(self.model, self.opt_cfg, unfrozen,
+                                                      refine_only)
+
+    def restore(self, path: str) -> int:
+        """Resume from a checkpoint: the weights, then the phase of its epoch
+        (``min(epoch, epochs - 1)``), then the momentum, when the
+        checkpoint's param groups (names and sizes) are the phase's; across
+        the unfreeze boundary they are not, and momentum starts fresh, as the
+        boundary's rebuild would. Returns the epoch to resume from."""
+        ck = load_checkpoint(path)
+        self.model.load_state_dict(ck["state_dict"])
+        epoch = ck["epoch"]
+        self._ensure_phase(min(epoch, self.epochs - 1))
+        saved = ck["optimizer"]
+        if saved is not None:
+            theirs, ours = _group_layout(saved), _group_layout(self.optimizer.state_dict())
+            if theirs == ours:
+                self.optimizer.load_state_dict(saved)
+            else:
+                logging.getLogger(__name__).warning(
+                    "optimizer state not restored: the checkpoint's param groups %s are "
+                    "not this phase's %s (the other side of the unfreeze boundary); "
+                    "momentum restarts", theirs, ours)
+        return epoch
 
     def step(self, batch: dict, epoch: int) -> dict[str, torch.Tensor]:
         self._ensure_phase(epoch)
         lr = float(self.lr_spaces[min(epoch, len(self.lr_spaces) - 1)])
         return train_step(self.model, self.optimizer, batch, lr, self.settings, self.opt_cfg)
+
+
+def _group_layout(state: dict) -> list[tuple[str, int]]:
+    """(name, parameter count) of each group of an optimizer state_dict."""
+    return [(g.get("name"), len(g["params"])) for g in state["param_groups"]]

@@ -3,7 +3,8 @@
 Counterpart of the parts of ``siammask_tpu/utils/bbox.py`` that the tracker,
 the VOT driver and the anchor-target code use: the ``Corner``/``Center``
 tuples, the conversions between them, ``cxy_wh_2_rect``, ``rect_2_cxy_wh``,
-``get_axis_aligned_bbox`` and the vectorised ``bbox_iou``.
+``get_axis_aligned_bbox``, the vectorised ``bbox_iou`` and the training
+augmentation's ``aug_apply``.
 """
 from __future__ import annotations
 
@@ -85,3 +86,50 @@ def bbox_iou(rect1, rect2):
     target_a = (tx2 - tx1) * (ty2 - ty1)
     inter = ww * hh
     return inter / (area + target_a - inter)
+
+
+def aug_apply(bbox, param, shape, inv=False, rd=False):
+    """Shift and scale a corner box within the image bounds (the reference's
+    ``aug_apply``), or undo a recorded shift/scale with ``inv``.
+
+    Forward: the scale is clamped so the box fits the image, the shift so the
+    box stays inside, the corners optionally rounded; returns (new_bbox,
+    real_param) with the scale and shift actually applied."""
+    if not inv:
+        center = corner2center(bbox)
+        original_center = center
+
+        real_param = {}
+        if 'scale' in param:
+            scale_x, scale_y = param['scale']
+            imh, imw = shape[:2]
+            h, w = center.h, center.w
+            scale_x = min(scale_x, float(imw) / w)
+            scale_y = min(scale_y, float(imh) / h)
+            center = Center(center.x, center.y, center.w * scale_x, center.h * scale_y)
+
+        bbox = center2corner(center)
+
+        if 'shift' in param:
+            tx, ty = param['shift']
+            x1, y1, x2, y2 = bbox
+            imh, imw = shape[:2]
+            tx = max(-x1, min(imw - 1 - x2, tx))
+            ty = max(-y1, min(imh - 1 - y2, ty))
+            bbox = Corner(x1 + tx, y1 + ty, x2 + tx, y2 + ty)
+
+        if rd:
+            bbox = Corner(*map(round, bbox))
+
+        current_center = corner2center(bbox)
+        real_param['scale'] = (current_center.w / original_center.w,
+                               current_center.h / original_center.h)
+        real_param['shift'] = (current_center.x - original_center.x,
+                               current_center.y - original_center.y)
+        return bbox, real_param
+
+    scale_x, scale_y = param.get('scale', (1.0, 1.0))
+    tx, ty = param.get('shift', (0, 0))
+    center = corner2center(bbox)
+    center = Center(center.x - tx, center.y - ty, center.w / scale_x, center.h / scale_y)
+    return center2corner(center)

@@ -139,7 +139,7 @@ def settings_pair():
     jcfg = JaxConfig.load(str(CONFIG), clip=10.0)
     cfg = Config.load(str(CONFIG), clip=10.0)
     jset = JaxTrainSettings(task="base", loss_weight=jcfg.loss_weight, mask_pad=32)
-    tset = TrainSettings(loss_weight=cfg.loss_weight)
+    tset = TrainSettings(task="base", loss_weight=cfg.loss_weight, mask_pad=32)
     return (jset, JaxOptimizerConfig.from_lr_cfg(jcfg.lr, clip=10.0, clip_cfg=jcfg.clip),
             jax_build_lr_spaces(jcfg.lr, EPOCHS), tset,
             OptimizerConfig.from_lr_cfg(cfg.lr, clip=10.0, clip_cfg=cfg.clip),

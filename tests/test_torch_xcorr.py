@@ -208,6 +208,7 @@ def cuda_device():
     ((1, 29, 29, 256), (1, 5, 5, 256), torch.float32),
     ((16, 29, 29, 256), (16, 5, 5, 256), torch.float32),
     ((64, 29, 29, 256), (64, 5, 5, 256), torch.float32),    # the training batch
+    ((64, 7, 7, 256), (64, 5, 5, 256), torch.float32),      # stage 2: a 3x3 output
     ((3, 17, 23, 200), (3, 4, 3, 200), torch.float32),
     ((1, 29, 29, 256), (1, 5, 5, 256), torch.bfloat16),
     ((2, 5, 5, 7), (2, 5, 5, 7), torch.float32),            # 1x1 output
@@ -232,6 +233,7 @@ def test_xcorr_kernel_matches_plain_on_card(cuda_device, xs, ks, dtype):
     ((1, 29, 29, 256), (1, 5, 5, 256), torch.float32),      # 8 blocks, fewer than the SMs
     ((16, 29, 29, 256), (16, 5, 5, 256), torch.float32),
     ((64, 29, 29, 256), (64, 5, 5, 256), torch.float32),    # the training batch
+    ((64, 7, 7, 256), (64, 5, 5, 256), torch.float32),      # stage 2: a 3x3 output
     ((3, 17, 23, 200), (3, 4, 3, 200), torch.float32),
     ((1, 29, 29, 256), (1, 5, 5, 256), torch.bfloat16),
     ((2, 5, 5, 7), (2, 5, 5, 7), torch.float32),            # 1x1 output
