@@ -18,6 +18,9 @@ synthetic uint8 frames made from a numpy seed, with seeded random weights:
 - the VOT reset-on-failure driver (``track_vot``) for all three families
   and the test CLI (``siammask_tpu_torch.tools.test.main``) on two VOT2018-
   layout videos written under ``build/``;
+- the tune CLI (``siammask_tpu_torch.tools.tune.main``): a VOT grid and a
+  VOS grid of SiamMask-sharp cells over those videos, and the eval CLI
+  (``siammask_tpu_torch.tools.eval.main``) over the result trees;
 - the SiamMask-base stage-1 training step (``Trainer.step``, the
   ``experiments/siammask_base/config.json`` recipe) at batch 64, two steps
   with the backbone frozen and two after the unfreeze;
@@ -87,19 +90,36 @@ Phases, each of which raises on failure:
     drivers' clocks start, its build time printed; the result files checked
     line by line, the xcorr launches against the stepped frames, the region
     overlap's host us a call; then the CLI's ``main`` with the sharp weights as a ``.pth``, its
-    results against the driver's; cv2 is required;
-15. the training slice: per step finite losses, no skip, 3 + 3 + 3 kernel
+    results against the driver's; cv2 is required; the data, the result
+    trees and the sharp ``.pth`` stay for phases 15-16;
+15. ``[tune]``: ``tools.tune.main`` with that ``.pth`` (SiamMask-sharp at
+    width 64): a VOT grid over the two videos (penalty_k 0.04 / 0.12 x lr
+    0.30 / 0.45 at instance_size 255, then one cell at 271; EAO over frames
+    1-40, since the standard 100-356 window is empty on 40 frames) and a VOS
+    grid over phase 11's video (seg_thr 0.30 / 0.40, ``track_vos_batched``);
+    each cell's score, wall s and frames/s on the drivers' clocks, the chosen
+    cells, the xcorr launches against the frames stepped, peak and allocated
+    memory after the first and the last cell (no runtime outlives its cell);
+    the VOT grid run again over the same out-dir scores 0 cells (the claim
+    protocol);
+16. ``[eval]``: ``tools.eval.main`` (a spawned process pool; no card) over
+    phase 15's VOT tree (each cell's EAO equal to the score ``tune``
+    recorded), phase 14's trees (each family's lost number equal to its
+    driver's, the CLI's too) and phase 11's fused PNGs beside a copy of the
+    annotations (J and F in [0, 1]; the copy J = F = 1); the CLI's wall s a
+    tree;
+17. the training slice: per step finite losses, no skip, 3 + 3 + 3 kernel
     launches, the frozen stages bit-identical and the trainable ones moved;
     then the loss falling over 8 steps on the repeated batch; peak memory;
-16. one training step on the card and on the CPU from the same weights and
+18. one training step on the card and on the CPU from the same weights and
     batch (B=2), open loop;
-17. the profile of one frozen and one unfrozen step (no backbone backward
+19. the profile of one frozen and one unfrozen step (no backbone backward
     while frozen), and train ms/step and samples/s;
-18. ``[data]``: 8 batches of 64 from ``PairDataset(seed)`` through
+20. ``[data]``: 8 batches of 64 from ``PairDataset(seed)`` through
     ``DataLoader`` for the stage-2 and the SiamRPN config, with thread and
     with process workers (min(16, cores)): samples/s of each, the host's
     cores, the two modes' batches bit-identical;
-19. ``[train-refine]``: stage 2 warm-started from the stage-1 trainer's
+21. ``[train-refine]``: stage 2 warm-started from the stage-1 trainer's
     checkpoint (``merge_state_dict`` reports exactly the ``refine_model.*``
     entries missing), 4 steps on loader batches through ``to_device`` with
     3 / 1 / 1 launches each, backbone, neck and RPN bit-identical
@@ -107,14 +127,14 @@ Phases, each of which raises on failure:
     alone; the loss over 8 repeated steps; card vs CPU at B=2, both held to
     the CPU's float64 step; a profile (idle share, top 10) and ms/step,
     samples/s and peak memory;
-20. ``[train-rpn]``: SiamRPN, 2 frozen and 2 unfrozen steps on loader
+22. ``[train-rpn]``: SiamRPN, 2 frozen and 2 unfrozen steps on loader
     batches with 2 / 2 / 2 launches each, card vs CPU at B=2, a profile and
     the timings of each phase;
-21. ``[train-resume]``: 2 SiamRPN steps, a checkpoint, ``Trainer.restore``
+23. ``[train-resume]``: 2 SiamRPN steps, a checkpoint, ``Trainer.restore``
     into a fresh trainer, then step 3 bit-identical (weights, BN statistics,
     momentum) to the uninterrupted run, in phase and across the unfreeze
     boundary (where the restore warns and momentum restarts);
-22. ``[train-cli]``: ``tools.train.main`` for SiamMask-base (one epoch of 2
+24. ``[train-cli]``: ``tools.train.main`` for SiamMask-base (one epoch of 2
     steps), then ``sharp_refine --pretrained`` its checkpoint, then
     ``--resume``: finite losses and a checkpoint from each.
 
@@ -122,7 +142,7 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel with its launches on the main paths, error, times, bound and
 the time of the one library call (cuDNN's grouped conv) that computes the
 same function, with ``launches_by_path`` (track, video, streams16, vos,
-rpn, base, vot, train, train_refine, train_rpn) and the times at stage 2's
+rpn, base, vot, tune, train, train_refine, train_rpn) and the times at stage 2's
 shape (``stage2``). A kernel captured in a CUDA graph passes through
 its wrapper (and its count) once, at capture; on the graph paths its
 launches are the captured launches times the replays, which phases 8, 9,
@@ -191,6 +211,18 @@ VOS_RAGGED, VOS_FULL = 24, 16
 # gt jump VOT_DX px right at frame VOT_JUMP, far outside the search region
 VOT_FRAMES, VOT_JUMP, VOT_DX = 40, 20, 480
 VOT_FORCED = ["2", *["0"] * (SKIP - 1), "1"]     # lost, skipped frames, re-init
+VOS_ROOT, VOT_ROOT = REPO / "build" / "vos_smoke", REPO / "build" / "vot_smoke"
+SHARP_PTH = "sharp.pth"   # [vot]'s damped sharp weights, which [tune] loads
+# the tune grids: penalty_k {0.04, 0.12} x lr {0.30, 0.45} at window_influence
+# 0.42 and instance_size 255; one cell at 271; seg_thr {0.30, 0.40} for VOS
+TUNE_ROOT = REPO / "build" / "tune_smoke"
+_ONE_CELL = ["--penalty-k", "0.04,0.05,0.08", "--window-influence", "0.42,0.425,0.01",
+             "--lr", "0.30,0.31,0.15"]
+TUNE_VOT = ["--penalty-k", "0.04,0.13,0.08", "--window-influence", "0.42,0.425,0.01",
+            "--lr", "0.30,0.46,0.15"]
+TUNE_WIDE = [*_ONE_CELL, "--search-region", "271,272,16"]
+TUNE_VOS = [*_ONE_CELL, "--seg-thr", "0.30,0.41,0.10"]
+TUNE_MEMORY_SLACK = 2**20   # bytes: no cell's runtime may outlive it
 TIMED_CALLS = 5
 TRAIN_BATCH = 64          # tools/train.py's default
 TRAIN_EPOCHS = 2          # epoch 0 frozen, epoch 1 unfrozen (unfreeze_at 0.5)
@@ -998,15 +1030,17 @@ def phase_vos(model: SiamMaskSharp, p, smi: str) -> int:
     them: ``track_vos_batched`` (scan_chunk VOS_CHUNK: ragged stretches
     through ``step_batched``, a full window through the CUDA graph, a re-init
     of the late object) against the sequential ``track_vos``; the batched
-    driver's object-frames/s. Returns its xcorr launches (through the wrapper
-    and by replay). Needs cv2 and PIL, the drivers' image I/O."""
+    driver's object-frames/s. The video and the batched driver's fused PNGs
+    stay under VOS_ROOT for ``[tune]`` and ``[eval]``. Returns its xcorr
+    launches (through the wrapper and by replay). Needs cv2 and PIL, the
+    drivers' image I/O."""
     try:
         import cv2  # noqa: F401
         import PIL  # noqa: F401
     except ImportError as e:
         print(f"[vos] skipped: the VOS drivers' image I/O is not installed ({e})")
         return 0
-    root = REPO / "build" / "vos_smoke"
+    root = VOS_ROOT
     shutil.rmtree(root, ignore_errors=True)
     write_vos_video(root)
     video = load_dataset("ytb_vos", str(root))["vid"]
@@ -1054,7 +1088,6 @@ def phase_vos(model: SiamMaskSharp, p, smi: str) -> int:
     print(f"[vos] {fps_b:.1f} object-frames/s batched (driver's clock, file reads excluded; "
           f"{wall_b:.3f} s for the call), {fps_s:.1f} sequential ({wall_s:.3f} s); "
           f"{lines[-1].strip()} | {smi}")
-    shutil.rmtree(root, ignore_errors=True)
     return 3 * VOS_RAGGED + graph.xcorr_launches * VOS_FULL
 
 
@@ -1134,7 +1167,7 @@ def check_vot_lines(what: str, lines: list[str], numbers: int, jumps: bool) -> i
     return sum(line not in ("0", "1") for line in lines)
 
 
-def phase_vot(models: dict, smi: str) -> int:
+def phase_vot(models: dict, smi: str) -> tuple[int, dict]:
     """The VOT driver on the card, through ``load_dataset`` as a user calls
     it: ``track_vot`` for sharp (mask and Refine, ``config_vot.json``), base
     (mask) and SiamRPN (box) on two videos written under ``build/``, the
@@ -1143,12 +1176,15 @@ def phase_vot(models: dict, smi: str) -> int:
     damped first (``damp_box_head``), so that the target is still held when
     the forced jump comes; other losses can occur and are printed. The
     region library is built and loaded before the drivers' clocks start.
-    Returns the xcorr launches, which the result files account for."""
+    The data, the result trees and the sharp ``.pth`` stay under VOT_ROOT for
+    ``[tune]`` and ``[eval]``. Returns the xcorr launches, which the result
+    files account for, and each tracker's lost count as its driver returned
+    it (the CLI's as ``cli``)."""
     import cv2  # noqa: F401  (the driver reads frames with it; a missing cv2 fails here)
 
     from siammask_tpu_torch.tools import test as cli
 
-    root = REPO / "build" / "vot_smoke"
+    root = VOT_ROOT
     shutil.rmtree(root, ignore_errors=True)
     write_vot_dataset(root / "VOT2018")
     dataset = load_dataset("VOT2018", str(root))
@@ -1160,7 +1196,7 @@ def phase_vot(models: dict, smi: str) -> int:
                 "rpn": (RPN_CONFIG, False, False)}
     torch.cuda.synchronize()
     reset_launches()
-    stepped = {}
+    stepped, lost_by_tracker = {}, {}
     for name, (config, mask, refine) in families.items():
         damp_box_head(models[name])
         runtime = TrackerRuntime(models[name], Config.load(str(config)).tracker_config(),
@@ -1176,6 +1212,7 @@ def phase_vot(models: dict, smi: str) -> int:
                                              8 if mask else 4, video["name"] == "vid1")
             lost.append(n)
             speeds.append(fps)
+        lost_by_tracker[name] = sum(lost)
         print(f"[vot] {name} ({'mask' if mask else 'box'}{', Refine' if refine else ''}): "
               f"lost {lost} in {list(dataset)}, the jump's 2 / {SKIP - 1} x 0 / 1 at frames "
               f"{VOT_JUMP}-{VOT_JUMP + SKIP}; driver's fps (file reads excluded) "
@@ -1193,7 +1230,7 @@ def phase_vot(models: dict, smi: str) -> int:
         raise AssertionError(f"vot: {launches} launches, expected {[expected, 0, 0]} from "
                              f"the stepped frames {stepped}")
 
-    ckpt = root / "sharp.pth"
+    ckpt = root / SHARP_PTH
     torch.save({"state_dict": {f"module.{k}": v.cpu()
                                for k, v in models["sharp"].state_dict().items()}}, ckpt)
     t0 = time.perf_counter()
@@ -1223,8 +1260,129 @@ def phase_vot(models: dict, smi: str) -> int:
     print(f"[vot] CLI main --mask --refine --resume sharp.pth: totals {totals}; the driver's "
           f"markers, regions within {worst:.4f} px; {cli_launches} xcorr launches; "
           f"{wall:.2f} s for the call")
-    shutil.rmtree(root, ignore_errors=True)
-    return expected + cli_launches
+    lost_by_tracker["cli"] = totals["lost"]
+    return expected + cli_launches, lost_by_tracker
+
+
+def tune_cells(out: dict, what: str) -> str:
+    """One line per scored cell of a ``tune.main`` return."""
+    return "; ".join(f"{c['tag']} {what} {c['score']:.6f} ({c['seconds']:.2f} s, "
+                     f"{c['fps']:.1f} fps)" for c in out["cells"])
+
+
+def phase_tune(smi: str) -> tuple[int, dict]:
+    """``tools.tune.main`` on the card with [vot]'s sharp weights: the VOT
+    grid over [vot]'s two videos (TUNE_VOT at 255, then one cell at 271,
+    EAO over frames 1..VOT_FRAMES), the VOS grid over [vos]'s video
+    (TUNE_VOS, seg_thr 0.3 and 0.4), and the VOT grid again, which finds
+    every cell claimed. Checks the scores finite, the xcorr launches against
+    the frames stepped (the VOS windows are shorter than the driver's
+    32-frame chunk, so every step goes through ``step_batched`` and its
+    wrapper) and that no cell's runtime outlives it on the card. Returns
+    the launches and {tag: score} of the VOT cells."""
+    from siammask_tpu_torch.tools import tune
+
+    ckpt = str(VOT_ROOT / SHARP_PTH)
+    vot = ["--config", str(VOT_CONFIG), "--resume", ckpt, "--dataset", "VOT2018",
+           "--data-dir", str(VOT_ROOT), "--out-dir", str(TUNE_ROOT / "vot"),
+           "--eao-interval", f"1,{VOT_FRAMES}"]
+    vos = ["--config", str(CONFIG), "--resume", ckpt, "--dataset", "ytb_vos",
+           "--data-dir", str(VOS_ROOT), "--out-dir", str(TUNE_ROOT / "vos"), *TUNE_VOS]
+    shutil.rmtree(TUNE_ROOT, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    runs = {"vot": tune.main([*vot, *TUNE_VOT]), "vot271": tune.main([*vot, *TUNE_WIDE]),
+            "vos": tune.main(vos)}
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    again = tune.main([*vot, *TUNE_VOT])
+    cells = [c for run in runs.values() for c in run["cells"]]
+    scored = [run["scored"] for run in runs.values()]
+    if scored != [4, 1, 2] or again["scored"] != 0:
+        raise AssertionError(f"tune: {scored} cells scored, {again['scored']} on the re-run")
+    if not all(math.isfinite(c["score"]) for c in cells):
+        raise AssertionError(f"tune: scores {[c['score'] for c in cells]}")
+    stepped = 0
+    for c in runs["vot"]["cells"] + runs["vot271"]["cells"]:
+        for name in ("vid0", "vid1"):
+            path = (TUNE_ROOT / "vot" / "results" / "VOT2018" / c["tag"] / "baseline" / name
+                    / f"{name}_001.txt")
+            stepped += check_vot_lines(f"tune {c['tag']} {name}",
+                                       path.read_text().splitlines(), 8, False)
+    expected = 3 * stepped + 3 * (VOS_FRAMES - 1) * len(runs["vos"]["cells"])
+    if launches != [expected, 0, 0]:
+        raise AssertionError(f"tune: {launches} launches, expected {[expected, 0, 0]}")
+    first, last = cells[0], cells[-1]
+    growth = last["allocated_bytes"] - first["allocated_bytes"]
+    if growth > TUNE_MEMORY_SLACK:
+        raise AssertionError(f"tune: {growth} bytes more allocated after the last cell than "
+                             "after the first")
+    print(f"[tune] VOT grid ({VOT_CONFIG.name}, [vot]'s 2 x {VOT_FRAMES} frames 480x854, "
+          f"EAO over frames 1-{VOT_FRAMES}): {scored[0]} cells at 255 and {scored[1]} at 271 "
+          f"scored: {tune_cells(runs['vot'], 'EAO')}; {tune_cells(runs['vot271'], 'EAO')}")
+    print(f"[tune] VOS grid ({CONFIG.name}, [vos]'s {VOS_FRAMES} frames, 3 objects, "
+          f"track_vos_batched): {scored[2]} cells scored: {tune_cells(runs['vos'], 'mean IoU')}")
+    best = {k: max(cs, key=lambda c: c["score"]) for k, cs in
+            (("VOT", runs["vot"]["cells"] + runs["vot271"]["cells"]),
+             ("VOS", runs["vos"]["cells"]))}
+    print("[tune] chosen: " + "; ".join(f"{k} {c['tag']} ({c['score']:.6f})"
+                                       for k, c in best.items())
+          + f"; the VOT grid again over the same out-dir: {again['scored']} cells scored "
+          f"(all claimed); {wall:.2f} s for the three calls (model loads included)")
+    print(f"[tune] xcorr launches: depthwise_xcorr {launches[0]} (3 x {stepped} VOT frames "
+          f"stepped + 3 x {VOS_FRAMES - 1} x {scored[2]} VOS steps), "
+          f"depthwise_xcorr_grad_input {launches[1]}, depthwise_xcorr_grad_kernel "
+          f"{launches[2]}")
+    print(f"[tune] memory: peak {first['peak_bytes'] / 2**20:.1f} MiB in the first cell, "
+          f"{last['peak_bytes'] / 2**20:.1f} MiB in the last; allocated after them "
+          f"{first['allocated_bytes'] / 2**20:.1f} / {last['allocated_bytes'] / 2**20:.1f} MiB "
+          f"(growth {growth} bytes) | {smi}")
+    return launches[0], {c["tag"]: c["score"] for c in runs["vot"]["cells"] + runs["vot271"]["cells"]}
+
+
+def phase_eval(tune_scores: dict, lost_by_tracker: dict) -> None:
+    """``tools.eval.main`` (process-pool fan-out, no card) over three trees:
+    [tune]'s VOT cells, whose EAO must be the score ``tune`` recorded, to
+    the last digit; [vot]'s and its CLI's trees, whose lost numbers must be
+    the drivers'; [vos]'s fused PNGs beside a copy of the annotations, J and
+    F in [0, 1] and the copy at J = F = 1. Removes the three trees."""
+    from siammask_tpu_torch.tools import eval as eval_cli
+
+    eao = ["--eao-interval", f"1,{VOT_FRAMES}"]
+    trees = {"tune": ["--dataset", "VOT2018", "--dataset-dir", str(VOT_ROOT),
+                      "--result-dir", str(TUNE_ROOT / "vot" / "results"), *eao],
+             "vot": ["--dataset", "VOT2018", "--dataset-dir", str(VOT_ROOT),
+                     "--result-dir", str(VOT_ROOT / "results"), *eao],
+             "vot-cli": ["--dataset", "VOT2018", "--dataset-dir", str(VOT_ROOT),
+                         "--result-dir", str(VOT_ROOT / "cli"), *eao],
+             "vos": ["--dataset", "ytb_vos", "--dataset-dir", str(VOS_ROOT),
+                     "--result-dir", str(VOS_ROOT / "results")]}
+    gt = VOS_ROOT / "results" / "ytb_vos" / "gt" / "vid"
+    shutil.copytree(VOS_ROOT / "ytb_vos" / "valid" / "Annotations" / "vid", gt)
+    summaries, walls = {}, {}
+    for name, args in trees.items():
+        t0 = time.perf_counter()
+        summaries[name] = eval_cli.main(args)
+        walls[name] = time.perf_counter() - t0
+    eaos = {tag: s["eao"] for tag, s in summaries["tune"].items()}
+    if eaos != tune_scores:
+        raise AssertionError(f"eval: EAO {eaos} against tune's {tune_scores}")
+    lost = {t: s["lost_number"] for tree in ("vot", "vot-cli") for t, s in summaries[tree].items()}
+    if lost != lost_by_tracker:
+        raise AssertionError(f"eval: lost numbers {lost} against the drivers' {lost_by_tracker}")
+    vos = summaries["vos"]
+    jf = [vos["SiamMask"][k] for k in ("J_seen", "F_seen")]
+    if not all(0 <= v <= 1 for v in jf) or vos["gt"]["J_seen"] != 1 or vos["gt"]["F_seen"] != 1:
+        raise AssertionError(f"eval: ytb_vos summary {vos}")
+    print(f"[eval] VOT, [tune]'s tree: EAO of the {len(eaos)} cells equal to tune's scores "
+          f"(best {max(eaos.values()):.6f}); [vot]'s trees: lost numbers {lost} equal to the "
+          f"drivers'; ytb_vos: SiamMask J {jf[0]:.4f} F {jf[1]:.4f}, the annotations against "
+          "themselves J = F = 1")
+    print("[eval] CLI wall s a tree (host clock, spawned pool included): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()))
+    for root in (TUNE_ROOT, VOT_ROOT, VOS_ROOT):
+        shutil.rmtree(root, ignore_errors=True)
 
 
 FROZEN_ALWAYS = ("features.features.conv1.", "features.features.bn1.",
@@ -1927,8 +2085,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     base_model, base_launches = phase_family("base", SiamMaskBase, BASE_CONFIG, True, False, smi)
     torch.cuda.empty_cache()
-    vot_launches = phase_vot({"sharp": model, "base": base_model, "rpn": rpn_model}, smi)
+    vot_launches, lost_by_tracker = phase_vot({"sharp": model, "base": base_model,
+                                               "rpn": rpn_model}, smi)
     del model, rpn_model, base_model
+    torch.cuda.empty_cache()
+    tune_launches, tune_scores = phase_tune(smi)
+    phase_eval(tune_scores, lost_by_tracker)
     torch.cuda.empty_cache()
 
     cfg = Config.load(str(TRAIN_CONFIG), clip=10.0)
@@ -1966,7 +2128,8 @@ def main() -> None:
     paths = {"track": track_launches, "video": [video_launches, 0, 0],
              "streams16": [streams_launches, 0, 0], "vos": [vos_launches, 0, 0],
              "rpn": [rpn_launches, 0, 0], "base": [base_launches, 0, 0],
-             "vot": [vot_launches, 0, 0], "train": train_launches,
+             "vot": [vot_launches, 0, 0], "tune": [tune_launches, 0, 0],
+             "train": train_launches,
              "train_refine": train_refine_launches, "train_rpn": train_rpn_launches}
     for i, record in enumerate(records):
         record["launches_by_path"] = {k: v[i] for k, v in paths.items()}

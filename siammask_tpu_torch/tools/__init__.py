@@ -1,1 +1,2 @@
-"""Command-line entry points of the port: ``python -m siammask_tpu_torch.tools.test``."""
+"""Command-line entry points of the port: ``python -m siammask_tpu_torch.tools.<name>``
+for ``test``, ``demo``, ``train``, ``tune``, ``eval``, ``curves`` and ``visualize``."""

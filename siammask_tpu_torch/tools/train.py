@@ -118,11 +118,13 @@ def main(argv=None) -> dict[str, float]:
                 logged = {k: v.item() for k, v in metrics.items()}
                 dt = (time.time() - t_last) / args.log_interval
                 t_last = time.time()
+                # the per-group rates after the metrics: tools/curves.py reads
+                # the \w+=value run that follows "lr L"
                 groups = " ".join(f"lr/{g['name']}={lr * g['mult']:.6f}"
                                   for g in trainer.optimizer.param_groups)
-                log.info(f"epoch {epoch} step {step} lr {lr:.5f} {groups} "
+                log.info(f"epoch {epoch} step {step} lr {lr:.5f} "
                          + " ".join(f"{k}={v:.4f}" for k, v in logged.items())
-                         + f" ({dt:.2f}s/it)")
+                         + f" {groups} ({dt:.2f}s/it)")
         path = join(args.save_dir, f"checkpoint_e{epoch + 1}.pth")
         save_checkpoint(path, model.state_dict(), trainer.optimizer.state_dict(), epoch + 1,
                         arch=cfg.arch, anchor_cfg=cfg.anchors.to_dict())

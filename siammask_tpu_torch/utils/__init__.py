@@ -1,1 +1,1 @@
-"""Box helpers and the JAX-to-PyTorch weight bridge."""
+"""Box helpers, the JAX-to-PyTorch weight bridge, meters and logging."""

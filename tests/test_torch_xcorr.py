@@ -294,8 +294,36 @@ def test_xcorr_autograd_on_card_launches_the_kernels(cuda_device):
 
 
 def test_port_imports_no_jax_and_cv2_only_for_the_polygon():
-    """Every module of the port imports without jax, flax, siammask_tpu or
-    cv2; cv2 loads only when mask_to_rotated_box runs."""
+    """No file of the port names jax, flax or siammask_tpu in an import, at
+    any depth; every module imports without them or cv2, and cv2 loads only
+    when mask_to_rotated_box runs; the eval toolkit and the eval CLI import
+    with torch blocked."""
+    import ast
+
+    banned = {"jax", "flax", "siammask_tpu"}
+    for path in sorted((REPO / "siammask_tpu_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            assert not banned & set(roots), f"{path.relative_to(REPO)}:{node.lineno}"
+    no_torch = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.modules["torch"] = None             # any import of torch now raises
+        import siammask_tpu_torch.eval
+        names = [m.name for m in pkgutil.walk_packages(siammask_tpu_torch.eval.__path__,
+                                                       "siammask_tpu_torch.eval.")]
+        for name in [*names, "siammask_tpu_torch.tools.eval"]:
+            importlib.import_module(name)
+        assert len(names) >= 6, names
+        print("OK", len(names))
+    """)
+    proc = subprocess.run([sys.executable, "-c", no_torch], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.startswith("OK"), proc.stdout + proc.stderr
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         banned = ("jax", "flax", "siammask_tpu", "cv2")
