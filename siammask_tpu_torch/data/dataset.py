@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from siammask_tpu_torch.data.anchor_target import AnchorTarget, AnchorTargetConfig
+from siammask_tpu_torch.parallel.dist import local_rows
 from siammask_tpu_torch.tracker.anchors import AnchorConfig, Anchors
 from siammask_tpu_torch.utils.bbox import Center, Corner, aug_apply, center2corner
 
@@ -493,11 +494,16 @@ class DataLoader:
     ``workers_mode``: "thread" (cv2 releases the GIL in imread and
     warpAffine) or "process" (forked children, the reference's torch
     ``num_workers``; they run numpy and cv2 only). ``num_workers=0`` loads
-    in the caller's thread."""
+    in the caller's thread.
+
+    ``batch_size`` is the global batch; with ``world`` ranks, rank ``rank``
+    loads its rows of each (``parallel.dist.local_rows``). Items are pure
+    functions of (seed, generation, index), so with one seed the ranks'
+    batches together are the single process's, bit for bit."""
 
     def __init__(self, dataset: PairDataset, batch_size: int, num_workers: int = 8,
                  drop_last: bool = True, prefetch: int = 3,
-                 workers_mode: str = "thread"):
+                 workers_mode: str = "thread", rank: int = 0, world: int = 1):
         if workers_mode not in ("thread", "process"):
             raise ValueError(f"workers_mode {workers_mode!r}: 'thread' or 'process'")
         self.dataset = dataset
@@ -505,6 +511,9 @@ class DataLoader:
         self.num_workers = num_workers
         self.prefetch = max(1, prefetch)
         self.workers_mode = workers_mode
+        if world > 1 and not drop_last:
+            raise ValueError("a ragged last batch does not split over ranks: drop_last=True")
+        self.rows = local_rows(batch_size, rank, world)
         n = len(dataset)
         self.num_batches = n // batch_size if drop_last else -(-n // batch_size)
 
@@ -512,8 +521,8 @@ class DataLoader:
         return self.num_batches
 
     def _indices(self, b):
-        return range(b * self.batch_size,
-                     min((b + 1) * self.batch_size, len(self.dataset)))
+        start = b * self.batch_size
+        return range(start, min(start + self.batch_size, len(self.dataset)))[self.rows]
 
     def __iter__(self):
         if self.num_workers <= 0:

@@ -20,6 +20,12 @@ Counterpart of ``siammask_tpu/models/losses.py`` in NCHW (the reference's
 Shapes stay static as in the JAX package: the positive cells are a top-k of
 ``16 * B`` rows (``POS_PER_SAMPLE``, the target sampler's cap), and only those
 windows are gathered, never all S*S of them.
+
+Data-parallel training in the exact mode (``train/trainer.py``) gives each
+loss the global count it normalizes by (positive and negative anchors, the
+batch, the valid mask rows): each rank's loss is then its share of the
+global-batch loss, and the shares sum to it. With no count given, each
+loss normalizes by its own batch's.
 """
 from __future__ import annotations
 
@@ -34,25 +40,30 @@ from siammask_tpu_torch.ops.resize import upsample_bilinear_align_corners
 POS_PER_SAMPLE = 16
 
 
-def select_cross_entropy_loss(pred_cls: torch.Tensor, label_cls: torch.Tensor) -> torch.Tensor:
+def select_cross_entropy_loss(pred_cls: torch.Tensor, label_cls: torch.Tensor,
+                              npos: torch.Tensor | None = None,
+                              nneg: torch.Tensor | None = None) -> torch.Tensor:
     """pred_cls: (B, 2k, S, S) raw logits; label_cls: (B, k, S, S) in
-    {-1 ignore, 0 neg, 1 pos}."""
+    {-1 ignore, 0 neg, 1 pos}. ``npos`` / ``nneg``: the positive and
+    negative anchors to divide by (this batch's when None)."""
     b, ck, s1, s2 = pred_cls.shape
     logp = F.log_softmax(pred_cls.view(b, 2, ck // 2, s1, s2), dim=1)
     pos = (label_cls == 1).to(logp.dtype)
     neg = (label_cls == 0).to(logp.dtype)
-    loss_pos = -(logp[:, 1] * pos).sum() / pos.sum().clamp(min=1.0)
-    loss_neg = -(logp[:, 0] * neg).sum() / neg.sum().clamp(min=1.0)
+    npos = pos.sum() if npos is None else npos.to(logp.dtype)
+    nneg = neg.sum() if nneg is None else nneg.to(logp.dtype)
+    loss_pos = -(logp[:, 1] * pos).sum() / npos.clamp(min=1.0)
+    loss_neg = -(logp[:, 0] * neg).sum() / nneg.clamp(min=1.0)
     return 0.5 * loss_pos + 0.5 * loss_neg
 
 
 def weight_l1_loss(pred_loc: torch.Tensor, label_loc: torch.Tensor,
-                   loss_weight: torch.Tensor) -> torch.Tensor:
+                   loss_weight: torch.Tensor, batch: int | None = None) -> torch.Tensor:
     """pred_loc: (B, 4k, S, S); label_loc: (B, 4, k, S, S); loss_weight:
-    (B, k, S, S)."""
+    (B, k, S, S). ``batch``: the batch to divide by (B when None)."""
     b, ck, s1, s2 = pred_loc.shape
     diff = (pred_loc.view(b, 4, ck // 4, s1, s2) - label_loc).abs().sum(dim=1)
-    return (diff * loss_weight).sum() / b
+    return (diff * loss_weight).sum() / (b if batch is None else batch)
 
 
 class MaskLossOut(NamedTuple):
@@ -76,18 +87,21 @@ def _iou_rows(pred: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
 
 def select_mask_logistic_loss(p_m: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
                               o_sz: int = 63, g_sz: int = 127, padding: int = 32,
-                              max_pos: int | None = None) -> MaskLossOut:
+                              max_pos: int | None = None,
+                              nval: torch.Tensor | None = None) -> MaskLossOut:
     """p_m: (B, o_sz**2, S, S) raw mask-head output (base), or
     (B*S*S, g_sz**2) refined logits, cells row-major per sample (sharp).
     mask: (B, H, W) ground truth in {-1, +1}; weight: (B, S, S), 1 on
-    positive cells. ``max_pos`` caps the positive rows (default 16 x B)."""
+    positive cells. ``max_pos`` caps the positive rows (default 16 x B).
+    ``nval``: the valid rows to divide the loss and the IoU metrics by
+    (this batch's selected positives when None)."""
     w_flat = weight.reshape(-1)
     if max_pos is None:
         max_pos = POS_PER_SAMPLE * weight.shape[0]
     sel_w, sel_idx = torch.topk(w_flat, min(max_pos, w_flat.numel()))
     valid = (sel_w == 1).to(torch.float32)
-    nval = valid.sum()
-    overflow = (w_flat == 1).sum().to(torch.float32) - nval
+    n_sel = valid.sum()
+    overflow = (w_flat == 1).sum().to(torch.float32) - n_sel
 
     sgrid = weight.shape[1]
     if (mask.shape[1] + 2 * padding - g_sz) // 8 + 1 != sgrid:
@@ -113,7 +127,7 @@ def select_mask_logistic_loss(p_m: torch.Tensor, mask: torch.Tensor, weight: tor
         pred_sel = p_m.index_select(0, sel_idx)
 
     per_row = F.softplus(-gt_sel * pred_sel).mean(dim=-1)
-    denom = nval.clamp(min=1.0)
+    denom = (n_sel if nval is None else nval.to(torch.float32)).clamp(min=1.0)
     loss = (per_row * valid).sum() / denom
     iou = _iou_rows(pred_sel, gt_sel)
     return MaskLossOut(loss, (iou * valid).sum() / denom,

@@ -3,8 +3,7 @@ SiamMask-sharp end to end or its stage-2 refine training.
 
 Counterpart of ``tools/train.py`` (the reference's ``train_siammask.py``,
 ``train_siamrpn.py`` and ``train_siammask_refine.py``), with the same flags
-less the JAX package's ``--xcorr``, ``--platform``, ``--num-devices``,
-``--fused-allreduce``, ``--sync-bn``, ``--remat`` and ``--tb-dir``, plus
+less the JAX package's ``--xcorr``, ``--platform`` and ``--tb-dir``, plus
 ``--device`` (``cuda`` by default; ``cpu`` runs on the CPU). The
 tensorboard scalars are in the log line. The two-stage recipe::
 
@@ -17,22 +16,39 @@ tensorboard scalars are in the log line. The two-stage recipe::
 ``--pretrained`` takes a ``.pth``, a checkpoint or a bare state_dict with
 the reference names, with or without ``module.``, merged non-strictly (what
 it lacks keeps its seeded init); ``--resume`` continues a checkpoint of this
-CLI (weights, momentum, epoch). A checkpoint ``checkpoint_e{N}.pth`` is
-written after each epoch. On the card TF32 is off (the fp32 reference
+CLI (weights, momentum, epoch, and the data's shuffle, so that with
+``--seed`` the resumed run is the uninterrupted one; the JAX package's CLI
+shuffles anew from the first generation on resume, so a resumed run of it
+trains on other pairs than the port's). A checkpoint ``checkpoint_e{N}.pth``
+is written after each epoch. On the card TF32 is off (the fp32 reference
 mode). ``main(argv)`` returns the last step's metrics.
+
+Data parallel: ``--batch`` is the global batch. ``--num-devices N`` spawns N
+ranks, one card each over NCCL, or N gloo processes with ``--device cpu``;
+fewer than N visible cards raise. Under torchrun (``WORLD_SIZE``) or SLURM
+(``SLURM_NTASKS``, with ``MASTER_ADDR`` and ``MASTER_PORT`` set) with more
+than one process, each process joins the group and nothing is spawned; one
+process there runs as it would alone. ``--fused-allreduce``, ``--sync-bn`` and ``--remat``
+are ``Trainer``'s modes. Each rank loads its rows of every batch from one
+data seed (rank 0's, when ``--seed`` is not given); rank 0 writes the
+checkpoints and logs, every rank restores ``--resume``, and ``main``
+returns rank 0's metrics.
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import random
 import time
 from os.path import join
 
 import torch
+import torch.distributed as dist
 
 from siammask_tpu_torch.config import Config
 from siammask_tpu_torch.data.dataset import DataLoader, PairDataset, to_device
 from siammask_tpu_torch.models.siammask import SiamMaskBase, SiamMaskSharp, SiamRPN
+from siammask_tpu_torch.parallel.dist import init_distributed, spawn
 from siammask_tpu_torch.train.checkpoint import (merge_state_dict, read_state_dict,
                                                  save_checkpoint)
 from siammask_tpu_torch.train.lr import build_lr_spaces
@@ -68,19 +84,49 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="training-progress fraction at which backbone layer2/3 "
                              "unfreeze")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--num-devices", type=int, default=1,
+                        help="data-parallel ranks to spawn: one card each, or gloo "
+                             "processes with --device cpu; --batch stays the global batch")
+    parser.add_argument("--fused-allreduce", action="store_true",
+                        help="exchange the gradients as one flat bucket, averaged, with "
+                             "local BN and loss normalizers (DDP's semantics) instead of "
+                             "the exact global-batch step's per-tensor sums")
+    parser.add_argument("--sync-bn", action="store_true",
+                        help="with --fused-allreduce: sync the BN batch statistics over "
+                             "the ranks (two small collectives per training-mode BN)")
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute the forward in the backward: about a third more "
+                             "FLOPs for the activation memory of one forward")
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> dict[str, float]:
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    rank, world, device = init_distributed(args.device)
+    if world > 1:
+        try:
+            return train(rank, world, device, args)
+        finally:
+            dist.destroy_process_group()
+    if args.num_devices > 1:
+        if args.device == "cuda" and torch.cuda.device_count() < args.num_devices:
+            raise RuntimeError(f"--num-devices {args.num_devices}: "
+                               f"{torch.cuda.device_count()} cards are visible")
+        return spawn(train, args.num_devices, args.device, args)[0]
+    return train(0, 1, torch.device(args.device), args)
+
+
+def train(rank: int, world: int, device: torch.device, args) -> dict[str, float]:
+    """The training run of one rank of ``world`` (the whole run when 1)."""
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
+                        format="%(asctime)s %(levelname)s %(message)s")
     log = logging.getLogger("train")
-    device = torch.device(args.device)
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     log.info(f"torch {torch.__version__} device {device}"
-             + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+             + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+             + (f", {world} ranks over {dist.get_backend()}" if world > 1 else ""))
 
     cfg = Config.load(args.config, clip=args.clip)
     model = MODELS[args.task](cfg.anchors.anchor_num, args.width)
@@ -93,17 +139,26 @@ def main(argv=None) -> dict[str, float]:
             log.info(f"pretrained: {len(unused)} checkpoint entries unused (e.g. {unused[0]})")
     model.to(device)
 
+    seed = args.seed
+    if world > 1 and seed is None:   # one data seed for every rank: rank 0's
+        box = [random.SystemRandom().randrange(2 ** 31)]
+        dist.broadcast_object_list(box, src=0)
+        seed = box[0]
     train_cfg = cfg.train_datasets
-    dataset = PairDataset(train_cfg, cfg.anchors, num_epoch=1, seed=args.seed)
+    dataset = PairDataset(train_cfg, cfg.anchors, num_epoch=1, seed=seed)
     loader = DataLoader(dataset, args.batch, num_workers=args.workers,
-                        workers_mode=args.workers_mode)
+                        workers_mode=args.workers_mode, rank=rank, world=world)
     settings = TrainSettings.for_search(args.task, cfg.loss_weight,
                                         train_cfg.get("search_size", 255))
     lr_spaces = build_lr_spaces(cfg.lr, args.epochs)
     opt_cfg = OptimizerConfig.from_lr_cfg(cfg.lr, clip=args.clip, clip_cfg=cfg.clip)
     trainer = Trainer(model, settings, opt_cfg, lr_spaces, epochs=args.epochs,
-                      unfreeze_at=args.unfreeze_at)
+                      unfreeze_at=args.unfreeze_at, distributed=world > 1,
+                      fused_allreduce=args.fused_allreduce, sync_bn=args.sync_bn,
+                      remat=args.remat)
     start_epoch = trainer.restore(args.resume) if args.resume else 0
+    for _ in range(start_epoch):    # the epochs done draw the data they drew
+        dataset.shuffle()
 
     step = start_epoch * len(loader)
     metrics: dict[str, torch.Tensor] = {}
@@ -126,9 +181,12 @@ def main(argv=None) -> dict[str, float]:
                          + " ".join(f"{k}={v:.4f}" for k, v in logged.items())
                          + f" {groups} ({dt:.2f}s/it)")
         path = join(args.save_dir, f"checkpoint_e{epoch + 1}.pth")
-        save_checkpoint(path, model.state_dict(), trainer.optimizer.state_dict(), epoch + 1,
-                        arch=cfg.arch, anchor_cfg=cfg.anchors.to_dict())
-        log.info(f"saved {path}")
+        if rank == 0:
+            save_checkpoint(path, model.state_dict(), trainer.optimizer.state_dict(),
+                            epoch + 1, arch=cfg.arch, anchor_cfg=cfg.anchors.to_dict())
+            log.info(f"saved {path}")
+        if world > 1:
+            dist.barrier()
     return {k: v.item() for k, v in metrics.items()}
 
 

@@ -390,6 +390,12 @@ class Tracker:
                 states, out = self._step_body(states, frame)
                 outs.append(out)
             return states, type(out)(*(torch.stack(v) for v in zip(*outs)))
+        return self.step_graph(states, frames).run(states, frames)
+
+    @torch.inference_mode()
+    def step_graph(self, states: TrackState, frames: torch.Tensor) -> StepGraph:
+        """The ``StepGraph`` for these states and device frames (T, H, W, 3),
+        captured now if it is not kept, and now the most recently used."""
         _, h, w, _ = frames.shape
         key = (states.target_pos.shape[0], h, w, frames.dtype)
         graph = self.graphs.pop(key, None)
@@ -401,7 +407,7 @@ class Tracker:
                 self._side = torch.cuda.Stream(self.device)
             graph = StepGraph(self, states, frames[0], self._side)
         self.graphs[key] = graph        # now the most recently used
-        return graph.run(states, frames)
+        return graph
 
     @torch.inference_mode()
     def track_video(self, state: TrackState, frames):

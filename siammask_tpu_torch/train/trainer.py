@@ -36,21 +36,44 @@ Counterpart of ``siammask_tpu/train/trainer.py`` (the reference's
   weights, epoch, and momentum when the checkpoint's param groups are the
   current phase's.
 
-Not here: the data-parallel, fused all-reduce and sync-BN variants, and
-``remat``.
+Data-parallel training (``distributed``: one process per device in a
+``torch.distributed`` group, each with its rows of the global batch;
+``parallel/dist.py``) has the JAX ``make_train_step(mesh=...)``'s modes:
+
+- default: the global-batch step, exactly. Every training-mode BN syncs
+  its batch statistics over the group (``parallel/sync_bn.py``), each loss
+  divides by the global batch's counts (``global_counts``, one all-reduce
+  before the forward), and the gradients and metrics are summed, the
+  gradients in one flat bucket;
+- ``fused_allreduce``: DDP's semantics, as the JAX step's shard_map: local
+  BN and local normalizers; the gradients averaged in one flat bucket; the
+  BN running statistics and the metrics averaged;
+- ``fused_allreduce`` + ``sync_bn``: the same with BN statistics synced.
+
+Every rank clips the exchanged gradients and decides the NaN guard on the
+reduced loss, so all ranks step or skip together and hold the same
+weights. ``remat`` recomputes the forward in the backward
+(``torch.utils.checkpoint``): the same step, with the activations of one
+forward freed; the train-mode BN running statistics are restored after the
+recompute, which would otherwise update them twice.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from siammask_tpu_torch.models.losses import (select_cross_entropy_loss,
+from siammask_tpu_torch.models.losses import (POS_PER_SAMPLE, select_cross_entropy_loss,
                                               select_mask_logistic_loss, weight_l1_loss)
+from siammask_tpu_torch.parallel.dist import all_reduce_tensors
+from siammask_tpu_torch.parallel.sync_bn import convert_sync_bn
 from siammask_tpu_torch.train.checkpoint import load_checkpoint
 
 TASKS = ("siamrpn", "base", "sharp", "sharp_refine")
@@ -177,24 +200,76 @@ def _train_bn_buffers(model: nn.Module) -> list[torch.Tensor]:
             for buf in m.buffers()]
 
 
-def _forward(model: nn.Module, batch: dict, task: str):
+def _forward(model: nn.Module, template: torch.Tensor, search: torch.Tensor, task: str):
     """(score, loc, mask prediction or None) of the task's training graph."""
     if task == "siamrpn":
-        return (*model.forward_train(batch["template"], batch["search"]), None)
+        return (*model.forward_train(template, search), None)
     if task == "base":
-        return model.forward_train(batch["template"], batch["search"])
+        return model.forward_train(template, search)
     train = task != "sharp_refine"
-    return model.forward_train(batch["template"], batch["search"],
-                               train_backbone_neck=train, train_rpn=train)
+    return model.forward_train(template, search, train_backbone_neck=train, train_rpn=train)
+
+
+@contextlib.contextmanager
+def _bn_buffers_kept(model: nn.Module):
+    """While open, train-mode BN buffers may change; they are put back after."""
+    bufs = _train_bn_buffers(model)
+    saved = [b.clone() for b in bufs]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, old in zip(bufs, saved):
+                b.copy_(old)
+
+
+def _remat_forward(model: nn.Module, template: torch.Tensor, search: torch.Tensor, task: str):
+    """``_forward`` whose activations are recomputed in the backward. The
+    recompute runs train-mode BN again: its running statistics are restored
+    after it (the forward's update stands), and a synced BN issues its
+    collectives again, on every rank alike."""
+    return checkpoint(_forward, model, template, search, task, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _bn_buffers_kept(model)))
+
+
+def global_counts(batch: dict, task: str) -> dict:
+    """The global batch's loss normalizers, the keyword arguments of the
+    losses: positive and negative anchors and (mask tasks) the valid mask
+    rows, each rank's top-k selection of its positive cells (the sampler's
+    16 positives a sample make those the global top-k's), summed over the
+    group by one all-reduce; and the global batch, every rank's rows alike."""
+    cls = batch["label_cls"]
+    b = cls.shape[0]
+    counts = [(cls == 1).sum(), (cls == 0).sum()]
+    if task != "siamrpn":
+        w = batch["label_mask_weight"]
+        counts.append((w == 1).sum().clamp(max=min(POS_PER_SAMPLE * b, w.numel())))
+    counts = torch.stack(counts).to(torch.float64)
+    all_reduce_tensors([counts])
+    return {"npos": counts[0], "nneg": counts[1], "nval": counts[2] if len(counts) > 2 else None,
+            "batch": b * dist.get_world_size()}
+
+
+def _reduce_metrics(metrics: dict, op: str) -> dict:
+    """Every metric summed or averaged over the group, one collective."""
+    names = list(metrics)
+    flat = torch.stack([metrics[k].detach().to(torch.float64) for k in names])
+    all_reduce_tensors([flat], op)
+    return {k: v.to(metrics[k].dtype) for k, v in zip(names, flat.unbind())}
 
 
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, lr: float,
-               settings: TrainSettings, opt_cfg: OptimizerConfig) -> dict[str, torch.Tensor]:
+               settings: TrainSettings, opt_cfg: OptimizerConfig, distributed: bool = False,
+               fused_allreduce: bool = False, remat: bool = False) -> dict[str, torch.Tensor]:
     """One step of ``settings.task`` (the JAX ``make_train_step``): forward,
     loss, backward, clip, NaN guard, SGD step. Returns the JAX package's
     metrics for the task, as 0-d tensors on the model's device: SiamRPN has
     no mask prediction and so no mask loss and no mask metrics; the mask
     families report every term, a zero-weighted one too.
+
+    ``distributed``: this rank's rows of the global batch, in the default
+    mode or ``fused_allreduce`` (the module docstring); the metrics are the
+    global batch's. Sync-BN is the model's (``Trainer`` converts it).
 
     Train-mode BN keeps ``nn.BatchNorm2d``'s running variance, which is
     updated with the unbiased batch variance as the original PyTorch
@@ -207,32 +282,47 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, 
     bn_before = [buf.clone() for buf in _train_bn_buffers(model)]
     optimizer.zero_grad(set_to_none=True)
 
-    score, loc, pred_mask = _forward(model, batch, settings.task)
-    cls_loss = select_cross_entropy_loss(score, batch["label_cls"])
-    loc_loss = weight_l1_loss(loc, batch["label_loc"], batch["label_loc_weight"])
+    exact = distributed and not fused_allreduce
+    counts = global_counts(batch, settings.task) if exact else {}
+    forward = _remat_forward if remat else _forward
+    score, loc, pred_mask = forward(model, batch["template"], batch["search"], settings.task)
+    cls_loss = select_cross_entropy_loss(score, batch["label_cls"], counts.get("npos"),
+                                         counts.get("nneg"))
+    loc_loss = weight_l1_loss(loc, batch["label_loc"], batch["label_loc_weight"],
+                              counts.get("batch"))
     metrics = {"cls_loss": cls_loss, "loc_loss": loc_loss}
     total = w_cls * cls_loss + w_loc * loc_loss
     if pred_mask is not None:
         m = select_mask_logistic_loss(pred_mask, batch["label_mask"],
                                       batch["label_mask_weight"], o_sz=settings.o_sz,
-                                      g_sz=settings.g_sz, padding=settings.mask_pad)
+                                      g_sz=settings.g_sz, padding=settings.mask_pad,
+                                      nval=counts.get("nval"))
         total = total + w_mask * m.loss
         metrics.update(mask_loss=m.loss, iou_mean=m.iou_mean, iou_at_5=m.iou_at_5,
                        iou_at_7=m.iou_at_7, mask_pos_overflow=m.pos_overflow)
     metrics["total_loss"] = total
     total.backward()
     # optax decays and carries momentum for every leaf of a group, reached
-    # by the loss or not: give such a parameter a zero gradient
-    for g in optimizer.param_groups:
-        for p in g["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+    # by the loss or not: give such a parameter a zero gradient (which also
+    # keeps the bucket's layout fixed)
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if distributed:
+        op = "mean" if fused_allreduce else "sum"
+        all_reduce_tensors([p.grad for p in params], op)
+        if fused_allreduce:
+            all_reduce_tensors([b for b in _train_bn_buffers(model) if b.is_floating_point()],
+                               "mean")
+        metrics = _reduce_metrics(metrics, op)
     _clip(optimizer, opt_cfg)
 
     # NaN/huge-loss guard (reference train_siammask.py): decided on the host
-    # from one read of the loss a step, as the reference does; a batch-64
-    # step is long next to that sync
-    loss = total.item()
+    # from one read of the loss a step, as the reference does (a batch-64
+    # step is long next to that sync); distributed, from the reduced loss,
+    # so every rank decides alike
+    loss = metrics["total_loss"].item()
     ok = math.isfinite(loss) and abs(loss) <= 1e4
     if ok:
         optimizer.step()
@@ -246,20 +336,37 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, 
 
 
 class Trainer:
-    """Epoch-driven loop for one card: owns the optimizer rebuild at the
-    unfreeze boundary, the LR schedule and resume. IO-free: callers drive it
-    with batches of device tensors, NCHW images (B, 3, H, W) in 0..255 and
-    the labels of ``AnchorTarget`` (``data/dataset.py``'s ``to_device``
-    gives them)."""
+    """Epoch-driven loop: owns the optimizer rebuild at the unfreeze
+    boundary, the LR schedule and resume. IO-free: callers drive it with
+    batches of device tensors, NCHW images (B, 3, H, W) in 0..255 and the
+    labels of ``AnchorTarget`` (``data/dataset.py``'s ``to_device`` gives
+    them).
+
+    ``distributed`` runs ``train_step``'s data-parallel modes over the
+    initialised default group (each rank passes its rows of the global
+    batch); the default mode and ``sync_bn`` convert the model's BN to
+    ``SyncBatchNorm2d`` in place. Without ``distributed``,
+    ``fused_allreduce`` and ``sync_bn`` do nothing, as in the JAX
+    ``Trainer`` without a mesh."""
 
     def __init__(self, model: nn.Module, settings: TrainSettings, opt_cfg: OptimizerConfig,
-                 lr_spaces: np.ndarray, epochs: int, unfreeze_at: float = 0.5):
+                 lr_spaces: np.ndarray, epochs: int, unfreeze_at: float = 0.5,
+                 distributed: bool = False, fused_allreduce: bool = False,
+                 sync_bn: bool = False, remat: bool = False):
+        if distributed and not dist.is_initialized():
+            raise RuntimeError("distributed=True needs an initialised process group "
+                               "(parallel.dist.init_distributed)")
         self.model = model
         self.settings = settings
         self.opt_cfg = opt_cfg
         self.lr_spaces = lr_spaces
         self.epochs = epochs
         self.unfreeze_at = unfreeze_at
+        self.distributed = distributed
+        self.fused_allreduce = fused_allreduce and distributed
+        self.remat = remat
+        if distributed and (sync_bn or not fused_allreduce):
+            convert_sync_bn(model)
         self._unfrozen = None
         self.optimizer = None
         self.labels = None
@@ -306,7 +413,8 @@ class Trainer:
     def step(self, batch: dict, epoch: int) -> dict[str, torch.Tensor]:
         self._ensure_phase(epoch)
         lr = float(self.lr_spaces[min(epoch, len(self.lr_spaces) - 1)])
-        return train_step(self.model, self.optimizer, batch, lr, self.settings, self.opt_cfg)
+        return train_step(self.model, self.optimizer, batch, lr, self.settings, self.opt_cfg,
+                          self.distributed, self.fused_allreduce, self.remat)
 
 
 def _group_layout(state: dict) -> list[tuple[str, int]]:

@@ -99,16 +99,17 @@ def calibrated_variables(batch, seed=0):
     return convert_state_dict({k: v.numpy() for k, v in model.state_dict().items()})
 
 
-def make_batch(seed=0):
+def make_batch(seed=0, b=B):
     """Noise images and the port's anchor targets for a box near the centre
-    of each search crop: (JAX batch, NHWC numpy; port batch, NCHW torch)."""
+    of each of ``b`` search crops: (JAX batch, NHWC numpy; port batch, NCHW
+    torch)."""
     rng = np.random.RandomState(seed)
     cfg = Config.load(str(CONFIG))
     anchors = Anchors(cfg.anchors)
     anchors.generate_all_anchors(im_c=255 // 2, size=25)
     target = AnchorTarget(np.random.RandomState(seed))
     cls, loc, loc_w, mask, mask_w = [], [], [], [], []
-    for _ in range(B):
+    for _ in range(b):
         cx, cy = 127 + rng.uniform(-8, 8, 2)
         w, h = rng.uniform(52, 78, 2)  # the search crop scales targets to ~64 px
         box = (cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2)
@@ -117,8 +118,8 @@ def make_batch(seed=0):
         m[int(box[1]):int(box[3]), int(box[0]):int(box[2])] = 1.0
         cls.append(c), loc.append(d), loc_w.append(dw), mask.append(m)
         mask_w.append(c.max(axis=0).astype(np.float32))
-    jbatch = {"template": rng.uniform(0, 255, (B, 127, 127, 3)).astype(np.float32),
-              "search": rng.uniform(0, 255, (B, 255, 255, 3)).astype(np.float32),
+    jbatch = {"template": rng.uniform(0, 255, (b, 127, 127, 3)).astype(np.float32),
+              "search": rng.uniform(0, 255, (b, 255, 255, 3)).astype(np.float32),
               "label_cls": np.stack(cls).astype(np.int32), "label_loc": np.stack(loc),
               "label_loc_weight": np.stack(loc_w), "label_mask": np.stack(mask),
               "label_mask_weight": np.stack(mask_w)}
