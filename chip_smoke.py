@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA card: ``python3 chip_smoke.py``.
 
 Drives the port's main paths at the published width (64; 127x127
-template, 255x255 search, 25x25x5 anchors) in fp32 with TF32 off, on
+template, 255x255 search, 25x25x5 anchors) in fp32 with TF32 off, and then
+in the bf16 compute mode (bf16 activations over float32 weights), on
 synthetic uint8 frames made from a numpy seed, with seeded random weights:
 
 - the SiamMask-sharp track step (``Tracker.init`` / ``Tracker.step``,
@@ -32,7 +33,10 @@ synthetic uint8 frames made from a numpy seed, with seeded random weights:
   ``Trainer.restore`` and the train CLI (``siammask_tpu_torch.tools.train``);
 - data-parallel training (``Trainer(distributed=True)`` over
   ``parallel.dist``) at batch 64, and the sharded stream server
-  (``parallel.serving.ShardedStreamServer``) at 16 streams.
+  (``parallel.serving.ShardedStreamServer``) at 16 streams;
+- the bf16 compute mode (``build_model(..., dtype=torch.bfloat16)``): the
+  sharp track step, video and 16 streams, the SiamRPN and base videos, the
+  VOS and VOT drivers against their fp32 runs, and the stage-1 train step.
 
 Every phase runs on card 0; with two cards or more visible, ``[dp]`` and
 ``[sharded]`` also run over several cards.
@@ -43,13 +47,14 @@ Phases, each of which raises on failure:
 2. build: the hand-written kernels are compiled from ``siammask_tpu_torch/csrc``;
 3. the forward xcorr kernel vs its plain version at the tracking shape, B=16,
    B=32, the training batch (B=64), stage 2's (64,7,7,256)*(64,5,5,256), a ragged
-   shape and bf16; kernel and plain times at B=1 (fp32, bf16), B=16, B=32,
-   B=64 and stage 2's shape (fp32);
+   shape and bf16 at B=1, 16 and 64; kernel, plain and library times at B=1,
+   B=16, B=32, B=64 and stage 2's shape (fp32) and at B=1, 16 and 64 (bf16);
 4. the two gradient kernels vs their plain versions at B=1, B=16, B=32,
-   B=64, stage 2's shape, a ragged shape and bf16; two calls of each at B=64
-   and at stage 2's shape bit-identical; kernel and plain times at B=1,
-   B=16, B=32, B=64 and stage 2's shape beside each kernel's bound, and the eager
-   autograd backward through the kernels vs through the plain forward;
+   B=64, stage 2's shape, a ragged shape and bf16 at B=1, 16 and 64; two
+   calls of each at B=64 (fp32, bf16) and at stage 2's shape bit-identical;
+   kernel and plain times at B=1, B=16, B=32, B=64 and stage 2's shape
+   (fp32) and at B=1, 16 and 64 (bf16) beside each kernel's bound, and the
+   eager autograd backward through the kernels vs through the plain forward;
 5. the track slice: init + steps, with finite outputs in bounds, three xcorr
    kernel launches per step, and one step under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
@@ -76,7 +81,9 @@ Phases, each of which raises on failure:
     ``step_batched``, one full window through the graph, a re-init at the
     late start; 3 xcorr launches a frame) against ``track_vos``, the late
     object absent before its start, object-frames/s; skipped, with a line
-    that says so, where cv2 or PIL is not installed;
+    that says so, where cv2 or PIL is not installed; then ``[bf16-vos]``:
+    the batched driver with a bf16 twin of the weights, its per-object mean
+    IoU beside the fp32 run's and the two runs' fused masks' IoU;
 12. ``[rpn]``: SiamRPN (``experiments/siamrpn_resnet/config.json``, BN
     calibrated as for sharp) as phases 5, 6 and 8 run sharp: init + steps
     with 2 xcorr launches a step, one under ``sync_debug_mode("error")``;
@@ -97,7 +104,15 @@ Phases, each of which raises on failure:
     line by line, the xcorr launches against the stepped frames, the region
     overlap's host us a call; then the CLI's ``main`` with the sharp weights as a ``.pth``, its
     results against the driver's; cv2 is required; the data, the result
-    trees and the sharp ``.pth`` stay for phases 15-16;
+    trees and the sharp ``.pth`` stay for phases 15-16; then ``[bf16-vot]``:
+    the three drivers with bf16 twins of the same weights, each video's
+    lost count equal to the fp32 run's, the largest drift in px between the
+    bf16 and fp32 regions' centres; then ``[bf16]``: SiamMask-sharp in bf16
+    (the calibrated weights, their cls head sharpened: ``sharpen_cls_head``)
+    as phases 5, 6, 8 and 9 run it in fp32, card vs CPU at bf16 tolerances
+    (``BF16_*``), the graph videos bit-identical to their eager loops and
+    every traced xcorr kernel a bf16 instantiation, and SiamRPN and base
+    graph videos in bf16, each timing beside its fp32 phase's;
 15. ``[tune]``: ``tools.tune.main`` with that ``.pth`` (SiamMask-sharp at
     width 64): a VOT grid over the two videos (penalty_k 0.04 / 0.12 x lr
     0.30 / 0.45 at instance_size 255, then one cell at 271; EAO over frames
@@ -120,7 +135,11 @@ Phases, each of which raises on failure:
 18. one training step on the card and on the CPU from the same weights and
     batch (B=2), open loop;
 19. the profile of one frozen and one unfrozen step (no backbone backward
-    while frozen), and train ms/step and samples/s;
+    while frozen), and train ms/step and samples/s; then ``[bf16-train]``:
+    the same step computing in bf16 from the same weights, its first step
+    against the fp32 one (loss, update cosine), 2 frozen and 2 unfrozen
+    steps with 3 / 3 / 3 bf16 launches, ms/step and peak memory beside the
+    fp32 ones;
 20. ``[data]``: 8 batches of 64 from ``PairDataset(seed)`` through
     ``DataLoader`` for the stage-2 and the SiamRPN config, with thread and
     with process workers (min(16, cores)): samples/s of each, the host's
@@ -176,8 +195,11 @@ each kernel with its launches on the main paths, error, times, bound and
 the time of the one library call (cuDNN's grouped conv) that computes the
 same function, with ``launches_by_path`` (track, video, streams16, vos,
 rpn, base, vot, tune, train, train_refine, train_rpn, dp: rank 0's of the
-two-rank run, sharded), the times at stage 2's shape (``stage2``) and at
-the data-parallel local batches 16 and 32 (``local_batches``). A kernel captured in a CUDA graph passes through
+two-rank run, sharded, and the bf16 paths bf16_track, bf16_video,
+bf16_streams16, bf16_rpn, bf16_base, bf16_vos, bf16_vot, bf16_train), the
+times at stage 2's shape (``stage2``), at the data-parallel local batches
+16 and 32 (``local_batches``) and of the bf16 instantiations at B=1, 16
+and 64 (``bf16``; their bound is half the fp32 bytes). A kernel captured in a CUDA graph passes through
 its wrapper (and its count) once, at capture; on the graph paths its
 launches are the captured launches times the replays, which phases 8, 9,
 12 and 13 confirm by kernel name in a profiler trace.
@@ -189,6 +211,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -270,6 +293,9 @@ TRAIN_FRAME_HW = (360, 480)
 STAGE2_X, STAGE2_K = (TRAIN_BATCH, 7, 7, 256), (TRAIN_BATCH, 5, 5, 256)
 # the data-parallel paths' local batches: the training batch over 4 and 2 ranks
 LOCAL_BATCHES = (TRAIN_BATCH // 4, TRAIN_BATCH // 2)
+# the batches the bf16 kernels are checked and timed at: a track step, 16
+# streams, a train step
+BF16_BATCHES = (1, 16, TRAIN_BATCH)
 TRAIN_WIDTH = 64
 DEV = "cuda"
 SHARP_TRAIN_CONFIG = REPO / "experiments" / "siammask_sharp" / "config.json"
@@ -278,6 +304,21 @@ KERNELS = (depthwise_xcorr, depthwise_xcorr_grad_input, depthwise_xcorr_grad_ker
 # an H100 SXM's published peaks at 700 W: HBM3 and fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+BF16 = torch.bfloat16
+# the bf16 phases' tolerances, card against the CPU (both bf16 activations
+# over float32 weights; cuDNN and the CPU's convs round at other points, and
+# a bf16 rounding moves a value by up to 2^-9 of it)
+BF16_MAP_TOL = 3e-2        # head maps, relative L2 norm
+BF16_POS_TOL = 1.0         # px, positions and sizes, plus BF16_SIZE_REL of the size
+BF16_SIZE_REL = 1e-2       # the size delta passes a bf16 exp: 2^-8 of the size a rounding
+BF16_SCORE_TOL = 2.0 ** -7  # the carried score, two bf16 steps near 1
+BF16_MASK_TOL = 3e-2       # sigmoid cell masks, absolute
+# the bf16 train step against the float32 one from the same weights and batch
+# (2.7e-4 and 0.9935 on an H100; a wrong gradient gives a cosine near 0)
+BF16_TRAIN_LOSS_RTOL = 1e-2
+BF16_TRAIN_MIN_COS = 0.9   # cosine of the two steps' parameter updates
+# numbers a phase keeps for a later phase to print beside its own, by tag
+MEASURED: dict = {}
 
 
 def synthetic_frames(n: int, hw=FRAME_HW, seed: int = SEED) -> np.ndarray:
@@ -326,6 +367,27 @@ def calibrate_bn(model: SiamRPN, z: torch.Tensor, x: torch.Tensor) -> None:
     with bn_calibration(model):
         zf = model.template(z)
         getattr(model, "track_mask", model.track)(zf, x)
+
+
+@torch.no_grad()
+def sharpen_cls_head(model: SiamRPN, z: torch.Tensor, x: torch.Tensor,
+                     spread: float = 0.5) -> None:
+    """Set the cls head's last 1x1 conv so that each anchor's fg-minus-bg
+    logit has mean 0 and standard deviation ``spread`` over the score map of
+    one template/search pair. A calibrated random model scores every cell
+    near one value (a sigmoid of ~0.69 +- 0.01), which bf16 rounds to a few
+    values 2^-8 apart: two bf16 runs that round differently then tie or swap
+    their best cells. At 0.5 the map has a peak, as a trained model's does,
+    whose margin bf16 rounding does not close, and the sigmoid does not
+    saturate."""
+    head = model.rpn_model.cls.head[3]
+    k = head.out_channels // 2
+    score = model.rpn_model.cls(model.template(z), model.features(x)[1]).float()
+    logit = score[:, k:] - score[:, :k] - (head.bias[k:] - head.bias[:k])[None, :, None, None]
+    scale = spread / logit.std(dim=(0, 2, 3))
+    head.weight.mul_(scale.repeat(2)[:, None, None, None])
+    head.bias[:k] = 0.0
+    head.bias[k:] = -scale * logit.mean(dim=(0, 2, 3))
 
 
 @torch.no_grad()
@@ -482,7 +544,7 @@ def phase_kernels() -> dict:
              ((TRAIN_BATCH, 29, 29, 256), (TRAIN_BATCH, 5, 5, 256), torch.float32),
              (STAGE2_X, STAGE2_K, torch.float32),
              ((3, 17, 23, 200), (3, 4, 3, 200), torch.float32),
-             ((1, 29, 29, 256), (1, 5, 5, 256), torch.bfloat16)]
+             *(((b, 29, 29, 256), (b, 5, 5, 256), BF16) for b in BF16_BATCHES)]
     errors = {}
     for xs, ks, dtype in cases:
         x = torch.randn(xs, generator=g).to("cuda", dtype)
@@ -494,8 +556,8 @@ def phase_kernels() -> dict:
         errors[(xs, dtype)] = check_close(f"kernel {xs} * {ks} {str(dtype)[6:]}", out, ref)
 
     times = {}
-    for b, dtype in ((1, torch.float32), (1, torch.bfloat16), (16, torch.float32),
-                     (32, torch.float32), (TRAIN_BATCH, torch.float32)):
+    for b, dtype in ((1, torch.float32), (16, torch.float32), (32, torch.float32),
+                     (TRAIN_BATCH, torch.float32), *((b, BF16) for b in BF16_BATCHES)):
         x = torch.randn((b, 29, 29, 256), generator=g).to("cuda", dtype)
         k = torch.randn((b, 5, 5, 256), generator=g).to("cuda", dtype)
         times[(b, dtype)] = time_kernel(
@@ -513,7 +575,9 @@ def phase_kernels() -> dict:
             **times[(1, torch.float32)],
             "stage2": {"max_abs_err": errors[(STAGE2_X, torch.float32)], **stage2},
             "local_batches": {str(b): {"max_abs_err": errors[((b, 29, 29, 256), torch.float32)],
-                                       **times[(b, torch.float32)]} for b in LOCAL_BATCHES}}
+                                       **times[(b, torch.float32)]} for b in LOCAL_BATCHES},
+            "bf16": {str(b): {"max_abs_err": errors[((b, 29, 29, 256), BF16)], **times[(b, BF16)]}
+                     for b in BF16_BATCHES}}
 
 
 def phase_grad_kernels() -> list[dict]:
@@ -532,7 +596,7 @@ def phase_grad_kernels() -> list[dict]:
                           ((TRAIN_BATCH, 29, 29, 256), (TRAIN_BATCH, 5, 5, 256), torch.float32),
                           (STAGE2_X, STAGE2_K, torch.float32),
                           ((3, 17, 23, 200), (3, 4, 3, 200), torch.float32),
-                          ((1, 29, 29, 256), (1, 5, 5, 256), torch.bfloat16)]:
+                          *(((b, 29, 29, 256), (b, 5, 5, 256), BF16) for b in BF16_BATCHES)]:
         x, k, go = inputs(xs, ks, dtype)
         dx = depthwise_xcorr_grad_input(go, k, xs[1], xs[2])
         dk = depthwise_xcorr_grad_kernel(x, go)
@@ -575,6 +639,16 @@ def phase_grad_kernels() -> list[dict]:
         print(f"[grad] autograd backward (dx and dk) B={b} fp32, eager: kernels "
               f"{kernel:.2f} us; plain autograd {plain:.2f} us")
 
+    # the bf16 instantiations, which the bf16 train step runs
+    for b in BF16_BATCHES:
+        x, k, go = inputs((b, 29, 29, 256), (b, 5, 5, 256), BF16)
+        times[("input", b, BF16)] = time_kernel(
+            f"[grad] grad-input B={b} bf16", depthwise_xcorr_grad_input,
+            depthwise_xcorr_grad_input_reference, (go, k, 29, 29), "input", (go, k), x, k)
+        times[("kernel", b, BF16)] = time_kernel(
+            f"[grad] grad-kernel B={b} bf16", depthwise_xcorr_grad_kernel,
+            depthwise_xcorr_grad_kernel_reference, (x, go), "kernel", (x, go), x, k)
+
     # stage-2 refine training's shape: a 3x3 upstream grad
     x, k, go = inputs(STAGE2_X, STAGE2_K, torch.float32)
     times[("input", "stage2")] = time_kernel(
@@ -594,14 +668,26 @@ def phase_grad_kernels() -> list[dict]:
                         **times[(which, "stage2")]},
              "local_batches": {str(b): {"max_abs_err": errors[(which, (b, 29, 29, 256),
                                                                 torch.float32)],
-                                        **times[(which, b)]} for b in LOCAL_BATCHES}}
+                                        **times[(which, b)]} for b in LOCAL_BATCHES},
+             "bf16": {str(b): {"max_abs_err": errors[(which, (b, 29, 29, 256), BF16)],
+                               **times[(which, b, BF16)]} for b in BF16_BATCHES}}
             for which in ("input", "kernel")]
 
 
-def build_model(p, cls=SiamMaskSharp, mask: bool = True,
-                refine: bool = True) -> tuple[SiamRPN, Tracker, np.ndarray]:
+def bf16_twin(model: SiamRPN) -> SiamRPN:
+    """The same weights, on the same device, in a model of the same family
+    that computes in bf16 (its parameters stay float32)."""
+    twin = type(model)(width=model.width, dtype=BF16)
+    twin.load_state_dict(model.state_dict())
+    return twin.to(next(model.parameters()).device).eval()
+
+
+def build_model(p, cls=SiamMaskSharp, mask: bool = True, refine: bool = True,
+                dtype: torch.dtype | None = None) -> tuple[SiamRPN, Tracker, np.ndarray]:
     """A seeded model of ``cls`` at width 64 on the card, its BN calibrated
-    on a crop pair of the first frame, its tracker and the frames."""
+    on a crop pair of the first frame, its tracker and the frames. With
+    ``dtype`` bf16 the calibrated weights' cls head is sharpened on the same
+    pair (``sharpen_cls_head``) and the model is their bf16 twin."""
     model = cls(width=64).init_weights(torch.Generator().manual_seed(SEED))
     model = model.to("cuda").eval()
     frames = synthetic_frames(STEPS + TIMED_STEPS + 12)
@@ -610,7 +696,11 @@ def build_model(p, cls=SiamMaskSharp, mask: bool = True,
     pos = torch.tensor([TARGET_POS], device="cuda")
     z = subwindow_crop(f0, pos, torch.tensor([180.0], device="cuda"), 127, avg[None])
     x = subwindow_crop(f0, pos, torch.tensor([360.0], device="cuda"), 255, avg[None])
-    calibrate_bn(model, z.permute(0, 3, 1, 2).contiguous(), x.permute(0, 3, 1, 2).contiguous())
+    z, x = z.permute(0, 3, 1, 2).contiguous(), x.permute(0, 3, 1, 2).contiguous()
+    calibrate_bn(model, z, x)
+    if dtype is not None:
+        sharpen_cls_head(model, z, x)
+        model = bf16_twin(model)
     return model, Tracker(model, p, "cuda", mask=mask, refine=refine), frames
 
 
@@ -682,27 +772,36 @@ def phase_slice(tracker: Tracker, frames: np.ndarray, tag: str = "slice"):
 
 def cpu_tracker_of(tracker: Tracker) -> Tracker:
     """The same weights and path in a tracker on the CPU."""
-    cpu_model = type(tracker.model)(width=64)
+    cpu_model = type(tracker.model)(width=64, dtype=tracker.model.dtype)
     cpu_model.load_state_dict({k: v.cpu() for k, v in tracker.model.state_dict().items()})
     return Tracker(cpu_model.eval(), tracker.p, "cpu", mask=tracker.mask, refine=tracker.refine)
 
 
-def check_step_close(what: str, out, ref) -> float:
+def check_step_close(what: str, out, ref, bf16: bool = False) -> float:
     """A step's outputs against a reference step of other kernels (cuDNN's
     summation order against the CPU's, or another batch size): the same
     best_id, positions and sizes within 1e-2 px, the mask (Refine's or the
-    63x63 head's) within 1e-3 of its largest magnitude. Returns the mask's
-    max abs error (0 for a box-only step)."""
+    63x63 head's) within 1e-3 of its largest magnitude. With ``bf16``: the
+    same best_id, positions and sizes within BF16_POS_TOL plus BF16_SIZE_REL
+    of the reference's larger side, the score within BF16_SCORE_TOL and the
+    mask within BF16_MASK_TOL. Returns the mask's max abs error (0 for a
+    box-only step)."""
     ref = type(ref)(*(v.to(out.best_id.device) for v in ref))
     if not torch.equal(out.best_id, ref.best_id):
         raise AssertionError(f"{what}: best_id {out.best_id.tolist()} vs {ref.best_id.tolist()}")
-    torch.testing.assert_close(out.target_pos, ref.target_pos, rtol=0, atol=1e-2)
-    torch.testing.assert_close(out.target_sz, ref.target_sz, rtol=0, atol=1e-2)
+    pos_tol = 1e-2
+    if bf16:
+        pos_tol = BF16_POS_TOL + BF16_SIZE_REL * ref.target_sz.abs().max().item()
+    torch.testing.assert_close(out.target_pos, ref.target_pos, rtol=0, atol=pos_tol)
+    torch.testing.assert_close(out.target_sz, ref.target_sz, rtol=0, atol=pos_tol)
+    if bf16:
+        torch.testing.assert_close(out.score, ref.score, rtol=0, atol=BF16_SCORE_TOL)
     if isinstance(ref, BoxStepOutput):
         return 0.0
-    scale = ref.mask_logits.abs().max().item()
-    torch.testing.assert_close(out.mask_logits, ref.mask_logits, rtol=0, atol=1e-3 * scale)
-    return (out.mask_logits - ref.mask_logits).abs().max().item()
+    a, b = out.mask_logits.float(), ref.mask_logits.float()
+    atol = BF16_MASK_TOL if bf16 else 1e-3 * b.abs().max().item()
+    torch.testing.assert_close(a, b, rtol=0, atol=atol)
+    return (a - b).abs().max().item()
 
 
 def head_maps(model, zf: torch.Tensor, x: torch.Tensor) -> dict:
@@ -719,10 +818,12 @@ def head_maps(model, zf: torch.Tensor, x: torch.Tensor) -> dict:
 
 
 def phase_cpu_parity(tracker, cpu_tracker, state: TrackState, frame: np.ndarray,
-                     tag: str = "parity") -> None:
+                     tag: str = "parity", bf16: bool = False) -> None:
     """The same step on the card and on the CPU, from the same state, open
     loop. Tolerances cover cuDNN's summation order against the CPU's over a
-    ResNet-50 of random weights."""
+    ResNet-50 of random weights; with ``bf16``, the maps within BF16_MAP_TOL
+    in relative L2 norm and the step at ``check_step_close``'s bf16
+    tolerances."""
     cpu_state = TrackState(*(t.cpu() for t in state))
 
     with torch.inference_mode():
@@ -733,18 +834,24 @@ def phase_cpu_parity(tracker, cpu_tracker, state: TrackState, frame: np.ndarray,
         ours = head_maps(tracker.model, state.zf, x.cuda())
     # maps: relative floor, 1e-3 of the largest magnitude (fp32, TF32 off)
     for name, b in refs.items():
-        a = ours[name]
+        a, b = ours[name].cpu().float(), b.float()
+        if bf16:
+            rel = ((a - b).norm() / b.norm()).item()
+            if not rel <= BF16_MAP_TOL:
+                raise AssertionError(f"[{tag}] {name}: relative L2 error {rel:.3e}")
+            print(f"[{tag}] {name}: relative L2 error {rel:.3e} (tolerance {BF16_MAP_TOL:.0e})")
+            continue
         scale = b.abs().max().item()
-        err = (a.cpu() - b).abs().max().item()
-        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-3 * scale)
+        err = (a - b).abs().max().item()
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * scale)
         print(f"[{tag}] {name}: max_abs_err {err:.3e} (atol {1e-3 * scale:.3e})")
 
     _, out = tracker.step(state, torch.from_numpy(frame).cuda())
     _, ref_out = cpu_tracker.step(cpu_state, frame)
-    err = check_step_close("step, card vs CPU", out, ref_out)
+    err = check_step_close("step, card vs CPU", out, ref_out, bf16)
     print(f"[{tag}] step: best_id {out.best_id.item()} on both; pos "
-          f"{out.target_pos.cpu().tolist()} vs {ref_out.target_pos.tolist()}; "
-          f"mask max_abs_err {err:.3e}")
+          f"{out.target_pos.cpu().tolist()} vs {ref_out.target_pos.tolist()}; score "
+          f"{out.score.item():.6f} vs {ref_out.score.item():.6f}; mask max_abs_err {err:.3e}")
 
 
 def phase_timing(tracker: Tracker, state: TrackState, frames: np.ndarray, smi: str) -> None:
@@ -848,11 +955,20 @@ def check_graph_profile(what: str, call, frames: int, streams: int,
               "profiling the call once more")
     host = {k: sum(e.count for e in events if e.key == k)
             for k in ("cudaGraphLaunch", "cudaMemcpyAsync", "cudaLaunchKernel")}
+    idle = 100 * (1 - busy / call_ms)
+    MEASURED.setdefault(what, {}).update(
+        device_ms_frame=busy / frames, idle=idle, xcorr=xcorr,
+        xcorr_bf16=sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                       and "depthwise_xcorr" in e.key and "bfloat16" in e.key))
     print(f"[{what}] profiled call: {xcorr} xcorr kernels by name ({xcorr // frames} a frame); "
           f"device busy {busy:.3f} ms of {call_ms:.3f} ms, {busy / frames:.3f} ms a frame "
           f"({busy / (frames * streams):.3f} ms a stream-frame), idle share "
-          f"{100 * (1 - busy / call_ms):.1f}%; host calls a frame: "
+          f"{idle:.1f}%; host calls a frame: "
           + ", ".join(f"{k} {v / frames:.1f}" for k, v in host.items()))
+    kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    print(f"[{what}] profiled call, top 10 by self device time: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in kernels[:10]))
 
 
 def phase_video(tracker: Tracker, frames: np.ndarray, smi: str,
@@ -899,6 +1015,8 @@ def phase_video(tracker: Tracker, frames: np.ndarray, smi: str,
           f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held before the call)")
     event_ms, wall_ms = time_calls(lambda: tracker.track_video(state, dev[1:]))
     med = statistics.median(event_ms)
+    MEASURED.setdefault(tag, {}).update(ms_frame=med / t, fps=t * 1e3 / med,
+                                        peak_gib=peak / 2**30)
     print(f"[{tag}] {TIMED_CALLS} calls of T={t}: median {med:.3f} ms (CUDA events; min "
           f"{min(event_ms):.3f}, max {max(event_ms):.3f}), {med / t:.3f} ms a frame, "
           f"{t * 1e3 / med:.1f} frames/s; host clock to the end "
@@ -913,11 +1031,12 @@ def stream_state(states: TrackState, i: int) -> TrackState:
                       states.avg_chans[i], states.score[i])
 
 
-def phase_streams(tracker: Tracker, frames: np.ndarray, smi: str) -> tuple[int, TrackState]:
+def phase_streams(tracker: Tracker, frames: np.ndarray, smi: str, tag: str = "streams",
+                  single: bool = True) -> tuple[int, TrackState]:
     """STREAMS objects on one video: init_batched, step_batched against the
-    single-stream step of each stream, track_video_multi against the eager
-    step_batched loop; returns the xcorr launches of the 16-stream paths and
-    the states after one step."""
+    single-stream step of each stream (with ``single``), track_video_multi
+    against the eager step_batched loop; returns the xcorr launches of the
+    16-stream paths and the states after one step."""
     o, t = STREAMS, STREAMS_T
     rng = np.random.RandomState(SEED)
     pos = rng.uniform(100, 400, (o, 2)).astype(np.float32)
@@ -933,18 +1052,24 @@ def phase_streams(tracker: Tracker, frames: np.ndarray, smi: str) -> tuple[int, 
     step_launches = read_launches()
     if step_launches != [3, 0, 0]:
         raise AssertionError(f"step_batched: {step_launches} launches, expected [3, 0, 0]")
-    errs = []
-    for i in range(o):
-        _, single = tracker.step(stream_state(states, i), dev[1])
-        errs.append(check_step_close(f"stream {i}", StepOutput(*(v[i] for v in out)), single))
-        check_output(single, FRAME_HW)
-    print(f"[streams] init_batched + step_batched at O={o}: 3 xcorr launches at B={o}; each "
-          f"stream against the single-stream step: best_id equal, pos/sz within 1e-2 px, "
-          f"largest mask error {max(errs):.3e}; best_id {out.best_id.tolist()}")
+    if single:
+        errs = []
+        for i in range(o):
+            _, one = tracker.step(stream_state(states, i), dev[1])
+            errs.append(check_step_close(f"stream {i}", StepOutput(*(v[i] for v in out)), one))
+            check_output(one, FRAME_HW)
+        print(f"[{tag}] init_batched + step_batched at O={o}: 3 xcorr launches at B={o}; each "
+              f"stream against the single-stream step: best_id equal, pos/sz within 1e-2 px, "
+              f"largest mask error {max(errs):.3e}; best_id {out.best_id.tolist()}")
+    else:
+        for i in range(o):
+            check_output(StepOutput(*(v[i] for v in out)), FRAME_HW)
+        print(f"[{tag}] init_batched + step_batched at O={o}: 3 xcorr launches at B={o}; "
+              f"outputs finite and in bounds; best_id {out.best_id.tolist()}")
     events, busy, call_ms = profile_call(lambda: tracker.step_batched(states, dev[1]))
     kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: e.self_device_time_total, reverse=True)
-    print(f"[streams] profiled eager step_batched at O={o}: device busy {busy:.3f} ms of "
+    print(f"[{tag}] profiled eager step_batched at O={o}: device busy {busy:.3f} ms of "
           f"{call_ms:.3f} ms ({100 * busy / call_ms:.1f}% busy), {len(kernels)} kernel names; "
           "top 10 by self device time: " + "; ".join(
               f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
@@ -961,23 +1086,25 @@ def phase_streams(tracker: Tracker, frames: np.ndarray, smi: str) -> tuple[int, 
     counted = read_launches()
     graph = tracker.graphs[(o, *FRAME_HW, torch.uint8)]
     if counted[0] == 0 or counted[1:] != [0, 0] or graph.xcorr_launches != 3:
-        raise AssertionError(f"streams: {counted} launches through the wrappers, "
+        raise AssertionError(f"{tag}: {counted} launches through the wrappers, "
                              f"{graph.xcorr_launches} xcorr kernels captured (expected 3)")
-    check_bit_identical("streams", outs, eager, final, st)
+    check_bit_identical(tag, outs, eager, final, st)
     if outs.mask_in_frame.shape != (t, o, *FRAME_HW) or not torch.isfinite(outs.mask_in_frame).all():
-        raise AssertionError(f"streams: masks {tuple(outs.mask_in_frame.shape)}")
+        raise AssertionError(f"{tag}: masks {tuple(outs.mask_in_frame.shape)}")
     peak = torch.cuda.max_memory_allocated()
-    print(f"[streams] track_video_multi, O={o}, T={t}: {graph.xcorr_launches * t} xcorr "
+    print(f"[{tag}] track_video_multi, O={o}, T={t}: {graph.xcorr_launches * t} xcorr "
           f"launches by replay at B={o}; best_id and every output bit-identical to the eager "
           f"step_batched loop; peak memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB "
           "held before the phase)")
     event_ms, wall_ms = time_calls(lambda: tracker.track_video_multi(states, dev[1:]))
     med = statistics.median(event_ms)
-    print(f"[streams] {TIMED_CALLS} calls of O={o}, T={t}: median {med:.3f} ms (CUDA events; "
+    MEASURED.setdefault(tag, {}).update(ms_frame=med / t, fps=o * t * 1e3 / med,
+                                        peak_gib=peak / 2**30)
+    print(f"[{tag}] {TIMED_CALLS} calls of O={o}, T={t}: median {med:.3f} ms (CUDA events; "
           f"min {min(event_ms):.3f}, max {max(event_ms):.3f}), {med / t:.3f} ms a frame, "
           f"{o * t * 1e3 / med:.1f} aggregate frames/s; host clock to the end "
           f"{statistics.median(wall_ms):.3f} ms | {smi}")
-    check_graph_profile("streams", lambda: tracker.track_video_multi(states, dev[1:]), t, o)
+    check_graph_profile(tag, lambda: tracker.track_video_multi(states, dev[1:]), t, o)
     return step_launches[0] + graph.xcorr_launches * t, stepped
 
 
@@ -1112,6 +1239,7 @@ def phase_vos(model: SiamMaskSharp, p, smi: str) -> int:
     iou_b = np.asarray(iou_b)
     if iou_b.shape != (3, 4) or not np.all((iou_b >= 0) & (iou_b <= 1)):
         raise AssertionError(f"vos: IoU {iou_b}")
+    MEASURED["vos"] = {"iou": iou_b}
     fused = [cv2.imread(str(f), cv2.IMREAD_UNCHANGED) for f in
              sorted((root / "results" / "ytb_vos" / "SiamMask" / "vid").glob("*.png"))]
     gt3 = cv2.imread(video["anno_init_files"][2], cv2.IMREAD_UNCHANGED) == 3
@@ -1573,8 +1701,8 @@ def _momentum(trainer: Trainer) -> dict:
     return {names[p]: s["momentum_buffer"].cpu() for p, s in trainer.optimizer.state.items()}
 
 
-def loaded_model(cls, state: dict, device):
-    model = cls(width=TRAIN_WIDTH)
+def loaded_model(cls, state: dict, device, dtype: torch.dtype | None = None):
+    model = cls(width=TRAIN_WIDTH, dtype=dtype)
     model.load_state_dict(state)
     return model.to(device)
 
@@ -1709,7 +1837,7 @@ def phase_train_profile(trainer: Trainer, batch: dict) -> None:
 
 
 def phase_train_timing(trainer: Trainer, batch: dict, smi: str, tag: str = "train-timing",
-                       phases=((0, "frozen"), (1, "unfrozen"))) -> None:
+                       phases=((0, "frozen"), (1, "unfrozen")), mode: str = "fp32") -> None:
     """ms/step and samples/s of each phase (median of 10 warm steps by CUDA
     events), and the peak memory of those steps."""
     for epoch, label in phases:
@@ -1727,7 +1855,8 @@ def phase_train_timing(trainer: Trainer, batch: dict, smi: str, tag: str = "trai
             times.append(start.elapsed_time(end))
         med = statistics.median(times)
         b = batch["template"].shape[0]
-        print(f"[{tag}] {label} step, B={b}, width {TRAIN_WIDTH}, fp32, TF32 off: "
+        MEASURED.setdefault(tag, {})[label] = (med, torch.cuda.max_memory_allocated() / 2**30)
+        print(f"[{tag}] {label} step, B={b}, width {TRAIN_WIDTH}, {mode}, TF32 off: "
               f"median {med:.2f} ms (CUDA events, 10 warm steps; min {min(times):.2f}, "
               f"max {max(times):.2f}); {b * 1e3 / med:.1f} samples/s; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}")
@@ -2396,6 +2525,255 @@ def phase_dp_cards(init_state: dict, smi: str) -> None:
           f"loss {metrics['total_loss']:.4f}; rank 0 wrote checkpoint_e1.pth")
     shutil.rmtree(SMOKE_DP)
 
+# ---------------- bf16 compute ----------------
+
+
+def check_bf16_kernels(tag: str) -> None:
+    """Every xcorr kernel in ``tag``'s profiled graph call is a bf16
+    instantiation, by its name in the trace."""
+    got = MEASURED[tag]
+    if not got["xcorr"] or got["xcorr_bf16"] != got["xcorr"]:
+        raise AssertionError(f"[{tag}] {got['xcorr_bf16']} of {got['xcorr']} xcorr kernels in "
+                             "the trace are bf16 instantiations")
+
+
+def print_beside(tag: str, fp32_tag: str, smi: str) -> None:
+    """A bf16 graph path's numbers beside the fp32 path's of this run."""
+    b, a = MEASURED[tag], MEASURED[fp32_tag]
+    print(f"[bf16] {tag} beside {fp32_tag}: ms a frame {b['ms_frame']:.3f} vs "
+          f"{a['ms_frame']:.3f} (fp32 / bf16 {a['ms_frame'] / b['ms_frame']:.2f}x); "
+          f"frames/s {b['fps']:.1f} vs {a['fps']:.1f}; device ms a frame "
+          f"{b['device_ms_frame']:.3f} vs {a['device_ms_frame']:.3f}; idle {b['idle']:.1f}% vs "
+          f"{a['idle']:.1f}%; peak memory {b['peak_gib']:.2f} vs {a['peak_gib']:.2f} GiB | {smi}")
+
+
+def phase_bf16(smi: str) -> dict:
+    """``[bf16]``: SiamMask-sharp at width 64 computing in bf16 over float32
+    weights (``build_model(dtype=bf16)``: the calibrated weights, their cls
+    head sharpened, so that the card and the CPU do not tie on the best
+    cell): init and STEPS steps, 3 xcorr launches each, one under
+    sync_debug_mode("error"); one step on the card against the CPU's bf16
+    port from the same state (maps within BF16_MAP_TOL, the same best cell,
+    ``check_step_close``'s bf16 tolerances); ``track_video`` over VIDEO_T
+    frames through the CUDA graph, bit-identical to the eager bf16 loop;
+    STREAMS streams over STREAMS_T frames, bit-identical to the eager
+    ``step_batched`` loop; each with frames/s, device ms a frame, idle
+    share, peak memory and a profile's top 10, printed beside the fp32
+    ``[video]`` / ``[streams]`` numbers of this run. Then SiamRPN (box only)
+    and SiamMask-base (63x63 masks) graph videos in bf16, beside ``[rpn]`` /
+    ``[base]``. Every xcorr kernel in the graph paths' traces is a bf16
+    instantiation. Returns the xcorr launches by path."""
+    p = Config.load(str(CONFIG)).tracker_config()
+    model, tracker, frames = build_model(p, dtype=BF16)
+    state, track = phase_slice(tracker, frames, "bf16")
+    phase_cpu_parity(tracker, cpu_tracker_of(tracker), state, frames[STEPS + 2], "bf16-parity",
+                     bf16=True)
+    video, _ = phase_video(tracker, frames, smi, "bf16")
+    streams, _ = phase_streams(tracker, frames, smi, "bf16-streams", single=False)
+    del model, tracker, state
+    torch.cuda.empty_cache()
+    paths = {"bf16_track": track, "bf16_video": [video, 0, 0],
+             "bf16_streams16": [streams, 0, 0]}
+    for name, cls, config, mask in (("rpn", SiamRPN, RPN_CONFIG, False),
+                                    ("base", SiamMaskBase, BASE_CONFIG, True)):
+        p = Config.load(str(config)).tracker_config()
+        _, family_tracker, family_frames = build_model(p, cls, mask, False, BF16)
+        launches, _ = phase_video(family_tracker, family_frames, smi, f"bf16-{name}")
+        paths[f"bf16_{name}"] = [launches, 0, 0]
+        del family_tracker
+        torch.cuda.empty_cache()
+    for tag, fp32_tag in (("bf16", "video"), ("bf16-streams", "streams"), ("bf16-rpn", "rpn"),
+                          ("bf16-base", "base")):
+        check_bf16_kernels(tag)
+        print_beside(tag, fp32_tag, smi)
+    return paths
+
+
+def phase_bf16_vos(model: SiamMaskSharp, p, smi: str) -> int:
+    """``[bf16-vos]``: ``track_vos_batched`` as ``[vos]`` drives it, with a
+    bf16 twin of ``[vos]``'s weights on its video: the per-object mean IoU
+    against the annotations at the driver's thresholds beside ``[vos]``'s
+    fp32 ones, and each object's IoU between the two runs' fused masks,
+    pooled over the video. Skipped with ``[vos]``. Returns the xcorr
+    launches (through the wrapper and by replay)."""
+    if "vos" not in MEASURED:
+        print("[bf16-vos] skipped: [vos] did not run")
+        return 0
+    import cv2
+
+    video = load_dataset("ytb_vos", str(VOS_ROOT))["vid"]
+    runtime = TrackerRuntime(bf16_twin(model), p, "cuda")
+    track_vos_batched(runtime, video, scan_chunk=VOS_CHUNK, log=lambda *_: None)  # captures
+    torch.cuda.synchronize()
+    reset_launches()
+    out = VOS_ROOT / "results_bf16"
+    iou, fps = track_vos_batched(runtime, video, scan_chunk=VOS_CHUNK, result_dir=str(out),
+                                 dataset="ytb_vos", save_mask=True, log=lambda *_: None)
+    launches = read_launches()
+    graph = runtime.tracker.graphs[(3, *FRAME_HW, torch.uint8)]
+    if launches != [3 * VOS_RAGGED, 0, 0] or graph.xcorr_launches != 3:
+        raise AssertionError(f"bf16-vos: {launches} launches through the wrappers, "
+                             f"{graph.xcorr_launches} captured")
+    iou, ref = np.asarray(iou), MEASURED["vos"]["iou"]
+    if iou.shape != ref.shape or not np.all((iou >= 0) & (iou <= 1)):
+        raise AssertionError(f"bf16-vos: IoU {iou}")
+
+    def fused(tree: Path) -> list:
+        return [cv2.imread(str(f), cv2.IMREAD_UNCHANGED) for f in
+                sorted((tree / "ytb_vos" / "SiamMask" / "vid").glob("*.png"))]
+
+    ours, theirs = fused(out), fused(VOS_ROOT / "results")
+    if not len(ours) == len(theirs) == VOS_FRAMES:
+        raise AssertionError(f"bf16-vos: {len(ours)} and {len(theirs)} fused masks")
+    agree = []
+    for k in (1, 2, 3):
+        inter = sum(int(((a == k) & (b == k)).sum()) for a, b in zip(ours, theirs))
+        union = sum(int(((a == k) | (b == k)).sum()) for a, b in zip(ours, theirs))
+        agree.append(inter / max(union, 1))
+    shutil.rmtree(out)
+    print(f"[bf16-vos] track_vos_batched in bf16 on [vos]'s video ({VOS_FRAMES} frames, 3 "
+          f"objects): {launches[0]} xcorr launches through step_batched, "
+          f"{graph.xcorr_launches * VOS_FULL} by replay; per-object mean IoU at thresholds "
+          f"0.30/0.35/0.40/0.45: bf16 {np.round(iou.astype(float), 4).tolist()} vs fp32 "
+          f"{np.round(ref.astype(float), 4).tolist()} "
+          f"(largest |bf16 - fp32| {np.abs(iou - ref).max():.4f}); IoU of the bf16 and fp32 "
+          f"fused masks per object {[round(a, 4) for a in agree]}; {fps:.1f} object-frames/s "
+          f"| {smi}")
+    return 3 * VOS_RAGGED + graph.xcorr_launches * VOS_FULL
+
+
+def region_centre(line: str) -> np.ndarray:
+    """The centre of a VOT result region: an x, y, w, h box or a polygon."""
+    v = np.array(line.split(","), float)
+    return v[:2] + v[2:] / 2 if len(v) == 4 else v.reshape(-1, 2).mean(0)
+
+
+def phase_bf16_vot(models: dict, smi: str) -> int:
+    """``[bf16-vot]``: ``track_vot`` for sharp, base and SiamRPN with bf16
+    twins of ``[vot]``'s damped weights on ``[vot]``'s two videos: each
+    video's lost count equal to the fp32 run's (the 2s in ``[vot]``'s result
+    files), the result files checked line by line as ``[vot]`` checks them,
+    and the largest distance in px between the bf16 and the fp32 regions'
+    centres over the frames both tracked. Returns the xcorr launches."""
+    dataset = load_dataset("VOT2018", str(VOT_ROOT))
+    out = VOT_ROOT / "results_bf16"
+    families = {"sharp": (VOT_CONFIG, True, True), "base": (BASE_CONFIG, True, False),
+                "rpn": (RPN_CONFIG, False, False)}
+    torch.cuda.synchronize()
+    reset_launches()
+    stepped = {}
+    for name, (config, mask, refine) in families.items():
+        runtime = TrackerRuntime(bf16_twin(models[name]),
+                                 Config.load(str(config)).tracker_config(), "cuda", mask=mask,
+                                 refine=refine)
+        stepped[name], lost, ref_lost, speeds, drift = 0, [], [], [], 0.0
+        for video in dataset.values():
+            n, fps = track_vot(runtime, video, mask_enable=mask, result_dir=str(out),
+                               tracker_name=name, log=lambda *_: None)
+            lines, ref = ((tree / "VOT2018" / name / "baseline" / video["name"]
+                           / f"{video['name']}_001.txt").read_text().splitlines()
+                          for tree in (out, VOT_ROOT / "results"))
+            stepped[name] += check_vot_lines(f"bf16-vot {name} {video['name']}", lines,
+                                             8 if mask else 4, video["name"] == "vid1")
+            lost.append(n)
+            ref_lost.append(ref.count("2"))
+            speeds.append(fps)
+            for a, b in zip(lines, ref):
+                if a not in ("0", "1", "2") and b not in ("0", "1", "2"):
+                    drift = max(drift, float(np.linalg.norm(region_centre(a) - region_centre(b))))
+        if lost != ref_lost:
+            raise AssertionError(f"bf16-vot {name}: lost {lost} in bf16, {ref_lost} in fp32")
+        print(f"[bf16-vot] {name}: lost {lost} in {list(dataset)}, as in fp32; the largest "
+              f"distance between the bf16 and fp32 regions' centres {drift:.2f} px; driver's "
+              "fps (file reads excluded) " + ", ".join(f"{v:.1f}" for v in speeds) + f" | {smi}")
+    launches = read_launches()
+    expected = sum(k * stepped[n] for n, k in (("sharp", 3), ("base", 3), ("rpn", 2)))
+    if launches != [expected, 0, 0]:
+        raise AssertionError(f"bf16-vot: {launches} launches, expected {[expected, 0, 0]} from "
+                             f"the stepped frames {stepped}")
+    shutil.rmtree(out)
+    return expected
+
+
+def phase_bf16_train(init_state: dict, batch: dict, cfg: Config, smi: str) -> list[int]:
+    """``[bf16-train]``: SiamMask-base stage 1 at batch TRAIN_BATCH computing
+    in bf16 over float32 weights, from ``[train]``'s initial weights on its
+    batch. The first (frozen) step against the fp32 step from the same
+    weights and batch: the total loss within BF16_TRAIN_LOSS_RTOL of the
+    fp32 one and the cosine of the two parameter updates above
+    BF16_TRAIN_MIN_COS (their relative distance printed). Then a second
+    frozen and two unfrozen steps: each finite, no skip, 3 / 3 / 3
+    launches, the stem and layer1 unchanged, layer2 unchanged while frozen;
+    a profiled unfrozen step whose xcorr kernels are all bf16
+    instantiations (3 forward and 3 of each gradient); ms/step by CUDA
+    events and peak memory per phase beside ``[train-timing]``'s fp32
+    numbers. Returns the launches of the four steps."""
+    runs = {}
+    for dtype in (None, BF16):
+        trainer = Trainer(loaded_model(SiamMaskBase, init_state, DEV, dtype), *train_parts(cfg),
+                          epochs=TRAIN_EPOCHS, unfreeze_at=0.5)
+        if dtype is BF16:
+            model = trainer.model
+            stem0, layer2_0 = _state(model, FROZEN_ALWAYS), _state(model, LAYER2)
+            torch.cuda.synchronize()
+            reset_launches()
+        metrics = {k: v.item() for k, v in trainer.step(batch, 0).items()}
+        update = {n: p.detach().double() - init_state[n].to(DEV).double()
+                  for n, p in trainer.model.named_parameters() if trainer.labels[n] != "frozen"}
+        runs[dtype] = (trainer, metrics, torch.cat([u.flatten() for u in update.values()]))
+    (m32, u32), (trainer, m16, u16) = runs.pop(None)[1:], runs.pop(BF16)
+    cos = (u16 @ u32 / (u16.norm() * u32.norm())).item()
+    rel = ((u16 - u32).norm() / u32.norm()).item()
+    loss_rel = abs(m16["total_loss"] - m32["total_loss"]) / abs(m32["total_loss"])
+    if not (all(math.isfinite(v) for v in m16.values()) and m16["skipped"] == 0):
+        raise AssertionError(f"bf16-train step 0: {m16}")
+    if not (loss_rel <= BF16_TRAIN_LOSS_RTOL and cos > BF16_TRAIN_MIN_COS):
+        raise AssertionError(f"bf16-train: first step's loss {m16['total_loss']} vs fp32 "
+                             f"{m32['total_loss']}, update cosine {cos}")
+    print(f"[bf16-train] first step (frozen), B={TRAIN_BATCH}, bf16 against fp32 from the same "
+          f"weights and batch: total loss {m16['total_loss']:.4f} vs {m32['total_loss']:.4f} "
+          f"({loss_rel:.2e} relative; cls {m16['cls_loss']:.4f} vs {m32['cls_loss']:.4f}, loc "
+          f"{m16['loc_loss']:.4f} vs {m32['loc_loss']:.4f}, mask {m16['mask_loss']:.4f} vs "
+          f"{m32['mask_loss']:.4f}); parameter updates: cosine {cos:.4f}, relative distance "
+          f"{rel:.3e}")
+    counts = read_launches()
+    if counts != [3, 3, 3]:
+        raise AssertionError(f"bf16-train step 0: {counts} launches, expected [3, 3, 3]")
+    for step, epoch in ((1, 0), (2, 1), (3, 1)):
+        before = read_launches()
+        metrics = {k: v.item() for k, v in trainer.step(batch, epoch).items()}
+        counts = [a - b for a, b in zip(read_launches(), before)]
+        if (not all(math.isfinite(v) for v in metrics.values()) or metrics["skipped"] != 0
+                or counts != [3, 3, 3]):
+            raise AssertionError(f"bf16-train step {step}: {metrics}, launches {counts}")
+        if not _same(_state(model, FROZEN_ALWAYS), stem0):
+            raise AssertionError(f"bf16-train step {step}: the stem or layer1 changed")
+        if epoch == 0 and not _same(_state(model, LAYER2), layer2_0):
+            raise AssertionError(f"bf16-train step {step}: layer2 changed while frozen")
+        print(f"[bf16-train] step {step} epoch {epoch} ({'unfrozen' if epoch else 'frozen'}): "
+              f"total {metrics['total_loss']:.4f} cls {metrics['cls_loss']:.4f} loc "
+              f"{metrics['loc_loss']:.4f} mask {metrics['mask_loss']:.4f} iou "
+              f"{metrics['iou_mean']:.4f}; launches {counts}")
+    launches = read_launches()
+    events, busy, step_ms = profile_call(lambda: trainer.step(batch, 1))
+    names = {e.key: e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+             and "depthwise_xcorr" in e.key}
+    bf16 = sum(c for k, c in names.items() if "bfloat16" in k)
+    if bf16 != 9 or sum(names.values()) != 9:
+        raise AssertionError(f"bf16-train: xcorr kernels in a step's trace {names}")
+    kinds = sorted({re.search(r"depthwise_xcorr\w*<[^>]*>", k).group(0) for k in names})
+    print(f"[bf16-train] profiled unfrozen step: 9 xcorr kernels, all bf16 instantiations "
+          f"({', '.join(kinds)}); device busy {busy:.2f} ms of {step_ms:.2f} ms")
+    phase_train_timing(trainer, batch, smi, "bf16-train-timing", mode="bf16")
+    for label in ("frozen", "unfrozen"):
+        (ms16, peak16), (ms32, peak32) = (MEASURED[t][label] for t in ("bf16-train-timing",
+                                                                        "train-timing"))
+        print(f"[bf16-train] {label} step beside [train-timing]: {ms16:.2f} vs {ms32:.2f} ms "
+              f"(fp32 / bf16 {ms32 / ms16:.2f}x), {TRAIN_BATCH * 1e3 / ms16:.1f} vs "
+              f"{TRAIN_BATCH * 1e3 / ms32:.1f} samples/s; peak memory {peak16:.2f} vs "
+              f"{peak32:.2f} GiB | {smi}")
+    return launches
+
 
 def sync_all() -> None:
     for i in range(torch.cuda.device_count()):
@@ -2594,15 +2972,19 @@ def main() -> None:
                      video_state.zf, video_state.avg_chans[None], video_state.score[None])
     phase_layers(tracker, torch.from_numpy(frames[2]).cuda(), one, states)
     vos_launches = phase_vos(model, p, smi)
+    bf16_vos_launches = phase_bf16_vos(model, p, smi)
     del tracker, cpu_tracker, state, states, video_state, one
     torch.cuda.empty_cache()
     rpn_model, rpn_launches = phase_family("rpn", SiamRPN, RPN_CONFIG, False, False, smi)
     torch.cuda.empty_cache()
     base_model, base_launches = phase_family("base", SiamMaskBase, BASE_CONFIG, True, False, smi)
     torch.cuda.empty_cache()
-    vot_launches, lost_by_tracker = phase_vot({"sharp": model, "base": base_model,
-                                               "rpn": rpn_model}, smi)
-    del model, rpn_model, base_model
+    vot_models = {"sharp": model, "base": base_model, "rpn": rpn_model}
+    vot_launches, lost_by_tracker = phase_vot(vot_models, smi)
+    bf16_vot_launches = phase_bf16_vot(vot_models, smi)
+    del model, rpn_model, base_model, vot_models
+    torch.cuda.empty_cache()
+    bf16_paths = phase_bf16(smi)
     torch.cuda.empty_cache()
     tune_launches, tune_scores = phase_tune(smi)
     phase_eval(tune_scores, lost_by_tracker)
@@ -2622,6 +3004,8 @@ def main() -> None:
                        init_state, batch)
     phase_train_profile(trainer, batch)
     phase_train_timing(trainer, batch, smi)
+    bf16_train_launches = phase_bf16_train(init_state, batch, cfg, smi)
+    torch.cuda.empty_cache()
     dp_launches = phase_dp(init_state, batch, smi)
 
     # the data pipeline and the other training tasks, on a synthetic set
@@ -2649,14 +3033,17 @@ def main() -> None:
              "vot": [vot_launches, 0, 0], "tune": [tune_launches, 0, 0],
              "train": train_launches,
              "train_refine": train_refine_launches, "train_rpn": train_rpn_launches,
-             "dp": dp_launches, "sharded": [sharded_launches, 0, 0]}
+             "dp": dp_launches, "sharded": [sharded_launches, 0, 0],
+             **bf16_paths, "bf16_vos": [bf16_vos_launches, 0, 0],
+             "bf16_vot": [bf16_vot_launches, 0, 0], "bf16_train": bf16_train_launches}
     for i, record in enumerate(records):
         record["launches_by_path"] = {k: v[i] for k, v in paths.items()}
         record["launches"] = sum(record["launches_by_path"].values())
     print("[launches] " + ", ".join(f"{k} {v}" for k, v in paths.items())
           + " (forward, grad-input, grad-kernel)")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms", "launches_by_path", "stage2", "local_batches"]
+             "bound_ms", "bound_by", "library_ms", "launches_by_path", "stage2", "local_batches",
+             "bf16"]
     print(smi)
     print(json.dumps({"kernels": [{key: r[key] for key in order} for r in records]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,22 +12,31 @@ module names (``downsample.{0,1}``, ``conv_kernel``/``conv_search``/``head``,
 - ``MaskCorr``: a DepthCorr to o_sz**2 channels.
 - ``Refine``: the U-shaped decoder fusing the p0/p1/p2 skip windows with the
   per-cell corr vector into 127x127 mask logits.
+
+``dtype`` is the compute dtype of ``models/resnet.py``: each conv casts its
+input and weight to it (``Conv2d``), and the xcorr takes the bf16 maps (its
+kernels accumulate in float32 and write bf16). ``DeconvExpand`` has none: its
+float32 weight promotes the product to float32, as the JAX package's does
+with float32 weights (see its docstring).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from siammask_tpu_torch.models.resnet import Conv2d
 from siammask_tpu_torch.ops.resize import upsample_nearest
 from siammask_tpu_torch.ops.unfold import unfold_windows
 from siammask_tpu_torch.ops.xcorr import depthwise_xcorr
 
 
 class ResDownS(nn.Module):
-    def __init__(self, in_channels: int = 1024, out_channels: int = 256):
+    def __init__(self, in_channels: int = 1024, out_channels: int = 256,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.downsample = nn.Sequential(nn.Conv2d(in_channels, out_channels, 1, bias=False),
-                                        nn.BatchNorm2d(out_channels))
+        self.downsample = nn.Sequential(
+            Conv2d(in_channels, out_channels, 1, bias=False, dtype=dtype),
+            nn.BatchNorm2d(out_channels))
 
     def forward(self, x):
         x = self.downsample(x)
@@ -39,8 +48,9 @@ class ResDownS(nn.Module):
 class ConvBNRelu(nn.Sequential):
     """Unpadded conv (no bias) + BN + ReLU."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3):
-        super().__init__(nn.Conv2d(in_channels, out_channels, kernel, bias=False),
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
+                 dtype: torch.dtype | None = None):
+        super().__init__(Conv2d(in_channels, out_channels, kernel, bias=False, dtype=dtype),
                          nn.BatchNorm2d(out_channels), nn.ReLU(inplace=True))
 
 
@@ -48,13 +58,13 @@ class DepthCorr(nn.Module):
     """Template/search adjust convs + depthwise xcorr + 1x1 head."""
 
     def __init__(self, in_channels: int, hidden: int, out_channels: int,
-                 kernel_size: int = 3):
+                 kernel_size: int = 3, dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv_kernel = ConvBNRelu(in_channels, hidden, kernel_size)
-        self.conv_search = ConvBNRelu(in_channels, hidden, kernel_size)
-        self.head = nn.Sequential(nn.Conv2d(hidden, hidden, 1, bias=False),
+        self.conv_kernel = ConvBNRelu(in_channels, hidden, kernel_size, dtype)
+        self.conv_search = ConvBNRelu(in_channels, hidden, kernel_size, dtype)
+        self.head = nn.Sequential(Conv2d(hidden, hidden, 1, bias=False, dtype=dtype),
                                   nn.BatchNorm2d(hidden), nn.ReLU(inplace=True),
-                                  nn.Conv2d(hidden, out_channels, 1))
+                                  Conv2d(hidden, out_channels, 1, dtype=dtype))
 
     def forward_corr(self, kernel, search):
         """NCHW in and out; the xcorr itself runs on NHWC copies."""
@@ -70,10 +80,11 @@ class UP(nn.Module):
     """RPN heads: cls -> 2k channels, loc -> 4k channels, ordered (2, k) and
     (4, k) as the reference."""
 
-    def __init__(self, anchor_num: int = 5, feature_in: int = 256, feature_out: int = 256):
+    def __init__(self, anchor_num: int = 5, feature_in: int = 256, feature_out: int = 256,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.cls = DepthCorr(feature_in, feature_out, 2 * anchor_num)
-        self.loc = DepthCorr(feature_in, feature_out, 4 * anchor_num)
+        self.cls = DepthCorr(feature_in, feature_out, 2 * anchor_num, dtype=dtype)
+        self.loc = DepthCorr(feature_in, feature_out, 4 * anchor_num, dtype=dtype)
 
     def forward(self, z_f, x_f):
         return self.cls(z_f, x_f), self.loc(z_f, x_f)
@@ -82,9 +93,10 @@ class UP(nn.Module):
 class MaskCorr(nn.Module):
     """Mask head: each score-map cell predicts a flattened o_sz x o_sz mask."""
 
-    def __init__(self, o_sz: int = 63, in_channels: int = 256, hidden: int = 256):
+    def __init__(self, o_sz: int = 63, in_channels: int = 256, hidden: int = 256,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.mask = DepthCorr(in_channels, hidden, o_sz ** 2)
+        self.mask = DepthCorr(in_channels, hidden, o_sz ** 2, dtype=dtype)
 
     def forward(self, z_f, x_f):
         return self.mask(z_f, x_f)
@@ -93,7 +105,13 @@ class MaskCorr(nn.Module):
 class DeconvExpand(nn.ConvTranspose2d):
     """ConvTranspose2d(in, out, k, stride=k) on a 1x1 input: a dense expand
     ``out[b, o, h, w] = sum_i x[b, i] * W[i, o, h, w] + bias[o]``, computed as
-    one matrix product. The weight keeps torch's (in, out, kh, kw) layout."""
+    one matrix product. The weight keeps torch's (in, out, kh, kw) layout.
+
+    It computes in the promoted dtype of its input and weight: a bf16 corr
+    vector times the float32 weight is a float32 product. The JAX package's
+    ``DeconvExpand`` declares its parameters in the compute dtype but is
+    handed float32 arrays by every checkpoint and the weight bridge, and its
+    einsum promotes the same way, so its output is float32 under bf16 too."""
 
     def __init__(self, in_features: int = 256, out_features: int = 32, size: int = 15):
         super().__init__(in_features, out_features, size, stride=size)
@@ -101,23 +119,25 @@ class DeconvExpand(nn.ConvTranspose2d):
     def forward(self, x):
         """x: (B, in) -> (B, out, size, size)."""
         i, o, h, w = self.weight.shape
-        y = (x @ self.weight.reshape(i, o * h * w)).reshape(-1, o, h, w)
-        return y + self.bias[:, None, None]
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        y = (x.to(dtype) @ self.weight.to(dtype).reshape(i, o * h * w)).reshape(-1, o, h, w)
+        return y + self.bias.to(dtype)[:, None, None]
 
 
-class Conv3x3(nn.Conv2d):
-    """3x3 pad-1 conv with bias."""
+class Conv3x3(Conv2d):
+    """3x3 pad-1 conv with bias, in ``dtype`` (input, weight and bias cast,
+    as the JAX package's ``Conv3x3`` casts its kernel and bias)."""
 
-    def __init__(self, in_channels: int, out_channels: int):
-        super().__init__(in_channels, out_channels, 3, padding=1)
+    def __init__(self, in_channels: int, out_channels: int, dtype: torch.dtype | None = None):
+        super().__init__(in_channels, out_channels, 3, padding=1, dtype=dtype)
 
 
 class ConvReluBlock(nn.Sequential):
     """Two 3x3 pad-1 conv + ReLU layers (Refine's v/h blocks)."""
 
-    def __init__(self, in_channels: int, mid: int, out: int):
-        super().__init__(Conv3x3(in_channels, mid), nn.ReLU(inplace=True),
-                         Conv3x3(mid, out), nn.ReLU(inplace=True))
+    def __init__(self, in_channels: int, mid: int, out: int, dtype: torch.dtype | None = None):
+        super().__init__(Conv3x3(in_channels, mid, dtype), nn.ReLU(inplace=True),
+                         Conv3x3(mid, out, dtype), nn.ReLU(inplace=True))
 
 
 def _up(x, size):
@@ -130,20 +150,22 @@ class Refine(nn.Module):
 
     Consumes per-cell windows of the backbone skips, p0 (B,w,61,61),
     p1 (B,4w,31,31), p2 (B,8w,15,15), and the cell's corr vector (B, 4w);
-    emits (B, 127*127) mask logits. ``width`` is the backbone stem width."""
+    emits (B, 127*127) mask logits, in ``dtype`` when it is set.
+    ``width`` is the backbone stem width."""
 
-    def __init__(self, width: int = 64):
+    def __init__(self, width: int = 64, dtype: torch.dtype | None = None):
         super().__init__()
-        self.v0 = ConvReluBlock(width, 16, 4)
-        self.v1 = ConvReluBlock(4 * width, 64, 16)
-        self.v2 = ConvReluBlock(8 * width, 128, 32)
-        self.h2 = ConvReluBlock(32, 32, 32)
-        self.h1 = ConvReluBlock(16, 16, 16)
-        self.h0 = ConvReluBlock(4, 4, 4)
+        d = dtype
+        self.v0 = ConvReluBlock(width, 16, 4, d)
+        self.v1 = ConvReluBlock(4 * width, 64, 16, d)
+        self.v2 = ConvReluBlock(8 * width, 128, 32, d)
+        self.h2 = ConvReluBlock(32, 32, 32, d)
+        self.h1 = ConvReluBlock(16, 16, 16, d)
+        self.h0 = ConvReluBlock(4, 4, 4, d)
         self.deconv = DeconvExpand(4 * width, 32, 15)
-        self.post0 = Conv3x3(32, 16)
-        self.post1 = Conv3x3(16, 4)
-        self.post2 = Conv3x3(4, 1)
+        self.post0 = Conv3x3(32, 16, d)
+        self.post1 = Conv3x3(16, 4, d)
+        self.post2 = Conv3x3(4, 1, d)
 
     def forward(self, p0, p1, p2, corr):
         out = self.deconv(corr)                                   # (B,32,15,15)
@@ -161,7 +183,8 @@ def slice_skip_windows(p0, p1, p2, pos_yx: torch.Tensor):
     nothing syncs. The reference pads by
     (16, 8, 4) and slices windows of (61, 31, 15) at strides (4, 2, 1) from
     the cell; clamped gathers, columns first, with an out-of-bounds zero mask
-    give the same windows without padded copies."""
+    give the same windows without padded copies. The windows and their zero
+    fill are in the maps' dtype."""
     y, x = pos_yx[:, :1], pos_yx[:, 1:]
 
     def win_gather(f, pad, scale, win):

@@ -21,6 +21,11 @@ Shapes stay static as in the JAX package: the positive cells are a top-k of
 ``16 * B`` rows (``POS_PER_SAMPLE``, the target sampler's cap), and only those
 windows are gathered, never all S*S of them.
 
+A bf16 model's maps (``SiamRPN(dtype=torch.bfloat16)``) enter as bf16, as
+the JAX package's do: the log-softmax and the base upsample run in bf16, and
+every loss is float32, the anchor counts and the float32 labels promoting
+the products.
+
 Data-parallel training in the exact mode (``train/trainer.py``) gives each
 loss the global count it normalizes by (positive and negative anchors, the
 batch, the valid mask rows): each rank's loss is then its share of the
@@ -48,10 +53,12 @@ def select_cross_entropy_loss(pred_cls: torch.Tensor, label_cls: torch.Tensor,
     negative anchors to divide by (this batch's when None)."""
     b, ck, s1, s2 = pred_cls.shape
     logp = F.log_softmax(pred_cls.view(b, 2, ck // 2, s1, s2), dim=1)
-    pos = (label_cls == 1).to(logp.dtype)
-    neg = (label_cls == 0).to(logp.dtype)
-    npos = pos.sum() if npos is None else npos.to(logp.dtype)
-    nneg = neg.sum() if nneg is None else nneg.to(logp.dtype)
+    # float32 indicators, as the JAX loss's: bf16 log-probs sum in float32
+    dtype = torch.promote_types(logp.dtype, torch.float32)
+    pos = (label_cls == 1).to(dtype)
+    neg = (label_cls == 0).to(dtype)
+    npos = pos.sum() if npos is None else npos.to(dtype)
+    nneg = neg.sum() if nneg is None else nneg.to(dtype)
     loss_pos = -(logp[:, 1] * pos).sum() / npos.clamp(min=1.0)
     loss_neg = -(logp[:, 0] * neg).sum() / nneg.clamp(min=1.0)
     return 0.5 * loss_pos + 0.5 * loss_neg

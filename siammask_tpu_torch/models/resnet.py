@@ -20,10 +20,37 @@ Training state follows the reference's ``features.unfix``/``train``
 override: the stem and layer1 never train (BN in eval, no gradient);
 layer2 and layer3 train, BN in train mode, only after ``unfix(True)``. A
 bare ``train()`` leaves every frozen stage in eval.
+
+``dtype`` is the compute dtype, flax's module ``dtype``: every conv casts
+its input and weight to it (``Conv2d``), so with ``torch.bfloat16`` the
+activations are bf16 over float32 parameters. BatchNorm takes the bf16
+conv output with its float32 statistics and affine terms, normalises in
+float32 and returns bf16, as flax's ``BatchNorm(dtype=bf16)`` does.
+``None`` (the default) casts nothing: the model computes in its
+parameters' dtype, float32, or float64 after ``model.double()``.
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``dtype`` (flax's ``promote_dtype``):
+    the input, weight and bias are cast to it and the output is in it; the
+    parameters keep their own dtype. ``dtype=None`` casts nothing. Unlike
+    ``nn.Conv2d``'s factory argument, ``dtype`` never sets the parameters'
+    dtype."""
+
+    def __init__(self, *args, dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
+
+    def forward(self, x):
+        if self.dtype is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
 class Bottleneck(nn.Module):
@@ -31,15 +58,15 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, dilation: int = 1,
-                 downsample: nn.Module | None = None):
+                 downsample: nn.Module | None = None, dtype: torch.dtype | None = None):
         super().__init__()
         padding = dilation if dilation > 1 else 2 - stride
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False, dtype=dtype)
         self.bn1 = nn.BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=padding,
-                               dilation=dilation, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=padding,
+                            dilation=dilation, bias=False, dtype=dtype)
         self.bn2 = nn.BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False, dtype=dtype)
         self.bn3 = nn.BatchNorm2d(planes * 4)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
@@ -53,37 +80,40 @@ class Bottleneck(nn.Module):
 
 
 def _make_layer(inplanes: int, planes: int, blocks: int, stride: int = 1,
-                dilation: int = 1) -> nn.Sequential:
+                dilation: int = 1, dtype: torch.dtype | None = None) -> nn.Sequential:
     """A stage of bottlenecks; the first one always has a downsample."""
     out = planes * Bottleneck.expansion
     if stride == 1 and dilation == 1:
         dd = 1
-        downsample = nn.Sequential(nn.Conv2d(inplanes, out, 1, bias=False),
+        downsample = nn.Sequential(Conv2d(inplanes, out, 1, bias=False, dtype=dtype),
                                    nn.BatchNorm2d(out))
     else:
         dd, pad = (dilation // 2, dilation // 2) if dilation > 1 else (1, 0)
         downsample = nn.Sequential(
-            nn.Conv2d(inplanes, out, 3, stride=stride, padding=pad, dilation=dd, bias=False),
+            Conv2d(inplanes, out, 3, stride=stride, padding=pad, dilation=dd, bias=False,
+                   dtype=dtype),
             nn.BatchNorm2d(out))
-    layers = [Bottleneck(inplanes, planes, stride, dd, downsample)]
-    layers += [Bottleneck(out, planes, dilation=dilation) for _ in range(1, blocks)]
+    layers = [Bottleneck(inplanes, planes, stride, dd, downsample, dtype)]
+    layers += [Bottleneck(out, planes, dilation=dilation, dtype=dtype)
+               for _ in range(1, blocks)]
     return nn.Sequential(*layers)
 
 
 class ResNet50Tracking(nn.Module):
     """ResNet-50 layers 1-3. Input NCHW float32 raw 0..255 pixels (no
-    normalisation, as the reference); returns (p0, p1, p2, p3)."""
+    normalisation, as the reference); returns (p0, p1, p2, p3), in ``dtype``
+    when it is set (the stem casts the pixels)."""
 
-    def __init__(self, width: int = 64):
+    def __init__(self, width: int = 64, dtype: torch.dtype | None = None):
         super().__init__()
         w = width
-        self.conv1 = nn.Conv2d(3, w, 7, stride=2, padding=0, bias=False)
+        self.conv1 = Conv2d(3, w, 7, stride=2, padding=0, bias=False, dtype=dtype)
         self.bn1 = nn.BatchNorm2d(w)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
-        self.layer1 = _make_layer(w, w, 3)
-        self.layer2 = _make_layer(4 * w, 2 * w, 4, stride=2)
-        self.layer3 = _make_layer(8 * w, 4 * w, 6, dilation=2)
+        self.layer1 = _make_layer(w, w, 3, dtype=dtype)
+        self.layer2 = _make_layer(4 * w, 2 * w, 4, stride=2, dtype=dtype)
+        self.layer3 = _make_layer(8 * w, 4 * w, 6, dilation=2, dtype=dtype)
         self.unfrozen = False
 
     def _frozen_stages(self) -> list[nn.Module]:

@@ -20,6 +20,14 @@ only its own modules. Entry points:
 
 ``build_model(arch)`` maps the reference's ``--arch`` names onto them. cls
 channels are ordered (2, k) and loc channels (4, k), as the reference.
+
+Each family takes ``dtype``, the compute dtype of the JAX package's models:
+``torch.bfloat16`` runs bf16 activations over float32 parameters (every conv
+casts its input and weight; ``models/resnet.py``), so the state_dict, the
+optimizer and checkpoints do not change; ``None`` (the default) computes in
+the parameters' dtype. Under bf16 the outputs are bf16, but Refine's logits
+start from a float32 deconv (``heads.DeconvExpand``); the xcorr runs its
+bf16 kernels, forward and backward.
 """
 from __future__ import annotations
 
@@ -46,10 +54,10 @@ class TrackOutputs(NamedTuple):
 class ResDown(nn.Module):
     """Backbone + neck, named as the reference's ``features`` module."""
 
-    def __init__(self, width: int = 64):
+    def __init__(self, width: int = 64, dtype: torch.dtype | None = None):
         super().__init__()
-        self.features = ResNet50Tracking(width)
-        self.downsample = ResDownS(16 * width, 4 * width)
+        self.features = ResNet50Tracking(width, dtype)
+        self.downsample = ResDownS(16 * width, 4 * width, dtype)
 
     def forward(self, x):
         p0, p1, p2, p3 = self.features(x)
@@ -59,14 +67,16 @@ class ResDown(nn.Module):
 class SiamRPN(nn.Module):
     """Box-only tracker: backbone + neck + the RPN heads. ``width`` is the
     backbone stem width: 64 is the published model; smaller widths keep the
-    module tree and the spatial geometry."""
+    module tree and the spatial geometry. ``dtype``: the compute dtype (the
+    module docstring)."""
 
-    def __init__(self, anchor_num: int = 5, width: int = 64):
+    def __init__(self, anchor_num: int = 5, width: int = 64, dtype: torch.dtype | None = None):
         super().__init__()
         self.anchor_num = anchor_num
         self.width = width
-        self.features = ResDown(width)
-        self.rpn_model = UP(anchor_num, 4 * width, 4 * width)
+        self.dtype = dtype
+        self.features = ResDown(width, dtype)
+        self.rpn_model = UP(anchor_num, 4 * width, 4 * width, dtype)
 
     def template(self, z):
         return self.features(z)[1]
@@ -108,9 +118,9 @@ class SiamRPN(nn.Module):
 class _SiamMask(SiamRPN):
     """What base and sharp share: SiamRPN plus the mask head."""
 
-    def __init__(self, anchor_num: int = 5, width: int = 64):
-        super().__init__(anchor_num, width)
-        self.mask_model = MaskCorr(63, 4 * width, 4 * width)
+    def __init__(self, anchor_num: int = 5, width: int = 64, dtype: torch.dtype | None = None):
+        super().__init__(anchor_num, width, dtype)
+        self.mask_model = MaskCorr(63, 4 * width, 4 * width, dtype)
 
 
 class SiamMaskBase(_SiamMask):
@@ -155,9 +165,9 @@ class SiamMaskSharp(_SiamMask):
     heads take no gradient and keep eval-mode BN through later ``train()``
     calls; the mask corr and Refine train."""
 
-    def __init__(self, anchor_num: int = 5, width: int = 64):
-        super().__init__(anchor_num, width)
-        self.refine_model = Refine(width)
+    def __init__(self, anchor_num: int = 5, width: int = 64, dtype: torch.dtype | None = None):
+        super().__init__(anchor_num, width, dtype)
+        self.refine_model = Refine(width, dtype)
         self.refine_only = False
 
     def fix_for_refine(self, on: bool = True) -> "SiamMaskSharp":
@@ -225,11 +235,13 @@ def log_softmax_cls(score: torch.Tensor, anchor_num: int) -> torch.Tensor:
     return torch.log_softmax(s, dim=-1)
 
 
-def build_model(arch: str, anchor_num: int = 5, width: int = 64) -> SiamRPN:
+def build_model(arch: str, anchor_num: int = 5, width: int = 64,
+                dtype: torch.dtype | None = None) -> SiamRPN:
     """The model of a reference ``--arch`` name (``tools/test.py``):
-    ``Custom``/``SiamMaskSharp``, ``SiamMaskBase`` or ``SiamRPN``."""
+    ``Custom``/``SiamMaskSharp``, ``SiamMaskBase`` or ``SiamRPN``, computing
+    in ``dtype``."""
     families = {"Custom": SiamMaskSharp, "SiamMaskSharp": SiamMaskSharp,
                 "SiamMaskBase": SiamMaskBase, "SiamRPN": SiamRPN}
     if arch not in families:
         raise ValueError(f"unknown arch {arch!r}")
-    return families[arch](anchor_num, width)
+    return families[arch](anchor_num, width, dtype)

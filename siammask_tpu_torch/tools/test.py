@@ -1,8 +1,8 @@
 """Benchmark test entry point (VOT, DAVIS, YouTube-VOS) of the PyTorch port.
 
 Counterpart of ``tools/test.py``, with the same flags, less the JAX
-package's ``--platform`` and ``--dtype``, plus ``--device`` (``cuda`` by
-default; ``cpu`` runs on the CPU). It runs the reference's test matrix::
+package's ``--platform``, plus ``--device`` (``cuda`` by default; ``cpu``
+runs on the CPU). It runs the reference's test matrix::
 
     python -m siammask_tpu_torch.tools.test --config experiments/siamrpn_resnet/config.json \\
         --dataset VOT2018 --data-dir data                      # SiamRPN, box only
@@ -13,8 +13,10 @@ default; ``cpu`` runs on the CPU). It runs the reference's test matrix::
 
 ``--resume`` loads a reference ``.pth`` (a bare state_dict or a training
 checkpoint's ``state_dict``) through ``load_reference_state_dict``; without
-it the weights are random, from seed 0. On the card TF32 is off (the fp32
-reference mode). ``main(argv)`` returns the totals.
+it the weights are random, from seed 0. ``--dtype bfloat16`` builds the
+model in bf16 compute over float32 parameters (``build_model(dtype=...)``);
+``float32`` is the default. On the card TF32 is off (the fp32 reference
+mode). ``main(argv)`` returns the totals.
 """
 from __future__ import annotations
 
@@ -53,17 +55,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--result-dir", default="test")
     parser.add_argument("--tracker-name", default=None)
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--dtype", default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="model compute dtype (params stay fp32). float32 "
+                             "is the metrics default; bfloat16 trades a "
+                             "measured metric delta (PARITY_METRICS.md) for "
+                             "the bench's headline throughput")
     return parser.parse_args(argv)
 
 
-def load_model(arch: str, anchor_num: int, resume: str | None, device: torch.device):
-    """The arch's model in eval mode on ``device``, with the checkpoint's
-    weights or seeded random ones. On the card TF32 is switched off, so the
-    convs run the fp32 reference mode."""
+def load_model(arch: str, anchor_num: int, resume: str | None, device: torch.device,
+               dtype: torch.dtype = torch.float32):
+    """The arch's model in eval mode on ``device``, computing in ``dtype``,
+    with the checkpoint's weights or seeded random ones. On the card TF32 is
+    switched off, so the float32 convs run the fp32 reference mode."""
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    model = build_model(arch, anchor_num)
+    model = build_model(arch, anchor_num, dtype=dtype)
     if resume:
         ckpt = torch.load(resume, map_location="cpu", weights_only=True)
         load_reference_state_dict(model, ckpt.get("state_dict", ckpt))
@@ -78,7 +87,8 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     device = torch.device(args.device)
     cfg = Config.load(args.config)
-    model = load_model(cfg.arch, cfg.anchors.anchor_num, args.resume, device)
+    model = load_model(cfg.arch, cfg.anchors.anchor_num, args.resume, device,
+                       getattr(torch, args.dtype))
     p = cfg.tracker_config()
     tracker_name = args.tracker_name or (
         cfg.arch + "_" + ("mask_" if args.mask else "") + ("refine_" if args.refine else "")

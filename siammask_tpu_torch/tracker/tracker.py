@@ -37,6 +37,15 @@ the single-object and the batched paths run the same kernels.
 The numerics are the reference's: context-scaled crop sizes rounded half to
 even, the decode/penalty formulas, the EMA size update, the sub-box/back-box
 warp geometry and the final clamp.
+
+A bf16 model (``build_model(..., dtype=torch.bfloat16)``) runs the JAX
+package's bf16 step with ``latency_lowerings=False``: the crop stays float32
+from the uint8 frame; the maps, their score sigmoid, the template features
+in the state (``zf``) and the cell mask (``mask_logits``) are bf16; the
+float32 anchors, window and penalty promote the decode, so the positions,
+sizes and the carried score are float32, and the warp-back blends the bf16
+mask with float32 fractions into a float32 ``mask_in_frame``. The step's
+signature, and so a ``StepGraph``'s key, does not depend on the dtype.
 """
 from __future__ import annotations
 
@@ -69,7 +78,7 @@ class StepOutput(NamedTuple):
     score: torch.Tensor          # () score at the best cell
     best_id: torch.Tensor        # () flat argmax over (k, S, S)
     mask_in_frame: torch.Tensor  # (im_h, im_w) soft mask in frame coords
-    mask_logits: torch.Tensor    # (out_sz, out_sz) sigmoid mask in cell coords
+    mask_logits: torch.Tensor    # (out_sz, out_sz) sigmoid mask in cell coords (model dtype)
 
 
 class BoxStepOutput(NamedTuple):
