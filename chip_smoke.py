@@ -45,16 +45,25 @@ Phases, each of which raises on failure:
 
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: the hand-written kernels are compiled from ``siammask_tpu_torch/csrc``;
+   ptxas's registers and spills per kernel are printed;
 3. the forward xcorr kernel vs its plain version at the tracking shape, B=16,
-   B=32, the training batch (B=64), stage 2's (64,7,7,256)*(64,5,5,256), a ragged
-   shape and bf16 at B=1, 16 and 64; kernel, plain and library times at B=1,
-   B=16, B=32, B=64 and stage 2's shape (fp32) and at B=1, 16 and 64 (bf16);
+   B=32, the training batch (B=64), stage 2's (64,7,7,256)*(64,5,5,256) and a
+   ragged shape; kernel, plain and library times at B=1, B=16, B=32, B=64 and
+   stage 2's shape; then bf16 (``phase_bf16_kernels``): at B=1, 16, 64 and
+   stage 2's shape the packed bf16 kernel (the wrapper on the model's
+   tensors) bit-identical to the scalar bf16 kernel (the same inputs at a
+   2-byte offset) and both against the plain version, C=201 and offset
+   pointers on the scalar kernel, and the packed kernel's time beside its
+   bound, the plain version, the library call, the fp32 kernel and the
+   scalar kernel;
 4. the two gradient kernels vs their plain versions at B=1, B=16, B=32,
-   B=64, stage 2's shape, a ragged shape and bf16 at B=1, 16 and 64; two
-   calls of each at B=64 (fp32, bf16) and at stage 2's shape bit-identical;
-   kernel and plain times at B=1, B=16, B=32, B=64 and stage 2's shape
-   (fp32) and at B=1, 16 and 64 (bf16) beside each kernel's bound, and the
-   eager autograd backward through the kernels vs through the plain forward;
+   B=64, stage 2's shape and a ragged shape (grad-kernel also in bf16 at
+   B=1, 16 and 64); two calls of each at B=64 and at stage 2's shape
+   bit-identical; kernel and plain times at B=1, B=16, B=32, B=64 and stage
+   2's shape (grad-kernel also in bf16 at B=1, 16 and 64) beside each
+   kernel's bound, and the eager autograd backward through the kernels vs
+   through the plain forward; then bf16 grad-input as phase 3 runs the
+   bf16 forward (two B=64 calls of the packed kernel bit-identical);
 5. the track slice: init + steps, with finite outputs in bounds, three xcorr
    kernel launches per step, and one step under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
@@ -110,9 +119,12 @@ Phases, each of which raises on failure:
     bf16 and fp32 regions' centres; then ``[bf16]``: SiamMask-sharp in bf16
     (the calibrated weights, their cls head sharpened: ``sharpen_cls_head``)
     as phases 5, 6, 8 and 9 run it in fp32, card vs CPU at bf16 tolerances
-    (``BF16_*``), the graph videos bit-identical to their eager loops and
-    every traced xcorr kernel a bf16 instantiation, and SiamRPN and base
-    graph videos in bf16, each timing beside its fp32 phase's;
+    (``BF16_*``; ``[bf16-parity]``, which also prints the size difference
+    as a share of the size over the first six steps from init:
+    ``bf16_size_shares``), the graph videos
+    bit-identical to their eager loops and every traced xcorr kernel the
+    packed bf16 kernel, and SiamRPN and base graph videos in bf16, each
+    timing beside its fp32 phase's;
 15. ``[tune]``: ``tools.tune.main`` with that ``.pth`` (SiamMask-sharp at
     width 64): a VOT grid over the two videos (penalty_k 0.04 / 0.12 x lr
     0.30 / 0.45 at instance_size 255, then one cell at 271; EAO over frames
@@ -196,13 +208,21 @@ the time of the one library call (cuDNN's grouped conv) that computes the
 same function, with ``launches_by_path`` (track, video, streams16, vos,
 rpn, base, vot, tune, train, train_refine, train_rpn, dp: rank 0's of the
 two-rank run, sharded, and the bf16 paths bf16_track, bf16_video,
-bf16_streams16, bf16_rpn, bf16_base, bf16_vos, bf16_vot, bf16_train), the
-times at stage 2's shape (``stage2``), at the data-parallel local batches
-16 and 32 (``local_batches``) and of the bf16 instantiations at B=1, 16
-and 64 (``bf16``; their bound is half the fp32 bytes). A kernel captured in a CUDA graph passes through
-its wrapper (and its count) once, at capture; on the graph paths its
-launches are the captured launches times the replays, which phases 8, 9,
-12 and 13 confirm by kernel name in a profiler trace.
+bf16_streams16, bf16_rpn, bf16_base, bf16_vos, bf16_vot, bf16_train). The
+kernels are the strip kernel's forward and grad-input (fp32; ``bf16_scalar``:
+their bf16 instantiation's times at B=1, 16, 64 and stage 2's shape, on
+inputs at a 2-byte offset), grad-kernel (``bf16``: its bf16 instantiation
+at B=1, 16 and 64) and the packed bf16 forward and grad-input
+(``by_shape``: B=1, 16, 64 and stage 2's shape); the fp32 records also
+hold the times at stage 2's shape (``stage2``) and at the data-parallel
+local batches 16 and 32 (``local_batches``); a bf16 bound is half the fp32
+bytes. Each path's forward and grad-input launches go to the packed kernel
+on the bf16 paths and to the strip kernel on the fp32 ones, which the
+wrappers' ``packed_launches`` counts and the graphs'
+``xcorr_packed_launches`` confirm (``check_route``). A kernel captured in a
+CUDA graph passes through its wrapper (and its count) once, at capture; on
+the graph paths its launches are the captured launches times the replays,
+which phases 8, 9, 12 and 13 confirm by kernel name in a profiler trace.
 """
 from __future__ import annotations
 
@@ -296,11 +316,15 @@ LOCAL_BATCHES = (TRAIN_BATCH // 4, TRAIN_BATCH // 2)
 # the batches the bf16 kernels are checked and timed at: a track step, 16
 # streams, a train step
 BF16_BATCHES = (1, 16, TRAIN_BATCH)
+# the bf16 forward and grad-input: those batches and stage 2's shape
+BF16_SHAPES = {**{f"B={b}": ((b, 29, 29, 256), (b, 5, 5, 256)) for b in BF16_BATCHES},
+               "stage2": (STAGE2_X, STAGE2_K)}
 TRAIN_WIDTH = 64
 DEV = "cuda"
 SHARP_TRAIN_CONFIG = REPO / "experiments" / "siammask_sharp" / "config.json"
 SMOKE_TRAIN = REPO / "build" / "train_smoke"
 KERNELS = (depthwise_xcorr, depthwise_xcorr_grad_input, depthwise_xcorr_grad_kernel)
+PACKED = KERNELS[:2]      # the wrappers that launch the packed bf16 kernel
 # an H100 SXM's published peaks at 700 W: HBM3 and fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -532,19 +556,117 @@ def phase_build() -> None:
     path = _build.build()
     _build.load_library()
     print(f"[build] {path.relative_to(REPO)} ready in {time.perf_counter() - t0:.2f} s")
+    for name, r in _build.kernel_resources(path.with_suffix(".log").read_text()).items():
+        print(f"[build] ptxas: {name}: {r['registers']} registers, {r['spill_stores']} / "
+              f"{r['spill_loads']} bytes spill stores / loads")
 
 
-def phase_kernels() -> dict:
-    """Kernel vs plain version on the card; returns the record, timed at the
-    tracking shape (B=1)."""
+def offset_copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts one element past an
+    aligned allocation: for bf16 a pointer 2 bytes off 4-byte alignment,
+    which the packed bf16 kernel does not take."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+def phase_bf16_kernels(which: str, fp32_ms: dict) -> tuple[dict, dict]:
+    """The bf16 forward (``which`` "forward", ``[kernel]``) or grad-input
+    ("input", ``[grad]``). At each of ``BF16_SHAPES`` the wrapper takes the
+    packed kernel on the model's contiguous tensors and the scalar bf16
+    kernel (the strip kernel's bf16 instantiation) on the same inputs copied
+    to a 2-byte offset: the two outputs must be the same bits, within
+    ``check_close``'s bf16 tolerance of the plain version. C=201 and offset
+    pointers take the scalar kernel and are held to the plain version.
+    Then each shape's packed kernel is timed beside its bound, the plain
+    version, the library call, the fp32 kernel of this run (``fp32_ms``) and
+    the scalar kernel. Returns the packed kernel's record (its times at B=1
+    for the forward, B=64 for grad-input, and ``by_shape``) and the scalar
+    kernel's times and errors by shape."""
+    tag = "[kernel]" if which == "forward" else "[grad]"
+    wrapper, plain = {
+        "forward": (depthwise_xcorr, depthwise_xcorr_reference),
+        "input": (depthwise_xcorr_grad_input, depthwise_xcorr_grad_input_reference)}[which]
+    g = torch.Generator().manual_seed(SEED + 2)
+
+    def inputs(xs, ks):
+        """x, k and the wrapper's and the library call's arguments."""
+        go = (xs[0], xs[1] - ks[1] + 1, xs[2] - ks[2] + 1, xs[3])
+        x, k, go = (torch.randn(s, generator=g).to("cuda", BF16) for s in (xs, ks, go))
+        return x, k, (x, k) if which == "forward" else (go, k, xs[1], xs[2])
+
+    def run(args):
+        """The wrapper's output and whether it launched the packed kernel."""
+        before = wrapper.packed_launches
+        out = wrapper(*args)
+        torch.cuda.synchronize()
+        return out, wrapper.packed_launches - before
+
+    def shifted(args):
+        """The arguments with every tensor at a 2-byte offset."""
+        return tuple(offset_copy(a) if torch.is_tensor(a) else a for a in args)
+
+    by_shape, scalar = {}, {}
+    for name, (xs, ks) in BF16_SHAPES.items():
+        x, k, args = inputs(xs, ks)
+        args_s = shifted(args)
+        (out, n_packed), (out_s, n_scalar) = run(args), run(args_s)
+        if (n_packed, n_scalar) != (1, 0):
+            raise AssertionError(f"{tag} bf16 {which} {name}: packed launches {n_packed} on "
+                                 f"aligned inputs, {n_scalar} at an offset; expected 1, 0")
+        if not torch.equal(out, out_s):
+            raise AssertionError(f"{tag} bf16 {which} {name}: the packed kernel's output is not "
+                                 "the scalar kernel's")
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        err = check_close(f"{which} bf16 {name}: packed kernel, bit-identical to the scalar "
+                          "kernel", out, ref)
+        if name == f"B={TRAIN_BATCH}":
+            # no atomics: a second call gives the same bits
+            if not torch.equal(run(args)[0], out):
+                raise AssertionError(f"{tag} bf16 {which} {name}: two calls differ")
+            print(f"{tag} bf16 {which} {name}: two calls of the packed kernel bit-identical")
+        timed = time_kernel(f"{tag} bf16 {which} {name}, packed kernel", wrapper, plain, args,
+                            which, args[:2], x, k)
+        scalar_us = graph_us(wrapper, *args_s)
+        by_shape[name] = {"max_abs_err": err, **timed, "fp32_kernel_ms": fp32_ms[name],
+                          "scalar_ms": scalar_us / 1e3}
+        scalar[name] = {"max_abs_err": err, "ms": scalar_us / 1e3}
+        print(f"{tag} bf16 {which} {name}: packed kernel {timed['ms'] * 1e3:.2f} us "
+              f"({100 * timed['bound_ms'] / timed['ms']:.0f}% of its bound "
+              f"{timed['bound_ms'] * 1e3:.2f} us); fp32 kernel {fp32_ms[name] * 1e3:.2f} us; "
+              f"scalar bf16 kernel {scalar_us:.2f} us (inputs at a 2-byte offset); plain "
+              f"{timed['plain_ms'] * 1e3:.2f} us; library call {timed['library_ms'] * 1e3:.2f} us")
+    for name, (xs, ks), offset in (("C=201", ((3, 29, 29, 201), (3, 5, 5, 201)), False),
+                                   ("offset pointers", BF16_SHAPES["B=16"], True)):
+        _, _, args = inputs(xs, ks)
+        args = shifted(args) if offset else args
+        out, n_packed = run(args)
+        if n_packed:
+            raise AssertionError(f"{tag} bf16 {which} {name}: took the packed kernel")
+        check_close(f"{which} bf16 {name}: scalar kernel", out, plain(*args))
+    main = "B=1" if which == "forward" else f"B={TRAIN_BATCH}"
+    suffix = "" if which == "forward" else "_grad_input"
+    record = {"name": f"depthwise_xcorr{suffix}_bf16x2", "route": "cuda",
+              "source": "siammask_tpu_torch/csrc/xcorr.cu",
+              "replaces": "siammask_tpu/ops/xcorr_pallas.py:" + ("67" if which == "forward"
+                                                                 else "48"),
+              **{k: v for k, v in by_shape[main].items() if k not in ("fp32_kernel_ms",
+                                                                      "scalar_ms")},
+              "by_shape": by_shape}
+    return record, scalar
+
+
+def phase_kernels() -> list[dict]:
+    """Kernel vs plain version on the card, fp32, then bf16
+    (``phase_bf16_kernels``); returns the strip kernel's record, timed at
+    the tracking shape (B=1), and the packed bf16 kernel's."""
     g = torch.Generator().manual_seed(SEED)
     cases = [((1, 29, 29, 256), (1, 5, 5, 256), torch.float32),
              ((16, 29, 29, 256), (16, 5, 5, 256), torch.float32),
              ((32, 29, 29, 256), (32, 5, 5, 256), torch.float32),
              ((TRAIN_BATCH, 29, 29, 256), (TRAIN_BATCH, 5, 5, 256), torch.float32),
              (STAGE2_X, STAGE2_K, torch.float32),
-             ((3, 17, 23, 200), (3, 4, 3, 200), torch.float32),
-             *(((b, 29, 29, 256), (b, 5, 5, 256), BF16) for b in BF16_BATCHES)]
+             ((3, 17, 23, 200), (3, 4, 3, 200), torch.float32)]
     errors = {}
     for xs, ks, dtype in cases:
         x = torch.randn(xs, generator=g).to("cuda", dtype)
@@ -557,7 +679,7 @@ def phase_kernels() -> dict:
 
     times = {}
     for b, dtype in ((1, torch.float32), (16, torch.float32), (32, torch.float32),
-                     (TRAIN_BATCH, torch.float32), *((b, BF16) for b in BF16_BATCHES)):
+                     (TRAIN_BATCH, torch.float32)):
         x = torch.randn((b, 29, 29, 256), generator=g).to("cuda", dtype)
         k = torch.randn((b, 5, 5, 256), generator=g).to("cuda", dtype)
         times[(b, dtype)] = time_kernel(
@@ -568,21 +690,25 @@ def phase_kernels() -> dict:
     k = torch.randn(STAGE2_K, generator=g).to("cuda")
     stage2 = time_kernel(f"[kernel] stage 2 {STAGE2_X}*{STAGE2_K} fp32", depthwise_xcorr,
                          depthwise_xcorr_reference, (x, k), "forward", (x, k), x, k)
-    return {"name": "depthwise_xcorr", "route": "cuda",
-            "source": "siammask_tpu_torch/csrc/xcorr.cu",
-            "replaces": "siammask_tpu/ops/xcorr_pallas.py:67",
-            "max_abs_err": errors[((1, 29, 29, 256), torch.float32)],
-            **times[(1, torch.float32)],
-            "stage2": {"max_abs_err": errors[(STAGE2_X, torch.float32)], **stage2},
-            "local_batches": {str(b): {"max_abs_err": errors[((b, 29, 29, 256), torch.float32)],
-                                       **times[(b, torch.float32)]} for b in LOCAL_BATCHES},
-            "bf16": {str(b): {"max_abs_err": errors[((b, 29, 29, 256), BF16)], **times[(b, BF16)]}
-                     for b in BF16_BATCHES}}
+    fp32_ms = {**{f"B={b}": times[(b, torch.float32)]["ms"] for b in BF16_BATCHES},
+               "stage2": stage2["ms"]}
+    packed, scalar = phase_bf16_kernels("forward", fp32_ms)
+    return [{"name": "depthwise_xcorr", "route": "cuda",
+             "source": "siammask_tpu_torch/csrc/xcorr.cu",
+             "replaces": "siammask_tpu/ops/xcorr_pallas.py:67",
+             "max_abs_err": errors[((1, 29, 29, 256), torch.float32)],
+             **times[(1, torch.float32)],
+             "stage2": {"max_abs_err": errors[(STAGE2_X, torch.float32)], **stage2},
+             "local_batches": {str(b): {"max_abs_err": errors[((b, 29, 29, 256), torch.float32)],
+                                        **times[(b, torch.float32)]} for b in LOCAL_BATCHES},
+             "bf16_scalar": scalar}, packed]
 
 
 def phase_grad_kernels() -> list[dict]:
-    """The two gradient kernels vs their plain versions on the card; returns
-    their records, timed at the training shape (B=64)."""
+    """The two gradient kernels vs their plain versions on the card, then
+    bf16 grad-input (``phase_bf16_kernels``); returns the records of
+    grad-input's strip kernel, grad-kernel and the packed bf16 grad-input,
+    timed at the training shape (B=64)."""
     g = torch.Generator().manual_seed(SEED + 1)
 
     def inputs(xs, ks, dtype):
@@ -597,21 +723,22 @@ def phase_grad_kernels() -> list[dict]:
                           (STAGE2_X, STAGE2_K, torch.float32),
                           ((3, 17, 23, 200), (3, 4, 3, 200), torch.float32),
                           *(((b, 29, 29, 256), (b, 5, 5, 256), BF16) for b in BF16_BATCHES)]:
+        # bf16 grad-input: phase_bf16_kernels; bf16 grad-kernel here
         x, k, go = inputs(xs, ks, dtype)
-        dx = depthwise_xcorr_grad_input(go, k, xs[1], xs[2])
-        dk = depthwise_xcorr_grad_kernel(x, go)
-        torch.cuda.synchronize()
-        ref_dx = depthwise_xcorr_grad_input_reference(go, k, xs[1], xs[2])
-        ref_dk = depthwise_xcorr_grad_kernel_reference(x, go)
-        torch.cuda.synchronize()
         tag = f"{xs} * {ks} {str(dtype)[6:]}"
-        errors[("input", xs, dtype)] = check_close(f"grad-input {tag}", dx, ref_dx)
-        errors[("kernel", xs, dtype)] = check_close(f"grad-kernel {tag}", dk, ref_dk)
+        checked = {"kernel": (lambda: depthwise_xcorr_grad_kernel(x, go),
+                              depthwise_xcorr_grad_kernel_reference(x, go))}
+        if dtype == torch.float32:
+            checked["input"] = (lambda: depthwise_xcorr_grad_input(go, k, xs[1], xs[2]),
+                                depthwise_xcorr_grad_input_reference(go, k, xs[1], xs[2]))
+        outs = {which: call() for which, (call, _) in checked.items()}
+        torch.cuda.synchronize()
+        for which, (_, ref) in checked.items():
+            errors[(which, xs, dtype)] = check_close(f"grad-{which} {tag}", outs[which], ref)
         if xs[0] == TRAIN_BATCH:
             # no atomics: a second call gives the same bits
-            for which, first, again in (
-                    ("input", dx, depthwise_xcorr_grad_input(go, k, xs[1], xs[2])),
-                    ("kernel", dk, depthwise_xcorr_grad_kernel(x, go))):
+            for which, (call, _) in checked.items():
+                first, again = outs[which], call()
                 torch.cuda.synchronize()
                 if not torch.equal(again, first):
                     raise AssertionError(f"grad-{which} {tag}: two calls differ")
@@ -639,12 +766,9 @@ def phase_grad_kernels() -> list[dict]:
         print(f"[grad] autograd backward (dx and dk) B={b} fp32, eager: kernels "
               f"{kernel:.2f} us; plain autograd {plain:.2f} us")
 
-    # the bf16 instantiations, which the bf16 train step runs
+    # grad-kernel's bf16 instantiation, which the bf16 train step runs
     for b in BF16_BATCHES:
         x, k, go = inputs((b, 29, 29, 256), (b, 5, 5, 256), BF16)
-        times[("input", b, BF16)] = time_kernel(
-            f"[grad] grad-input B={b} bf16", depthwise_xcorr_grad_input,
-            depthwise_xcorr_grad_input_reference, (go, k, 29, 29), "input", (go, k), x, k)
         times[("kernel", b, BF16)] = time_kernel(
             f"[grad] grad-kernel B={b} bf16", depthwise_xcorr_grad_kernel,
             depthwise_xcorr_grad_kernel_reference, (x, go), "kernel", (x, go), x, k)
@@ -658,20 +782,25 @@ def phase_grad_kernels() -> list[dict]:
         "[grad] grad-kernel stage 2 fp32", depthwise_xcorr_grad_kernel,
         depthwise_xcorr_grad_kernel_reference, (x, go), "kernel", (x, go), x, k)
 
+    fp32_ms = {**{f"B={b}": times[("input", b)]["ms"] for b in BF16_BATCHES},
+               "stage2": times[("input", "stage2")]["ms"]}
+    packed, scalar = phase_bf16_kernels("input", fp32_ms)
+    bf16 = {"input": ("bf16_scalar", scalar),
+            "kernel": ("bf16", {str(b): {"max_abs_err": errors[("kernel", (b, 29, 29, 256), BF16)],
+                                         **times[("kernel", b, BF16)]} for b in BF16_BATCHES})}
     # the custom_vjp backward of depthwise_xcorr_ad
-    return [{"name": f"depthwise_xcorr_grad_{which}", "route": "cuda",
-             "source": "siammask_tpu_torch/csrc/xcorr.cu",
-             "replaces": "siammask_tpu/ops/xcorr_pallas.py:48",
-             "max_abs_err": errors[(which, (TRAIN_BATCH, 29, 29, 256), torch.float32)],
-             **times[(which, TRAIN_BATCH)],
-             "stage2": {"max_abs_err": errors[(which, STAGE2_X, torch.float32)],
-                        **times[(which, "stage2")]},
-             "local_batches": {str(b): {"max_abs_err": errors[(which, (b, 29, 29, 256),
-                                                                torch.float32)],
-                                        **times[(which, b)]} for b in LOCAL_BATCHES},
-             "bf16": {str(b): {"max_abs_err": errors[(which, (b, 29, 29, 256), BF16)],
-                               **times[(which, b, BF16)]} for b in BF16_BATCHES}}
-            for which in ("input", "kernel")]
+    return [*({"name": f"depthwise_xcorr_grad_{which}", "route": "cuda",
+               "source": "siammask_tpu_torch/csrc/xcorr.cu",
+               "replaces": "siammask_tpu/ops/xcorr_pallas.py:48",
+               "max_abs_err": errors[(which, (TRAIN_BATCH, 29, 29, 256), torch.float32)],
+               **times[(which, TRAIN_BATCH)],
+               "stage2": {"max_abs_err": errors[(which, STAGE2_X, torch.float32)],
+                          **times[(which, "stage2")]},
+               "local_batches": {str(b): {"max_abs_err": errors[(which, (b, 29, 29, 256),
+                                                                  torch.float32)],
+                                          **times[(which, b)]} for b in LOCAL_BATCHES},
+               bf16[which][0]: bf16[which][1]}
+              for which in ("input", "kernel")), packed]
 
 
 def bf16_twin(model: SiamRPN) -> SiamRPN:
@@ -732,6 +861,23 @@ def check_output(out, hw, out_size: int = 127) -> None:
 def reset_launches() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in PACKED:
+        fn.packed_launches = 0
+
+
+def check_route(tag: str, bf16: bool, graph=None) -> None:
+    """The kernel that every forward and grad-input launch since the last
+    ``reset_launches``, and every xcorr kernel ``graph`` captured, took: the
+    packed bf16 kernel on a bf16 path (the model's shapes: C=256,
+    contiguous), the strip kernel on a float32 one."""
+    totals = [fn.launches for fn in PACKED]
+    packed = [fn.packed_launches for fn in PACKED]
+    if graph is not None:
+        totals.append(graph.xcorr_launches)
+        packed.append(graph.xcorr_packed_launches)
+    if packed != (totals if bf16 else [0] * len(totals)):
+        raise AssertionError(f"[{tag}] packed bf16 kernel launches {packed} of {totals} "
+                             "(forward, grad-input, captured in a graph)")
 
 
 def read_launches() -> list[int]:
@@ -755,6 +901,7 @@ def phase_slice(tracker: Tracker, frames: np.ndarray, tag: str = "slice"):
     outs.append(out)
     torch.cuda.synchronize()
     launches = read_launches()
+    check_route(tag, tracker.model.dtype == BF16)
     steps = len(outs)
     expected = [xcorr_per_step(tracker) * steps, 0, 0]
     if launches != expected:
@@ -792,6 +939,12 @@ def check_step_close(what: str, out, ref, bf16: bool = False) -> float:
     pos_tol = 1e-2
     if bf16:
         pos_tol = BF16_POS_TOL + BF16_SIZE_REL * ref.target_sz.abs().max().item()
+        # the size difference as a share of the size: BF16_SIZE_REL's scale
+        diff = (out.target_sz - ref.target_sz).abs()
+        share = (diff / ref.target_sz.abs()).max().item()
+        print(f"{what}: size {[round(v, 2) for v in ref.target_sz.tolist()]} px, difference "
+              f"{[round(v, 3) for v in diff.tolist()]} px, at most {100 * share:.3f}% of its "
+              f"side (tolerance {pos_tol:.3f} px)")
     torch.testing.assert_close(out.target_pos, ref.target_pos, rtol=0, atol=pos_tol)
     torch.testing.assert_close(out.target_sz, ref.target_sz, rtol=0, atol=pos_tol)
     if bf16:
@@ -823,7 +976,7 @@ def phase_cpu_parity(tracker, cpu_tracker, state: TrackState, frame: np.ndarray,
     loop. Tolerances cover cuDNN's summation order against the CPU's over a
     ResNet-50 of random weights; with ``bf16``, the maps within BF16_MAP_TOL
     in relative L2 norm and the step at ``check_step_close``'s bf16
-    tolerances."""
+    tolerances (the size difference printed as a share of its side)."""
     cpu_state = TrackState(*(t.cpu() for t in state))
 
     with torch.inference_mode():
@@ -848,10 +1001,33 @@ def phase_cpu_parity(tracker, cpu_tracker, state: TrackState, frame: np.ndarray,
 
     _, out = tracker.step(state, torch.from_numpy(frame).cuda())
     _, ref_out = cpu_tracker.step(cpu_state, frame)
-    err = check_step_close("step, card vs CPU", out, ref_out, bf16)
+    err = check_step_close(f"[{tag}] step, card vs CPU", out, ref_out, bf16)
     print(f"[{tag}] step: best_id {out.best_id.item()} on both; pos "
           f"{out.target_pos.cpu().tolist()} vs {ref_out.target_pos.tolist()}; score "
           f"{out.score.item():.6f} vs {ref_out.score.item():.6f}; mask max_abs_err {err:.3e}")
+
+
+def bf16_size_shares(tracker, cpu_tracker, frames: np.ndarray, tag: str) -> None:
+    """The bf16 step's size difference, card against the CPU, as a share of
+    the size, over the first steps from init (``frames[0]`` inits, then one
+    step a frame, each from the card's state after the one before), where
+    the size grows from TARGET_SZ: the scale of BF16_SIZE_REL. Where both
+    pick one cell the step is held to ``check_step_close``'s bf16
+    tolerances; where they pick two, each side's cell and score are printed
+    and no size is compared: the two sides' bf16 maps differ by rounding,
+    and off the crop ``sharpen_cls_head`` set the score margin on, random
+    weights leave cells close enough for it to move the argmax."""
+    state = tracker.init(frames[0], TARGET_POS, TARGET_SZ)
+    for i, frame in enumerate(frames[1:], 1):
+        new_state, out = tracker.step(state, torch.from_numpy(frame).cuda())
+        _, ref = cpu_tracker.step(TrackState(*(t.cpu() for t in state)), frame)
+        if out.best_id.item() == ref.best_id.item():
+            check_step_close(f"[{tag}] step {i} from init, card vs CPU", out, ref, bf16=True)
+        else:
+            print(f"[{tag}] step {i} from init: the card's best cell {out.best_id.item()} "
+                  f"(score {out.score.item():.6f}), the CPU's {ref.best_id.item()} (score "
+                  f"{ref.score.item():.6f}): other cells, no size compared")
+        state = new_state
 
 
 def phase_timing(tracker: Tracker, state: TrackState, frames: np.ndarray, smi: str) -> None:
@@ -958,8 +1134,9 @@ def check_graph_profile(what: str, call, frames: int, streams: int,
     idle = 100 * (1 - busy / call_ms)
     MEASURED.setdefault(what, {}).update(
         device_ms_frame=busy / frames, idle=idle, xcorr=xcorr,
-        xcorr_bf16=sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                       and "depthwise_xcorr" in e.key and "bfloat16" in e.key))
+        xcorr_packed=sum(e.count for e in events
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and "depthwise_xcorr_strip_bf16x2_kernel" in e.key))
     print(f"[{what}] profiled call: {xcorr} xcorr kernels by name ({xcorr // frames} a frame); "
           f"device busy {busy:.3f} ms of {call_ms:.3f} ms, {busy / frames:.3f} ms a frame "
           f"({busy / (frames * streams):.3f} ms a stream-frame), idle share "
@@ -993,6 +1170,7 @@ def phase_video(tracker: Tracker, frames: np.ndarray, smi: str,
     torch.cuda.synchronize()
     counted = read_launches()
     graph = tracker.graphs[(1, *FRAME_HW, torch.uint8)]
+    check_route(tag, tracker.model.dtype == BF16, graph)
     if counted[0] == 0 or counted[1:] != [0, 0] or graph.xcorr_launches != per_frame:
         raise AssertionError(f"{tag}: {counted} launches through the wrappers, "
                              f"{graph.xcorr_launches} xcorr kernels captured "
@@ -1050,6 +1228,7 @@ def phase_streams(tracker: Tracker, frames: np.ndarray, smi: str, tag: str = "st
     stepped, out = tracker.step_batched(states, dev[1])
     torch.cuda.synchronize()
     step_launches = read_launches()
+    check_route(tag, tracker.model.dtype == BF16)
     if step_launches != [3, 0, 0]:
         raise AssertionError(f"step_batched: {step_launches} launches, expected [3, 0, 0]")
     if single:
@@ -1085,6 +1264,7 @@ def phase_streams(tracker: Tracker, frames: np.ndarray, smi: str, tag: str = "st
     torch.cuda.synchronize()
     counted = read_launches()
     graph = tracker.graphs[(o, *FRAME_HW, torch.uint8)]
+    check_route(tag, tracker.model.dtype == BF16, graph)
     if counted[0] == 0 or counted[1:] != [0, 0] or graph.xcorr_launches != 3:
         raise AssertionError(f"{tag}: {counted} launches through the wrappers, "
                              f"{graph.xcorr_launches} xcorr kernels captured (expected 3)")
@@ -1233,6 +1413,7 @@ def phase_vos(model: SiamMaskSharp, p, smi: str) -> int:
     wall_b = time.perf_counter() - t0
     launches = read_launches()
     graph = runtime.tracker.graphs[(3, *FRAME_HW, torch.uint8)]
+    check_route("vos", False, graph)
     if launches != [3 * VOS_RAGGED, 0, 0] or graph.xcorr_launches != 3:
         raise AssertionError(f"vos: {launches} launches through the wrappers (expected "
                              f"{[3 * VOS_RAGGED, 0, 0]}), {graph.xcorr_launches} captured")
@@ -1394,6 +1575,7 @@ def phase_vot(models: dict, smi: str) -> tuple[int, dict]:
               f"{VOT_JUMP}-{VOT_JUMP + SKIP}; driver's fps (file reads excluded) "
               + ", ".join(f"{v:.1f}" for v in speeds) + f" | {smi}")
     launches = read_launches()
+    check_route("vot", False)
     gt = dataset["vid1"]["gt"][VOT_JUMP - 1]
     pred = gt + np.tile([7.5, -4.25], 4)
     t0 = time.perf_counter()
@@ -1472,6 +1654,7 @@ def phase_tune(smi: str) -> tuple[int, dict]:
             "vos": tune.main(vos)}
     wall = time.perf_counter() - t0
     launches = read_launches()
+    check_route("tune", False)
     again = tune.main([*vot, *TUNE_VOT])
     cells = [c for run in runs.values() for c in run["cells"]]
     scored = [run["scored"] for run in runs.values()]
@@ -1683,6 +1866,7 @@ def phase_train(trainer: Trainer, batch: dict) -> list[int]:
               + ", ".join(f"{k} {sum(v)}/{len(v)}" for k, v in sorted(moved.items())))
     torch.cuda.synchronize()
     launches = read_launches()
+    check_route("train", False)
     print(f"[train] 4 steps at B={TRAIN_BATCH}, width 64: launches {launches} "
           "(forward, grad-input, grad-kernel); stem and layer1 bit-identical throughout, "
           "layer2 through epoch 0")
@@ -1995,6 +2179,7 @@ def run_train_steps(tag: str, trainer: Trainer, batches, epochs, per_step: list[
               + " ".join(f"{k} {v:.4f}" for k, v in metrics.items() if k != "skipped")
               + f"; launches {counts}; {len(held)} frozen entries bit-identical; tensors "
               "moved " + ", ".join(f"{k} {sum(v)}/{len(v)}" for k, v in sorted(moved.items())))
+    check_route(tag, False)
     return read_launches()
 
 
@@ -2529,12 +2714,12 @@ def phase_dp_cards(init_state: dict, smi: str) -> None:
 
 
 def check_bf16_kernels(tag: str) -> None:
-    """Every xcorr kernel in ``tag``'s profiled graph call is a bf16
-    instantiation, by its name in the trace."""
+    """Every xcorr kernel in ``tag``'s profiled graph call is the packed
+    bf16 kernel, by its name in the trace."""
     got = MEASURED[tag]
-    if not got["xcorr"] or got["xcorr_bf16"] != got["xcorr"]:
-        raise AssertionError(f"[{tag}] {got['xcorr_bf16']} of {got['xcorr']} xcorr kernels in "
-                             "the trace are bf16 instantiations")
+    if not got["xcorr"] or got["xcorr_packed"] != got["xcorr"]:
+        raise AssertionError(f"[{tag}] {got['xcorr_packed']} of {got['xcorr']} xcorr kernels in "
+                             "the trace are the packed bf16 kernel")
 
 
 def print_beside(tag: str, fp32_tag: str, smi: str) -> None:
@@ -2566,8 +2751,9 @@ def phase_bf16(smi: str) -> dict:
     p = Config.load(str(CONFIG)).tracker_config()
     model, tracker, frames = build_model(p, dtype=BF16)
     state, track = phase_slice(tracker, frames, "bf16")
-    phase_cpu_parity(tracker, cpu_tracker_of(tracker), state, frames[STEPS + 2], "bf16-parity",
-                     bf16=True)
+    cpu_tracker = cpu_tracker_of(tracker)
+    phase_cpu_parity(tracker, cpu_tracker, state, frames[STEPS + 2], "bf16-parity", bf16=True)
+    bf16_size_shares(tracker, cpu_tracker, frames[:7], "bf16-parity")
     video, _ = phase_video(tracker, frames, smi, "bf16")
     streams, _ = phase_streams(tracker, frames, smi, "bf16-streams", single=False)
     del model, tracker, state
@@ -2611,6 +2797,7 @@ def phase_bf16_vos(model: SiamMaskSharp, p, smi: str) -> int:
                                  dataset="ytb_vos", save_mask=True, log=lambda *_: None)
     launches = read_launches()
     graph = runtime.tracker.graphs[(3, *FRAME_HW, torch.uint8)]
+    check_route("bf16-vos", True, graph)
     if launches != [3 * VOS_RAGGED, 0, 0] or graph.xcorr_launches != 3:
         raise AssertionError(f"bf16-vos: {launches} launches through the wrappers, "
                              f"{graph.xcorr_launches} captured")
@@ -2687,6 +2874,7 @@ def phase_bf16_vot(models: dict, smi: str) -> int:
               f"distance between the bf16 and fp32 regions' centres {drift:.2f} px; driver's "
               "fps (file reads excluded) " + ", ".join(f"{v:.1f}" for v in speeds) + f" | {smi}")
     launches = read_launches()
+    check_route("bf16-vot", True)
     expected = sum(k * stepped[n] for n, k in (("sharp", 3), ("base", 3), ("rpn", 2)))
     if launches != [expected, 0, 0]:
         raise AssertionError(f"bf16-vot: {launches} launches, expected {[expected, 0, 0]} from "
@@ -2755,15 +2943,19 @@ def phase_bf16_train(init_state: dict, batch: dict, cfg: Config, smi: str) -> li
               f"{metrics['loc_loss']:.4f} mask {metrics['mask_loss']:.4f} iou "
               f"{metrics['iou_mean']:.4f}; launches {counts}")
     launches = read_launches()
+    check_route("bf16-train", True)
     events, busy, step_ms = profile_call(lambda: trainer.step(batch, 1))
     names = {e.key: e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
              and "depthwise_xcorr" in e.key}
-    bf16 = sum(c for k, c in names.items() if "bfloat16" in k)
-    if bf16 != 9 or sum(names.values()) != 9:
+    packed = sum(c for k, c in names.items() if "depthwise_xcorr_strip_bf16x2_kernel" in k)
+    grad_kernel = sum(c for k, c in names.items()
+                      if "depthwise_xcorr_grad_kernel_kernel" in k and "bfloat16" in k)
+    if (packed, grad_kernel) != (6, 3) or sum(names.values()) != 9:
         raise AssertionError(f"bf16-train: xcorr kernels in a step's trace {names}")
     kinds = sorted({re.search(r"depthwise_xcorr\w*<[^>]*>", k).group(0) for k in names})
-    print(f"[bf16-train] profiled unfrozen step: 9 xcorr kernels, all bf16 instantiations "
-          f"({', '.join(kinds)}); device busy {busy:.2f} ms of {step_ms:.2f} ms")
+    print(f"[bf16-train] profiled unfrozen step: 9 xcorr kernels, forward and grad-input the "
+          f"packed bf16 kernel, grad-kernel its bf16 instantiation ({', '.join(kinds)}); device "
+          f"busy {busy:.2f} ms of {step_ms:.2f} ms")
     phase_train_timing(trainer, batch, smi, "bf16-train-timing", mode="bf16")
     for label in ("frozen", "unfrozen"):
         (ms16, peak16), (ms32, peak32) = (MEASURED[t][label] for t in ("bf16-train-timing",
@@ -2927,6 +3119,8 @@ def phase_sharded(p, smi: str) -> int:
     sync_all()
     counted = read_launches()
     graphs = [r.graphs[(o // 2, *FRAME_HW, torch.uint8)] for r in server.replicas]
+    for graph in graphs:
+        check_route("sharded", False, graph)
     if counted[0] == 0 or counted[1:] != [0, 0] or any(g.xcorr_launches != 3 for g in graphs):
         raise AssertionError(f"[sharded] {counted} launches through the wrappers, "
                              f"{[g.xcorr_launches for g in graphs]} xcorr kernels captured")
@@ -2958,7 +3152,9 @@ def phase_sharded(p, smi: str) -> int:
 def main() -> None:
     smi = phase_device()
     phase_build()
-    records = [phase_kernels(), *phase_grad_kernels()]
+    strip, packed = phase_kernels()
+    strip_input, grad_kernel, packed_input = phase_grad_kernels()
+    records = [strip, strip_input, grad_kernel, packed, packed_input]
     p = Config.load(str(CONFIG)).tracker_config()
     model, tracker, frames = build_model(p)
     cpu_tracker = cpu_tracker_of(tracker)
@@ -3036,16 +3232,21 @@ def main() -> None:
              "dp": dp_launches, "sharded": [sharded_launches, 0, 0],
              **bf16_paths, "bf16_vos": [bf16_vos_launches, 0, 0],
              "bf16_vot": [bf16_vot_launches, 0, 0], "bf16_train": bf16_train_launches}
+    # by kernel: check_route held every bf16 path's forward and grad-input
+    # launches to the packed kernel and every fp32 path's to the strip kernel
+    by_kernel = {k: [0, 0, v[2], *v[:2]] if k.startswith("bf16") else [*v, 0, 0]
+                 for k, v in paths.items()}
     for i, record in enumerate(records):
-        record["launches_by_path"] = {k: v[i] for k, v in paths.items()}
+        record["launches_by_path"] = {k: v[i] for k, v in by_kernel.items()}
         record["launches"] = sum(record["launches_by_path"].values())
-    print("[launches] " + ", ".join(f"{k} {v}" for k, v in paths.items())
-          + " (forward, grad-input, grad-kernel)")
+    print("[launches] " + ", ".join(f"{k} {v}" for k, v in by_kernel.items())
+          + " (strip forward, strip grad-input, grad-kernel, packed bf16 forward, packed bf16 "
+          "grad-input)")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "launches_by_path", "stage2", "local_batches",
-             "bf16"]
+             "bf16_scalar", "bf16", "by_shape"]
     print(smi)
-    print(json.dumps({"kernels": [{key: r[key] for key in order} for r in records]}))
+    print(json.dumps({"kernels": [{key: r[key] for key in order if key in r} for r in records]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

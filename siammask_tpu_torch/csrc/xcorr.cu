@@ -88,10 +88,21 @@
 // grad-kernel in fp32 but is not used: cp.async copies at least 4 bytes, so
 // bf16 and ragged C would need a second path. PERF.md has the times.
 //
+// The strip kernel's bf16 instantiation took 1.7-2x the fp32 kernel's time
+// while it moves half the bytes, at B=1 too (6.2 against 3.1-3.3 us). Not
+// for want of registers: ptxas gives it 119 / 124 registers (forward /
+// grad-input) and no spills against fp32's 116 / 118, so an SM holds the
+// same 16 warps. Its loads are the cause: each 16-bit load is converted to
+// float32 as it arrives, and ptxas issues them a few at a time behind those
+// conversions, so a warp waits out one memory latency per few loads, where
+// the fp32 kernel issues a row of loads at once. The packed bf16 kernel
+// below is the bf16 path's forward and grad-input on the model's shapes.
+//
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cstdint>
 
 namespace {
 
@@ -217,6 +228,187 @@ __global__ void __launch_bounds__(kChannelTile * kStripWarps)
     for (int d = 0; d < kTapRows - 1; ++d)
 #pragma unroll
       for (int t = 0; t < W; ++t) w[d][t] = w[d + 1][t];
+  }
+}
+
+// ---- bf16, packed: the forward and grad-input of the bf16 model's paths ----
+//
+// `depthwise_xcorr_strip_bf16x2_kernel` keeps the strip kernel's design and
+// removes the two costs of its bf16 instantiation (the header): a lane takes
+// 2 * kPackWords neighbouring channels (a warp 64 with one word, one 128-byte
+// line a load, as in fp32), and the taps and the rolling window stay packed
+// in registers as raw words of two bf16 (one 32-bit register a channel pair,
+// so the window costs what the fp32 kernel's one-channel window costs). The
+// loads go straight into the window's registers, so a row of them issues at
+// once, and a value is unpacked to float32 (exactly: a bf16 is the top half
+// of its float32) only at its FMA. Each channel accumulates in float32 with
+// fmaf in `xcorr_row`'s (dy, dx) order and is rounded to bf16 once, at the
+// store, so the output is bit for bit the scalar instantiation's. The
+// wrapper takes this kernel for bf16 when C is a multiple of 2 * kPackWords,
+// the template at most kTapRows x kTapCols and every pointer 4 * kPackWords-
+// byte aligned; the scalar instantiation otherwise. Four channels a lane
+// (kPackWords = 2, 8-byte loads) took 255 registers with spills and was
+// slower on the H100, as were other band splits and a 128-register cap
+// (PERF.md, scripts/bench_xcorr_bf16.py).
+constexpr int kPackWords = 1;        // 32-bit words of two bf16 a lane
+constexpr int kPackedWarpsPerSM = 8; // as kStripWarpsPerSM, for the packed kernel
+constexpr int kPackedBandRows = 16;  // as kStripBandRows, for the packed kernel
+
+__device__ __forceinline__ float bf16_lo(unsigned int u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned int u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// the two floats rounded to bf16 as `__float2bfloat16` rounds one
+__device__ __forceinline__ unsigned int pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return (unsigned int)__bfloat16_as_ushort(v.x) |
+         ((unsigned int)__bfloat16_as_ushort(v.y) << 16);
+}
+
+// dst = the P words at p, read as one 4P-byte load
+template <int P>
+__device__ __forceinline__ void load_words(unsigned int (&dst)[P], const __nv_bfloat16* p) {
+  if constexpr (P == 1) {
+    dst[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else {
+    static_assert(P == 2, "one or two words a lane");
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    dst[0] = v.x;
+    dst[1] = v.y;
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void store_words(__nv_bfloat16* p, const unsigned int (&src)[P]) {
+  if constexpr (P == 1)
+    *reinterpret_cast<unsigned int*>(p) = src[0];
+  else
+    *reinterpret_cast<uint2*>(p) = make_uint2(src[0], src[1]);
+}
+
+// dst[t] = the words at p + t * c for lo <= t < n, 0 elsewhere.
+template <int P, int N>
+__device__ __forceinline__ void load_packed_row(unsigned int (&dst)[N][P],
+                                                const __nv_bfloat16* p, int c, int lo, int n) {
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    if (t >= lo && t < n) {
+      load_words<P>(dst[t], p + t * c);
+    } else {
+#pragma unroll
+      for (int q = 0; q < P; ++q) dst[t][q] = 0u;
+    }
+  }
+}
+
+// `xcorr_row` on packed words: channel 2q + h of the lane (h = 0 the low
+// half) takes acc[2q + h][s], with the same FMAs in the same order.
+template <int P, bool kFull, bool kFullCorr>
+__device__ __forceinline__ void xcorr_row_packed(
+    float (&acc)[2 * P][kStrip], const unsigned int (&w)[kTapRows][kStrip + kTapCols - 1][P],
+    const unsigned int (&kr)[kTapRows][kTapCols][P], int hk, int wk) {
+#pragma unroll
+  for (int dy = 0; dy < kTapRows; ++dy) {
+    if (!kFull && dy >= hk) break;
+    const int d = kFullCorr ? kTapRows - 1 - dy : dy;
+#pragma unroll
+    for (int dx = 0; dx < kTapCols; ++dx) {
+      if (!kFull && dx >= wk) break;
+      const int t = kFullCorr ? kTapCols - 1 - dx : dx;
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const float k0 = bf16_lo(kr[dy][dx][q]), k1 = bf16_hi(kr[dy][dx][q]);
+#pragma unroll
+        for (int s = 0; s < kStrip; ++s) {
+          acc[2 * q][s] = fmaf(bf16_lo(w[d][s + t][q]), k0, acc[2 * q][s]);
+          acc[2 * q + 1][s] = fmaf(bf16_hi(w[d][s + t][q]), k1, acc[2 * q + 1][s]);
+        }
+      }
+    }
+  }
+}
+
+// `depthwise_xcorr_strip_kernel` for bf16 with 2P channels a lane: the same
+// units, window, zero rows and columns and output order.
+template <int P, bool kFullCorr>
+__global__ void __launch_bounds__(kChannelTile * kStripWarps)
+    depthwise_xcorr_strip_bf16x2_kernel(const __nv_bfloat16* __restrict__ src,
+                                        const __nv_bfloat16* __restrict__ k,
+                                        __nv_bfloat16* __restrict__ dst, int hs, int ws, int c,
+                                        int hk, int wk, int hd, int wd, int strips, int band,
+                                        int bands, long long units) {
+  constexpr int V = 2 * P, S = kStrip, W = S + kTapCols - 1;
+  constexpr int oy = kFullCorr ? kTapRows - 1 : 0, ox = kFullCorr ? kTapCols - 1 : 0;
+  const long long unit = (long long)blockIdx.x * kStripWarps + threadIdx.y;
+  const int tiles = (c + kChannelTile * V - 1) / (kChannelTile * V);
+  const int ch = (int)(unit % tiles) * kChannelTile * V + threadIdx.x * V;
+  if (unit >= units || ch >= c) return;
+  long long rest = unit / tiles;
+  const int i0 = (int)(rest % bands) * band;
+  rest /= bands;
+  const int j0 = (int)(rest % strips) * S;
+  const long long b = rest / strips;
+  const int i1 = min(hd, i0 + band);
+  const int lo = kFullCorr ? max(0, ox - j0) : 0;
+  const int hi = kFullCorr ? min(W, ws - j0 + ox) : min(S + wk - 1, ws - j0);
+
+  unsigned int kr[kTapRows][kTapCols][P];
+  const __nv_bfloat16* kb = k + b * hk * wk * c + ch;
+#pragma unroll
+  for (int dy = 0; dy < kTapRows; ++dy)
+#pragma unroll
+    for (int dx = 0; dx < kTapCols; ++dx) {
+      if (dy < hk && dx < wk) {
+        load_words<P>(kr[dy][dx], kb + (dy * wk + dx) * c);
+      } else {
+#pragma unroll
+        for (int q = 0; q < P; ++q) kr[dy][dx][q] = 0u;
+      }
+    }
+
+  const long long row = (long long)ws * c;
+  const __nv_bfloat16* sb = src + ((b * hs + i0) * ws + j0 - ox) * c + ch;
+  auto load_src = [&](unsigned int(&d)[W][P], int r) {  // src row r
+    const bool inside = (!kFullCorr || r >= 0) && r < hs;
+    load_packed_row<P>(d, sb + (r - i0) * row, c, lo, inside ? hi : 0);
+  };
+  unsigned int w[kTapRows][W][P], nx[W][P];
+#pragma unroll
+  for (int d = 0; d < kTapRows - 1; ++d) load_src(w[d], i0 - oy + d);
+  load_src(nx, i0 - oy + kTapRows - 1);
+  const bool full = hk == kTapRows && wk == kTapCols;
+  __nv_bfloat16* ob = dst + ((b * hd + i0) * wd + j0) * c + ch;
+  for (int i = i0; i < i1; ++i) {
+#pragma unroll
+    for (int t = 0; t < W; ++t)
+#pragma unroll
+      for (int q = 0; q < P; ++q) w[kTapRows - 1][t][q] = nx[t][q];
+    if (i + 1 < i1) load_src(nx, i + 1 - oy + kTapRows - 1);
+    float acc[V][S];
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+#pragma unroll
+      for (int s = 0; s < S; ++s) acc[v][s] = 0.0f;
+    if (full)
+      xcorr_row_packed<P, true, kFullCorr>(acc, w, kr, hk, wk);
+    else
+      xcorr_row_packed<P, false, kFullCorr>(acc, w, kr, hk, wk);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (j0 + s < wd) {
+        unsigned int out[P];
+#pragma unroll
+        for (int q = 0; q < P; ++q) out[q] = pack_bf16x2(acc[2 * q][s], acc[2 * q + 1][s]);
+        store_words<P>(ob + (long long)(i - i0) * wd * c + s * c, out);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < kTapRows - 1; ++d)
+#pragma unroll
+      for (int t = 0; t < W; ++t)
+#pragma unroll
+        for (int q = 0; q < P; ++q) w[d][t][q] = w[d + 1][t][q];
   }
 }
 
@@ -433,6 +625,47 @@ cudaError_t launch(const void* src_, const void* k_, void* dst_, int b, int hx, 
   return cudaGetLastError();
 }
 
+// The packed bf16 forward or grad-input (the arguments as `launch`'s). It
+// returns cudaErrorInvalidValue for what the packed kernel does not take: a
+// template larger than kTapRows x kTapCols, C not a multiple of 2 * kPackWords
+// or a pointer not 4 * kPackWords-byte aligned (the wrapper sends those to
+// the scalar kernel).
+template <bool kFullCorr>
+cudaError_t launch_bf16x2(const void* src_, const void* k_, void* dst_, int b, int hx, int wx,
+                          int c, int hk, int wk, int device, cudaStream_t stream) {
+  constexpr int V = 2 * kPackWords, align = 4 * kPackWords;
+  if (hk > kTapRows || wk > kTapCols || c % V != 0 ||
+      reinterpret_cast<uintptr_t>(src_) % align != 0 ||
+      reinterpret_cast<uintptr_t>(k_) % align != 0 ||
+      reinterpret_cast<uintptr_t>(dst_) % align != 0)
+    return cudaErrorInvalidValue;
+  const int ho = hx - hk + 1, wo = wx - wk + 1;
+  const int hs = kFullCorr ? ho : hx, ws = kFullCorr ? wo : wx;
+  const int hd = kFullCorr ? hx : ho, wd = kFullCorr ? wx : wo;
+  if ((long long)b * hd * wd * c == 0) return cudaSuccess;
+  int sms = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  // bands of at most kPackedBandRows output rows, shorter ones (down to one
+  // row) while the grid has fewer than kPackedWarpsPerSM warps per SM
+  const int strips = (wd + kStrip - 1) / kStrip;
+  const long long columns = (long long)b * ((c + kChannelTile * V - 1) / (kChannelTile * V)) *
+                            strips;
+  const long long fill = ((long long)kPackedWarpsPerSM * sms + columns - 1) / columns;
+  const int split = (int)std::min<long long>(
+      hd, std::max<long long>(fill, (hd + kPackedBandRows - 1) / kPackedBandRows));
+  const int band = (hd + split - 1) / split;
+  const int bands = (hd + band - 1) / band;
+  const long long units = columns * bands;
+  depthwise_xcorr_strip_bf16x2_kernel<kPackWords, kFullCorr>
+      <<<(unsigned int)((units + kStripWarps - 1) / kStripWarps),
+         dim3(kChannelTile, kStripWarps), 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(src_), static_cast<const __nv_bfloat16*>(k_),
+          static_cast<__nv_bfloat16*>(dst_), hs, ws, c, hk, wk, hd, wd, strips, band, bands,
+          units);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_grad_kernel(const void* x, const void* g, void* dk, int b, int hx, int wx, int c,
                                int hk, int wk, cudaStream_t stream) {
@@ -451,38 +684,50 @@ cudaError_t launch_grad_kernel(const void* x, const void* g, void* dk, int b, in
 
 // Each entry launches on the caller's stream, does not synchronise, allocates
 // nothing and returns cudaGetLastError() after the launch.
-// dtype: 0 = float32, 1 = bfloat16. Shapes are validated by the Python wrapper;
-// (hk, wk) is always the template's size and (hx, wx) the search map's.
+// dtype: 0 = float32, 1 = bfloat16. kernel: 0 = the kernel of that type (one
+// channel a lane), 1 = the packed bf16 kernel (bf16 forward and grad-input
+// only; the Python wrapper chooses). Shapes are validated by the Python
+// wrapper; (hk, wk) is always the template's size and (hx, wx) the search
+// map's.
 extern "C" int siammask_depthwise_xcorr(const void* x, const void* k, void* out, int b, int hx,
-                                        int wx, int c, int hk, int wk, int dtype, int device,
-                                        void* stream) {
+                                        int wx, int c, int hk, int wk, int dtype, int kernel,
+                                        int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float, false>(x, k, out, b, hx, wx, c, hk, wk, device, s);
-  if (dtype == 1)
+  if (dtype == 0 && kernel == 0)
+    return (int)launch<float, false>(x, k, out, b, hx, wx, c, hk, wk, device, s);
+  if (dtype == 1 && kernel == 0)
     return (int)launch<__nv_bfloat16, false>(x, k, out, b, hx, wx, c, hk, wk, device, s);
+  if (dtype == 1 && kernel == 1)
+    return (int)launch_bf16x2<false>(x, k, out, b, hx, wx, c, hk, wk, device, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int siammask_depthwise_xcorr_grad_input(const void* g, const void* k, void* dx, int b,
                                                    int hx, int wx, int c, int hk, int wk,
-                                                   int dtype, int device, void* stream) {
+                                                   int dtype, int kernel, int device,
+                                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float, true>(g, k, dx, b, hx, wx, c, hk, wk, device, s);
-  if (dtype == 1)
+  if (dtype == 0 && kernel == 0)
+    return (int)launch<float, true>(g, k, dx, b, hx, wx, c, hk, wk, device, s);
+  if (dtype == 1 && kernel == 0)
     return (int)launch<__nv_bfloat16, true>(g, k, dx, b, hx, wx, c, hk, wk, device, s);
+  if (dtype == 1 && kernel == 1)
+    return (int)launch_bf16x2<true>(g, k, dx, b, hx, wx, c, hk, wk, device, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int siammask_depthwise_xcorr_grad_kernel(const void* x, const void* g, void* dk, int b,
                                                     int hx, int wx, int c, int hk, int wk,
-                                                    int dtype, int device, void* stream) {
+                                                    int dtype, int kernel, int device,
+                                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)launch_grad_kernel<float>(x, g, dk, b, hx, wx, c, hk, wk, s);
   if (dtype == 1)
     return (int)launch_grad_kernel<__nv_bfloat16>(x, g, dk, b, hx, wx, c, hk, wk, s);

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from siammask_tpu_torch.models.resnet import Conv2d
+from siammask_tpu_torch.models.resnet import BatchNorm2d, Conv2d
 from siammask_tpu_torch.ops.resize import upsample_nearest
 from siammask_tpu_torch.ops.unfold import unfold_windows
 from siammask_tpu_torch.ops.xcorr import depthwise_xcorr
@@ -36,7 +36,7 @@ class ResDownS(nn.Module):
         super().__init__()
         self.downsample = nn.Sequential(
             Conv2d(in_channels, out_channels, 1, bias=False, dtype=dtype),
-            nn.BatchNorm2d(out_channels))
+            BatchNorm2d(out_channels))
 
     def forward(self, x):
         x = self.downsample(x)
@@ -51,7 +51,7 @@ class ConvBNRelu(nn.Sequential):
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
                  dtype: torch.dtype | None = None):
         super().__init__(Conv2d(in_channels, out_channels, kernel, bias=False, dtype=dtype),
-                         nn.BatchNorm2d(out_channels), nn.ReLU(inplace=True))
+                         BatchNorm2d(out_channels), nn.ReLU(inplace=True))
 
 
 class DepthCorr(nn.Module):
@@ -63,7 +63,7 @@ class DepthCorr(nn.Module):
         self.conv_kernel = ConvBNRelu(in_channels, hidden, kernel_size, dtype)
         self.conv_search = ConvBNRelu(in_channels, hidden, kernel_size, dtype)
         self.head = nn.Sequential(Conv2d(hidden, hidden, 1, bias=False, dtype=dtype),
-                                  nn.BatchNorm2d(hidden), nn.ReLU(inplace=True),
+                                  BatchNorm2d(hidden), nn.ReLU(inplace=True),
                                   Conv2d(hidden, out_channels, 1, dtype=dtype))
 
     def forward_corr(self, kernel, search):

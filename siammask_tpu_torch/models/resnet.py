@@ -25,13 +25,16 @@ bare ``train()`` leaves every frozen stage in eval.
 its input and weight to it (``Conv2d``), so with ``torch.bfloat16`` the
 activations are bf16 over float32 parameters. BatchNorm takes the bf16
 conv output with its float32 statistics and affine terms, normalises in
-float32 and returns bf16, as flax's ``BatchNorm(dtype=bf16)`` does.
+float32 and returns bf16, as flax's ``BatchNorm(dtype=bf16)`` does. Its
+running variance takes the biased batch variance, as flax's does
+(``BatchNorm2d``).
 ``None`` (the default) casts nothing: the model computes in its
 parameters' dtype, float32, or float64 after ``model.double()``.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -53,6 +56,31 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose running variance, in training mode, takes the
+    biased batch variance, as flax's ``BatchNorm`` does (PyTorch's takes the
+    unbiased one). The normalisation, parameters, buffers and state-dict
+    keys are ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        f = self.momentum if self.momentum is not None else 1 / float(self.num_batches_tracked)
+        # the native update sets var <- (1 - f) var + f * batch_var * n / (n - 1);
+        # from var * n / (n - 1), and times (n - 1) / n after it, that is
+        # (1 - f) var + f * batch_var. The scaled copy, not the buffer, is
+        # what autograd keeps.
+        n = x.numel() // x.shape[1]
+        scaled = self.running_var * (n / (n - 1))
+        out = F.batch_norm(x, self.running_mean, scaled, self.weight, self.bias, True, f,
+                           self.eps)
+        with torch.no_grad():
+            torch.mul(scaled, (n - 1) / n, out=self.running_var)
+        return out
+
+
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (stride, dilation) -> 1x1 bottleneck, BN after each."""
     expansion = 4
@@ -62,12 +90,12 @@ class Bottleneck(nn.Module):
         super().__init__()
         padding = dilation if dilation > 1 else 2 - stride
         self.conv1 = Conv2d(inplanes, planes, 1, bias=False, dtype=dtype)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=padding,
                             dilation=dilation, bias=False, dtype=dtype)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = Conv2d(planes, planes * 4, 1, bias=False, dtype=dtype)
-        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
@@ -86,13 +114,13 @@ def _make_layer(inplanes: int, planes: int, blocks: int, stride: int = 1,
     if stride == 1 and dilation == 1:
         dd = 1
         downsample = nn.Sequential(Conv2d(inplanes, out, 1, bias=False, dtype=dtype),
-                                   nn.BatchNorm2d(out))
+                                   BatchNorm2d(out))
     else:
         dd, pad = (dilation // 2, dilation // 2) if dilation > 1 else (1, 0)
         downsample = nn.Sequential(
             Conv2d(inplanes, out, 3, stride=stride, padding=pad, dilation=dd, bias=False,
                    dtype=dtype),
-            nn.BatchNorm2d(out))
+            BatchNorm2d(out))
     layers = [Bottleneck(inplanes, planes, stride, dd, downsample, dtype)]
     layers += [Bottleneck(out, planes, dilation=dilation, dtype=dtype)
                for _ in range(1, blocks)]
@@ -108,7 +136,7 @@ class ResNet50Tracking(nn.Module):
         super().__init__()
         w = width
         self.conv1 = Conv2d(3, w, 7, stride=2, padding=0, bias=False, dtype=dtype)
-        self.bn1 = nn.BatchNorm2d(w)
+        self.bn1 = BatchNorm2d(w)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         self.layer1 = _make_layer(w, w, 3, dtype=dtype)

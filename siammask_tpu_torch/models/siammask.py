@@ -28,6 +28,12 @@ optimizer and checkpoints do not change; ``None`` (the default) computes in
 the parameters' dtype. Under bf16 the outputs are bf16, but Refine's logits
 start from a float32 deconv (``heads.DeconvExpand``); the xcorr runs its
 bf16 kernels, forward and backward.
+
+Building a float32 model (``dtype`` None or ``torch.float32``) switches
+TF32 off for the whole process, ``torch.backends.cudnn.allow_tf32`` and
+``torch.backends.cuda.matmul.allow_tf32`` both False, so that its convs
+and products run in full float32 on the card, the JAX package's float32
+reference mode. A bf16 model leaves both flags as they are.
 """
 from __future__ import annotations
 
@@ -72,6 +78,9 @@ class SiamRPN(nn.Module):
 
     def __init__(self, anchor_num: int = 5, width: int = 64, dtype: torch.dtype | None = None):
         super().__init__()
+        if dtype in (None, torch.float32):   # the float32 reference mode
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
         self.anchor_num = anchor_num
         self.width = width
         self.dtype = dtype
@@ -239,7 +248,8 @@ def build_model(arch: str, anchor_num: int = 5, width: int = 64,
                 dtype: torch.dtype | None = None) -> SiamRPN:
     """The model of a reference ``--arch`` name (``tools/test.py``):
     ``Custom``/``SiamMaskSharp``, ``SiamMaskBase`` or ``SiamRPN``, computing
-    in ``dtype``."""
+    in ``dtype``. A float32 model switches the process's TF32 flags off
+    (the module docstring)."""
     families = {"Custom": SiamMaskSharp, "SiamMaskSharp": SiamMaskSharp,
                 "SiamMaskBase": SiamMaskBase, "SiamRPN": SiamRPN}
     if arch not in families:

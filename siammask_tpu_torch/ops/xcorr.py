@@ -17,8 +17,16 @@ k (B, Hk, Wk, C) -> (B, Hx-Hk+1, Wx-Wk+1, C). For SiamMask:
 - ``depthwise_xcorr_grad_input`` / ``depthwise_xcorr_grad_kernel``: the
   gradient wrappers the backward calls; the backward computes each only for
   an input that needs it.
+- In bf16 the forward and grad-input launch one of two hand-written
+  kernels, which ``uses_packed_kernel`` picks from the dtype, C, the
+  template's size and the pointers' alignment: the packed kernel (two
+  channels a lane, 4-byte loads; the model's shapes take it) or the strip
+  kernel's bf16 instantiation (one channel a lane: odd C, or a storage
+  offset that breaks the alignment). Both give the same bits.
 - Each wrapper counts its kernel launches in ``<wrapper>.launches``, a
-  host counter that moves where the wrapper launches. A launch captured
+  host counter that moves where the wrapper launches, and the packed
+  kernel's among them in ``<wrapper>.packed_launches`` (forward and
+  grad-input). A launch captured
   into a CUDA graph counts once, at capture: each replay launches the kernel
   again without passing through the wrapper, so a graph path launches its
   captured count (``tracker.StepGraph.xcorr_launches``) times its replays.
@@ -36,6 +44,10 @@ from torch.autograd.function import once_differentiable
 from siammask_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/xcorr.cu's packed kernel: channels a lane (2 * kPackWords) and the
+# largest template its register window holds (kTapRows x kTapCols)
+_PACKED_CHANNELS = 2
+_PACKED_TAPS = 5
 
 
 def _to_groups(t: torch.Tensor) -> torch.Tensor:
@@ -107,16 +119,36 @@ def _check(x: torch.Tensor, k: torch.Tensor) -> None:
         raise ValueError(f"template {hk}x{wk} does not fit search {hx}x{wx}")
 
 
-def _launch(entry: str, a: torch.Tensor, b_: torch.Tensor, out_shape: tuple,
+def uses_packed_kernel(*ts: torch.Tensor) -> bool:
+    """Whether a forward (x, k, out) or grad-input (g, k, dx) call on these
+    tensors takes the packed bf16 kernel: bf16, C a multiple of the
+    channels a lane, a template (``ts[1]``) of at most 5x5 and every
+    pointer aligned to a lane's load. Else it takes the strip kernel of
+    its dtype, one channel a lane."""
+    _, hk, wk, c = ts[1].shape
+    align = 2 * _PACKED_CHANNELS    # bytes a lane loads
+    return (ts[0].dtype == torch.bfloat16 and c % _PACKED_CHANNELS == 0
+            and hk <= _PACKED_TAPS and wk <= _PACKED_TAPS
+            and all(t.data_ptr() % align == 0 for t in ts))
+
+
+def _launch(wrapper, entry: str, a: torch.Tensor, b_: torch.Tensor, out_shape: tuple,
             dims: tuple) -> torch.Tensor:
-    """Launch one C entry on the current stream; ``dims`` is
-    (b, hx, wx, c, hk, wk). Raises on a non-zero CUDA code."""
+    """Launch one C entry on the current stream, the packed kernel where
+    ``uses_packed_kernel`` says so (never for grad-kernel), and count it on
+    ``wrapper``; ``dims`` is (b, hx, wx, c, hk, wk). Raises on a non-zero
+    CUDA code."""
     lib = _build.load_library()
     out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
+    packed = wrapper is not depthwise_xcorr_grad_kernel and uses_packed_kernel(a, b_, out)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     code = getattr(lib, entry)(a.data_ptr(), b_.data_ptr(), out.data_ptr(), *dims,
-                               _DTYPE_CODE[a.dtype], a.device.index, ctypes.c_void_p(stream))
-    _build.check(lib, code, f"{entry} launch")
+                               _DTYPE_CODE[a.dtype], int(packed), a.device.index,
+                               ctypes.c_void_p(stream))
+    _build.check(lib, code, f"{entry} launch" + (" (packed bf16 kernel)" if packed else ""))
+    wrapper.launches += 1
+    if packed:
+        wrapper.packed_launches += 1
     return out
 
 
@@ -125,10 +157,8 @@ def _forward(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         return depthwise_xcorr_reference(x, k)
     b, hx, wx, c = x.shape
     _, hk, wk, _ = k.shape
-    out = _launch("siammask_depthwise_xcorr", x, k, (b, hx - hk + 1, wx - wk + 1, c),
-                  (b, hx, wx, c, hk, wk))
-    depthwise_xcorr.launches += 1
-    return out
+    return _launch(depthwise_xcorr, "siammask_depthwise_xcorr", x, k,
+                   (b, hx - hk + 1, wx - wk + 1, c), (b, hx, wx, c, hk, wk))
 
 
 def depthwise_xcorr_grad_input(g: torch.Tensor, k: torch.Tensor, hx: int,
@@ -143,10 +173,8 @@ def depthwise_xcorr_grad_input(g: torch.Tensor, k: torch.Tensor, hx: int,
                          f"{tuple(k.shape)} and search {hx}x{wx}")
     if g.device.type == "cpu":
         return depthwise_xcorr_grad_input_reference(g, k, hx, wx)
-    dx = _launch("siammask_depthwise_xcorr_grad_input", g, k, (b, hx, wx, c),
-                 (b, hx, wx, c, hk, wk))
-    depthwise_xcorr_grad_input.launches += 1
-    return dx
+    return _launch(depthwise_xcorr_grad_input, "siammask_depthwise_xcorr_grad_input", g, k,
+                   (b, hx, wx, c), (b, hx, wx, c, hk, wk))
 
 
 def depthwise_xcorr_grad_kernel(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -160,10 +188,8 @@ def depthwise_xcorr_grad_kernel(x: torch.Tensor, g: torch.Tensor) -> torch.Tenso
     if x.device.type == "cpu":
         return depthwise_xcorr_grad_kernel_reference(x, g)
     hk, wk = hx - ho + 1, wx - wo + 1
-    dk = _launch("siammask_depthwise_xcorr_grad_kernel", x, g, (b, hk, wk, c),
-                 (b, hx, wx, c, hk, wk))
-    depthwise_xcorr_grad_kernel.launches += 1
-    return dk
+    return _launch(depthwise_xcorr_grad_kernel, "siammask_depthwise_xcorr_grad_kernel", x, g,
+                   (b, hk, wk, c), (b, hx, wx, c, hk, wk))
 
 
 class DepthwiseXcorr(torch.autograd.Function):
@@ -200,3 +226,5 @@ def depthwise_xcorr(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 depthwise_xcorr.launches = 0
 depthwise_xcorr_grad_input.launches = 0
 depthwise_xcorr_grad_kernel.launches = 0
+depthwise_xcorr.packed_launches = 0
+depthwise_xcorr_grad_input.packed_launches = 0

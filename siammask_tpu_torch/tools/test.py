@@ -15,8 +15,10 @@ runs on the CPU). It runs the reference's test matrix::
 checkpoint's ``state_dict``) through ``load_reference_state_dict``; without
 it the weights are random, from seed 0. ``--dtype bfloat16`` builds the
 model in bf16 compute over float32 parameters (``build_model(dtype=...)``);
-``float32`` is the default. On the card TF32 is off (the fp32 reference
-mode). ``main(argv)`` returns the totals.
+``float32`` is the default, with TF32 off (the fp32 reference mode; the
+float32 model switches it off as it is built). ``--arch`` is accepted and
+ignored, as the JAX package's CLI does: the config's ``arch`` picks the
+model. ``main(argv)`` returns the totals.
 """
 from __future__ import annotations
 
@@ -38,6 +40,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="Test SiamMask (PyTorch port)")
     parser.add_argument("--config", required=True)
     parser.add_argument("--resume", default=None, help="a reference .pth checkpoint")
+    parser.add_argument("--arch", default="Custom",
+                        help="ignored, as in the JAX package's CLI: the config's arch "
+                             "picks the model")
     parser.add_argument("--mask", action="store_true")
     parser.add_argument("--refine", action="store_true")
     parser.add_argument("--dataset", default="VOT2018")
@@ -67,11 +72,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 def load_model(arch: str, anchor_num: int, resume: str | None, device: torch.device,
                dtype: torch.dtype = torch.float32):
     """The arch's model in eval mode on ``device``, computing in ``dtype``,
-    with the checkpoint's weights or seeded random ones. On the card TF32 is
-    switched off, so the float32 convs run the fp32 reference mode."""
-    if device.type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    with the checkpoint's weights or seeded random ones. A float32 model
+    switches TF32 off as it is built (``build_model``)."""
     model = build_model(arch, anchor_num, dtype=dtype)
     if resume:
         ckpt = torch.load(resume, map_location="cpu", weights_only=True)

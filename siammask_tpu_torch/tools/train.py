@@ -16,12 +16,13 @@ tensorboard scalars are in the log line. The two-stage recipe::
 ``--pretrained`` takes a ``.pth``, a checkpoint or a bare state_dict with
 the reference names, with or without ``module.``, merged non-strictly (what
 it lacks keeps its seeded init); ``--resume`` continues a checkpoint of this
-CLI (weights, momentum, epoch, and the data's shuffle, so that with
-``--seed`` the resumed run is the uninterrupted one; the JAX package's CLI
-shuffles anew from the first generation on resume, so a resumed run of it
-trains on other pairs than the port's). A checkpoint ``checkpoint_e{N}.pth``
-is written after each epoch. On the card TF32 is off (the fp32 reference
-mode). ``main(argv)`` returns the last step's metrics.
+CLI (weights, momentum and epoch; the data's shuffle starts anew from its
+first generation, as the JAX package's CLI does, so with ``--seed`` a
+resumed run draws the pairs the JAX CLI's resumed run draws, which are not
+the uninterrupted run's). A checkpoint ``checkpoint_e{N}.pth`` is written
+after each epoch. TF32 is off (the fp32 reference mode: the float32 model
+switches it off as it is built). ``main(argv)`` returns the last step's
+metrics.
 
 Data parallel: ``--batch`` is the global batch. ``--num-devices N`` spawns N
 ranks, one card each over NCCL, or N gloo processes with ``--device cpu``;
@@ -121,9 +122,6 @@ def train(rank: int, world: int, device: torch.device, args) -> dict[str, float]
     logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
                         format="%(asctime)s %(levelname)s %(message)s")
     log = logging.getLogger("train")
-    if device.type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
     log.info(f"torch {torch.__version__} device {device}"
              + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
              + (f", {world} ranks over {dist.get_backend()}" if world > 1 else ""))
@@ -157,8 +155,6 @@ def train(rank: int, world: int, device: torch.device, args) -> dict[str, float]
                       fused_allreduce=args.fused_allreduce, sync_bn=args.sync_bn,
                       remat=args.remat)
     start_epoch = trainer.restore(args.resume) if args.resume else 0
-    for _ in range(start_epoch):    # the epochs done draw the data they drew
-        dataset.shuffle()
 
     step = start_epoch * len(loader)
     metrics: dict[str, torch.Tensor] = {}

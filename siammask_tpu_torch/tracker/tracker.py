@@ -124,8 +124,9 @@ class StepGraph:
     ``out`` out. The captured step ends by copying the new state into
     ``state``, so a replay advances the state on the device and nothing goes
     to the host between frames. ``xcorr_launches`` is the number of xcorr
-    kernels captured: each replay launches that many without passing
-    through the wrapper (whose count moves only at capture).
+    kernels captured, ``xcorr_packed_launches`` the packed bf16 kernel's
+    among them: each replay launches that many without passing through the
+    wrapper (whose counts move only at capture).
 
     The warm-up and the capture run on ``side``, one stream kept by the
     tracker: a library workspace is kept per stream, so a new stream for
@@ -144,13 +145,14 @@ class StepGraph:
                 tracker._step_body(self.state, self.frame)
         torch.cuda.current_stream(device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        before = depthwise_xcorr.launches
+        before = depthwise_xcorr.launches, depthwise_xcorr.packed_launches
         with torch.cuda.graph(self.graph, stream=side):
             new_state, self.out = tracker._step_body(self.state, self.frame)
             for static, new in zip(self.state, new_state):
                 if new is not static:
                     static.copy_(new)
-        self.xcorr_launches = depthwise_xcorr.launches - before
+        self.xcorr_launches = depthwise_xcorr.launches - before[0]
+        self.xcorr_packed_launches = depthwise_xcorr.packed_launches - before[1]
 
     def run(self, state: TrackState, frames: torch.Tensor):
         """Copy ``state`` in, replay once per frame, copy each frame's

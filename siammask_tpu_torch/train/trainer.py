@@ -278,10 +278,9 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, 
     mode or ``fused_allreduce`` (the module docstring); the metrics are the
     global batch's. Sync-BN is the model's (``Trainer`` converts it).
 
-    Train-mode BN keeps ``nn.BatchNorm2d``'s running variance, which is
-    updated with the unbiased batch variance as the original PyTorch
-    reference does; flax updates it with the biased one. It is the port's one
-    deliberate difference from the JAX package."""
+    Train-mode BN updates its running variance with the biased batch
+    variance, as flax does (``models.resnet.BatchNorm2d``; the original
+    PyTorch reference's ``nn.BatchNorm2d`` takes the unbiased one)."""
     w_cls, w_loc, w_mask = settings.loss_weight
     for g in optimizer.param_groups:
         g["lr"] = lr * g["mult"]

@@ -1,41 +1,33 @@
-"""What the ranks of ``tests/test_torch_parallel.py`` run, in processes that
+"""What the ranks of ``tests/test_torch_parallel.py`` and
+``tests/test_torch_train_cli_dp.py`` run, in processes that
 ``siammask_tpu_torch.parallel.dist.spawn`` starts: this module imports the
 port only (no jax), so a spawned child imports nothing else."""
-import torch
-import torch.distributed as dist
+import json
+from pathlib import Path
 
+import torch
+
+from siammask_tpu_torch.data.dataset import PairDataset
 from siammask_tpu_torch.models.siammask import SiamMaskBase
 from siammask_tpu_torch.parallel.dist import AllReduceSum, _all_reduce, local_rows
-from siammask_tpu_torch.parallel.sync_bn import SyncBatchNorm2d
+from siammask_tpu_torch.tools import train as train_cli
 from siammask_tpu_torch.train.trainer import Trainer
 
 
-class GlobalBNRecorder:
-    """Per train-mode BN call, the running-variance excess of the port's
-    unbiased update over flax's biased one, ``e <- 0.9 e + 0.1 b / (n - 1)``,
-    with the biased variance b and the count n of the rows the BN normalizes
-    over: the group's for a synced BN (one float64 all-reduce a call, on
-    every rank alike), else this rank's."""
+class BNRecorder:
+    """Forward hooks that note, by name, each BN that ran in training mode
+    (and so updated its running statistics)."""
 
     def __init__(self, model):
-        self.excess = {}
+        self.updated = set()
         self.handles = [m.register_forward_hook(self._hook(name))
                         for name, m in model.named_modules()
                         if isinstance(m, torch.nn.BatchNorm2d)]
 
     def _hook(self, name):
         def hook(mod, inputs, _):
-            if not mod.training:
-                return
-            x = inputs[0].detach().double()
-            stats = torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
-                               x.new_full((1,), x.numel() // x.shape[1])])
-            if isinstance(mod, SyncBatchNorm2d) and dist.get_world_size() > 1:
-                dist.all_reduce(stats)
-            c = x.shape[1]
-            n = stats[2 * c]
-            b = stats[c:2 * c] / n - (stats[:c] / n) ** 2
-            self.excess[name] = 0.9 * self.excess.get(name, 0.0) + 0.1 * b / (n - 1)
+            if mod.training:
+                self.updated.add(name)
         return hook
 
 
@@ -48,7 +40,8 @@ def run_cases(rank, world, device, state, batch, parts, cases):
     ``dtype``, epochs to step, the rank whose template gets a NaN or None)
     from the weights
     ``state`` on this rank's rows of ``batch``: per step the metrics, the
-    state after it, the BN excess so far and the collectives issued; and
+    state after it, the BNs run in training mode so far and the collectives
+    issued; and
     an ``AllReduceSum`` of rank-made values with its gradient."""
     torch.set_num_threads(1)
     rows = local_rows(batch["template"].shape[0], rank, world)
@@ -61,7 +54,7 @@ def run_cases(rank, world, device, state, batch, parts, cases):
         model.load_state_dict(state)
         model.to(dtype)
         trainer = Trainer(model, *parts, epochs=2, distributed=True, **kwargs)
-        recorder = GlobalBNRecorder(model)
+        recorder = BNRecorder(model)
         # a copy: the batch's storage is shared with the parent process
         data = {k: v.to(dtype, copy=True) if v.is_floating_point() else v
                 for k, v in local.items()}
@@ -73,7 +66,7 @@ def run_cases(rank, world, device, state, batch, parts, cases):
             metrics = trainer.step(data, epoch)
             steps.append({"metrics": {k: float(v) for k, v in metrics.items()},
                           "state": _state(model), "collectives": _all_reduce.calls - calls,
-                          "excess": {k: v.numpy() for k, v in recorder.excess.items()}})
+                          "bn_updated": set(recorder.updated)})
         out[name] = {"steps": steps, "labels": dict(trainer.labels)}
 
     x = torch.arange(6, dtype=torch.float64).reshape(2, 3) * (rank + 1)
@@ -83,3 +76,21 @@ def run_cases(rank, world, device, state, batch, parts, cases):
     out["all_reduce_sum"] = {"x": x.detach().numpy(), "y": y.detach().numpy(),
                              "grad": x.grad.numpy()}
     return out
+
+
+def recording_shuffle(out_dir, rank: int):
+    """A ``PairDataset.shuffle`` that also writes each generation's pick to
+    ``out_dir/rank{rank}_{generation}.json``."""
+    shuffle = PairDataset.shuffle
+
+    def recording(self):
+        shuffle(self)
+        path = Path(out_dir) / f"rank{rank}_{self._generation:03d}.json"
+        path.write_text(json.dumps({"generation": self._generation, "pick": self.pick}))
+    return recording
+
+
+def train_recording_picks(rank, world, device, args, out_dir):
+    """The train CLI's rank, its dataset's picks written to ``out_dir``."""
+    PairDataset.shuffle = recording_shuffle(out_dir, rank)
+    return train_cli.train(rank, world, device, args)

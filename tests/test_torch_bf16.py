@@ -313,6 +313,19 @@ def test_float32_is_the_default_on_every_entry_point():
     assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
+@pytest.mark.parametrize("dtype", [None, torch.float32, BF16], ids=["none", "float32", "bf16"])
+def test_float32_model_switches_tf32_off(monkeypatch, dtype):
+    """Building a float32 model switches TF32 off for the process (cuDNN's
+    convs and the matmuls: the float32 reference mode); building a bf16
+    model leaves both flags as they are."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    build_model("SiamRPN", width=WIDTH, dtype=dtype)
+    tf32 = dtype is BF16
+    assert torch.backends.cudnn.allow_tf32 is tf32
+    assert torch.backends.cuda.matmul.allow_tf32 is tf32
+
+
 def test_xcorr_bf16_route_matches_jax():
     """``depthwise_xcorr`` on bf16 CPU tensors (the plain versions) against
     the JAX package's ``depthwise_xcorr_ad`` on the same bf16 inputs (the

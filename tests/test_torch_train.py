@@ -25,11 +25,10 @@ float32 momentum differs from its float64 one by about 1% over the step
 (``test_float32_unfrozen_gradients_carry_rounding_noise``), so no float32
 comparison could be held to the frozen phase's tolerance.
 
-BN running variance: the port keeps ``nn.BatchNorm2d``, which updates it with
-the unbiased batch variance; flax uses the biased one. The tests record each
-train-mode BN call's biased variance b and element count n on the port's
-side and remove the difference, ``e <- 0.9 e + 0.1 b / (n - 1)`` per call,
-before comparing.
+BN running statistics: both sides update the running variance with the
+biased batch variance, so the running means and variances are compared
+directly. ``BNRecorder`` notes which BNs ran in training mode, and the
+tests count them.
 """
 from pathlib import Path
 
@@ -148,23 +147,19 @@ def settings_pair():
 
 
 class BNRecorder:
-    """Forward hooks that accumulate, per BN, the running-variance difference
-    between the unbiased (port) and biased (flax) update rules."""
+    """Forward hooks that note, by name, each BN that ran in training mode
+    (and so updated its running statistics)."""
 
     def __init__(self, model):
-        self.excess = {}
+        self.updated = set()
         self.handles = [m.register_forward_hook(self._hook(name))
                         for name, m in model.named_modules()
                         if isinstance(m, torch.nn.BatchNorm2d)]
 
     def _hook(self, name):
         def hook(mod, inputs, _):
-            if not mod.training:
-                return
-            x = inputs[0].detach()
-            n = x.numel() // x.shape[1]
-            b = x.var(dim=(0, 2, 3), unbiased=False)
-            self.excess[name] = 0.9 * self.excess.get(name, 0.0) + 0.1 * b / (n - 1)
+            if mod.training:
+                self.updated.add(name)
         return hook
 
     def remove(self):
@@ -196,7 +191,7 @@ def snapshot(trainer, metrics, recorder):
                 for p, s in trainer.optimizer.state.items()}
     return {"state": state, "momentum": momentum,
             "metrics": {k: float(v) for k, v in metrics.items()},
-            "excess": {k: v.numpy().copy() for k, v in recorder.excess.items()},
+            "bn_updated": set(recorder.updated),
             "labels": dict(trainer.labels)}
 
 
@@ -256,17 +251,15 @@ def _close(ours, ref, rel, name):
                                err_msg=name)
 
 
-def _bn_stats_close(ours, ref, excess, rel=TOL["float32"]["value"]):
-    """Running means directly; running variances after removing the
-    unbiased-update excess recorded on the port's side."""
+def _bn_stats_close(ours, ref, bn_updated, rel=TOL["float32"]["value"]):
+    """Every running mean and variance against JAX's; returns how many of
+    the BNs that hold them are in ``bn_updated``."""
     updated = 0
     for name in ours:
-        if name.endswith("running_mean"):
+        if name.endswith(("running_mean", "running_var")):
             _close(ours[name], ref[name], rel, name)
-        elif name.endswith("running_var"):
-            bn = name.removesuffix(".running_var")
-            updated += bn in excess
-            _close(ours[name] - excess.get(bn, 0.0), ref[name], rel, name)
+            updated += name.endswith("running_var") and name.removesuffix(
+                ".running_var") in bn_updated
     return updated
 
 
@@ -293,8 +286,8 @@ def test_forward_train_matches_jax(jax_vars, unfrozen):
                                      "batch_stats": jax.tree.map(np.asarray, new_state)[
                                          "batch_stats"]})
     ours = {k: v.numpy() for k, v in model.state_dict().items()}
-    excess = {k: v.numpy() for k, v in recorder.excess.items()}
-    assert _bn_stats_close(ours, {k: v.numpy() for k, v in ref_state.items()}, excess) == (
+    assert _bn_stats_close(ours, {k: v.numpy() for k, v in ref_state.items()},
+                           recorder.updated) == (
         42 if unfrozen else 10)  # layer2/3: 32 BNs; neck 1; heads 3 x 3
 
 
@@ -345,7 +338,7 @@ def test_train_step_bn_stats_match_jax(runs, phase):
     for dtype in DTYPES:
         run = runs[dtype][phase]
         port = run["port"]
-        assert _bn_stats_close(port["state"], run["jax_state"], port["excess"],
+        assert _bn_stats_close(port["state"], run["jax_state"], port["bn_updated"],
                                TOL[dtype]["value"]) > 0
 
 

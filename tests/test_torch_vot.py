@@ -280,6 +280,26 @@ def test_cli_main_runs_a_vot_video_on_the_cpu(data_dir, tmp_path):
     _check_grammar(lines, 4)
 
 
+def test_cli_takes_arch_and_ignores_it(monkeypatch):
+    """``--arch`` is accepted and ignored, as the JAX package's CLI does: the
+    config's arch picks the model."""
+    assert cli.parse_args(["--config", "c.json", "--arch", "SiamMaskBase"]).arch == "SiamMaskBase"
+    picked = []
+
+    class Built(Exception):
+        pass
+
+    def load_model(arch, *args, **kwargs):
+        picked.append(arch)
+        raise Built
+
+    monkeypatch.setattr(cli, "load_model", load_model)
+    with pytest.raises(Built):
+        cli.main(["--config", str(EXPERIMENTS / "siamrpn_resnet" / "config.json"), "--arch",
+                  "SiamMaskBase", "--device", "cpu"])
+    assert picked == ["SiamRPN"]
+
+
 @pytest.mark.parametrize("config,flags", [("siammask_base/config.json", []),
                                           ("siammask_sharp/config_davis.json", ["--box-only"])])
 def test_demo_main_draws_every_tracked_frame(data_dir, tmp_path, config, flags):

@@ -293,6 +293,147 @@ def test_xcorr_autograd_on_card_launches_the_kernels(cuda_device):
         torch.testing.assert_close(ours, ref, rtol=1e-5, atol=1e-4 * ref.abs().max().item())
 
 
+def _offset_copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts one element past an
+    aligned allocation: for bf16 a pointer 2 bytes off 4-byte alignment."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+@pytest.mark.parametrize("case,packed", [
+    ("model", True), ("float32", False), ("odd_c", False), ("offset_search", False),
+    ("offset_template", False), ("template_6x6", False)])
+def test_packed_kernel_choice(case, packed):
+    """The packed bf16 kernel takes bf16 with even C, a template of at most
+    5x5 and 4-byte aligned pointers (the model's shapes); anything else
+    takes the strip kernel of its dtype."""
+    shapes = {"odd_c": ((2, 29, 29, 201), (2, 5, 5, 201)),
+              "template_6x6": ((2, 29, 29, 256), (2, 6, 6, 256))}
+    xs, ks = shapes.get(case, ((2, 29, 29, 256), (2, 5, 5, 256)))
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    x, k = (torch.from_numpy(a).to(dtype) for a in _pair(xs, ks))
+    if case == "offset_search":
+        x = _offset_copy(x)
+    if case == "offset_template":
+        k = _offset_copy(k)
+    out = torch.empty((xs[0], xs[1] - ks[1] + 1, xs[2] - ks[2] + 1, xs[3]), dtype=dtype)
+    assert xcorr_mod.uses_packed_kernel(x, k, out) is packed
+    assert xcorr_mod.uses_packed_kernel(out, k, x) is packed   # grad-input: (g, k, dx)
+
+
+def test_launch_passes_the_kernel_choice_and_counts_it(monkeypatch):
+    """``_launch`` hands the C entry the kernel ``uses_packed_kernel`` picks
+    (never the packed one for grad-kernel) and counts the packed launches
+    beside the wrapper's count; a non-zero code raises."""
+    calls = []
+
+    class FakeLibrary:
+        def __getattr__(self, entry):
+            def launch(*args):
+                calls.append((entry, args[10]))   # (..., dtype, kernel, device, stream)
+                return 0
+            return launch
+
+    monkeypatch.setattr(xcorr_mod._build, "load_library", lambda: FakeLibrary())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("Stream", (), {"cuda_stream": 0})())
+    for wrapper in (depthwise_xcorr, depthwise_xcorr_grad_input, depthwise_xcorr_grad_kernel):
+        monkeypatch.setattr(wrapper, "launches", 0)
+    for wrapper in (depthwise_xcorr, depthwise_xcorr_grad_input):
+        monkeypatch.setattr(wrapper, "packed_launches", 0)
+    x, k = (torch.from_numpy(a).bfloat16() for a in _pair((2, 29, 29, 256), (2, 5, 5, 256)))
+    g = torch.zeros((2, 25, 25, 256), dtype=torch.bfloat16)
+    dims = (2, 29, 29, 256, 5, 5)
+    launch = xcorr_mod._launch
+    launch(depthwise_xcorr, "siammask_depthwise_xcorr", x, k, tuple(g.shape), dims)
+    launch(depthwise_xcorr, "siammask_depthwise_xcorr", _offset_copy(x), k, tuple(g.shape),
+           dims)
+    launch(depthwise_xcorr_grad_input, "siammask_depthwise_xcorr_grad_input", g, k,
+           tuple(x.shape), dims)
+    launch(depthwise_xcorr_grad_kernel, "siammask_depthwise_xcorr_grad_kernel", x, g,
+           tuple(k.shape), dims)
+    launch(depthwise_xcorr, "siammask_depthwise_xcorr", x.float(), k.float(), tuple(g.shape),
+           dims)
+    assert calls == [("siammask_depthwise_xcorr", 1), ("siammask_depthwise_xcorr", 0),
+                     ("siammask_depthwise_xcorr_grad_input", 1),
+                     ("siammask_depthwise_xcorr_grad_kernel", 0),
+                     ("siammask_depthwise_xcorr", 0)]
+    assert (depthwise_xcorr.launches, depthwise_xcorr.packed_launches) == (3, 1)
+    assert (depthwise_xcorr_grad_input.launches,
+            depthwise_xcorr_grad_input.packed_launches) == (1, 1)
+    assert depthwise_xcorr_grad_kernel.launches == 1
+
+    class FailingLibrary(FakeLibrary):
+        def __getattr__(self, entry):
+            if entry == "siammask_cuda_error_string":
+                return lambda code: b"invalid argument"
+            return lambda *args: 1
+
+    monkeypatch.setattr(xcorr_mod._build, "load_library", lambda: FailingLibrary())
+    with pytest.raises(RuntimeError, match="packed bf16 kernel"):
+        launch(depthwise_xcorr, "siammask_depthwise_xcorr", x, k, tuple(g.shape), dims)
+    assert depthwise_xcorr.packed_launches == 1
+
+
+# the bf16 shapes of the model's paths: tracking (B=1), 16 streams, the
+# training batch and stage 2's 3x3 output
+BF16_SHAPES = [((1, 29, 29, 256), (1, 5, 5, 256)), ((16, 29, 29, 256), (16, 5, 5, 256)),
+               ((64, 29, 29, 256), (64, 5, 5, 256)), ((64, 7, 7, 256), (64, 5, 5, 256))]
+
+
+def _bf16_call(which, xs, ks, seed, offset=False):
+    """(output, plain version's output, packed launches it made) of one
+    bf16 forward or grad-input call on the card, its inputs copied to a
+    2-byte offset with ``offset``."""
+    x, k = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in _pair(xs, ks, seed))
+    g = torch.randn((xs[0], xs[1] - ks[1] + 1, xs[2] - ks[2] + 1, xs[3]),
+                    generator=torch.Generator().manual_seed(seed + 1))
+    g = g.to("cuda", torch.bfloat16)
+    if offset:
+        x, k, g = _offset_copy(x), _offset_copy(k), _offset_copy(g)
+    wrapper, args, plain = {
+        "forward": (depthwise_xcorr, (x, k), depthwise_xcorr_reference),
+        "input": (depthwise_xcorr_grad_input, (g, k, xs[1], xs[2]),
+                  depthwise_xcorr_grad_input_reference)}[which]
+    before = (wrapper.launches, wrapper.packed_launches)
+    out = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before[0] + 1
+    return out, plain(*args), wrapper.packed_launches - before[1]
+
+
+def _close_to_plain(out, ref):
+    # one bf16 rounding of the output on each side
+    scale = ref.float().abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-5, atol=2e-2 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["forward", "input"])
+@pytest.mark.parametrize("xs,ks", BF16_SHAPES)
+def test_packed_bf16_kernel_is_the_scalar_kernel_bit_for_bit_on_card(cuda_device, which, xs,
+                                                                      ks):
+    """At the model's bf16 shapes the wrapper takes the packed kernel; the
+    same inputs at a 2-byte offset take the scalar bf16 kernel, and the two
+    outputs are the same bits, within the plain version's tolerance."""
+    packed, ref, n_packed = _bf16_call(which, xs, ks, seed=21)
+    scalar, _, n_scalar = _bf16_call(which, xs, ks, seed=21, offset=True)
+    assert (n_packed, n_scalar) == (1, 0)
+    assert torch.equal(packed, scalar)
+    _close_to_plain(packed, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["forward", "input"])
+@pytest.mark.parametrize("case", ["odd_c", "offset"])
+def test_scalar_bf16_kernel_takes_odd_c_and_offsets_on_card(cuda_device, which, case):
+    xs, ks = {"odd_c": ((3, 29, 29, 201), (3, 5, 5, 201)),
+              "offset": ((2, 29, 29, 256), (2, 5, 5, 256))}[case]
+    out, ref, n_packed = _bf16_call(which, xs, ks, seed=23, offset=case == "offset")
+    assert n_packed == 0
+    _close_to_plain(out, ref)
+
+
 def test_port_imports_no_jax_and_cv2_only_for_the_polygon():
     """No file of the port names jax, flax or siammask_tpu in an import, at
     any depth; every module imports without them or cv2, and cv2 loads only
