@@ -36,7 +36,8 @@ synthetic uint8 frames made from a numpy seed, with seeded random weights:
   (``parallel.serving.ShardedStreamServer``) at 16 streams;
 - the bf16 compute mode (``build_model(..., dtype=torch.bfloat16)``): the
   sharp track step, video and 16 streams, the SiamRPN and base videos, the
-  VOS and VOT drivers against their fp32 runs, and the stage-1 train step.
+  VOS and VOT drivers against their fp32 runs, and the stage-1, stage-2 and
+  SiamRPN train steps.
 
 Every phase runs on card 0; with two cards or more visible, ``[dp]`` and
 ``[sharded]`` also run over several cards.
@@ -45,25 +46,29 @@ Phases, each of which raises on failure:
 
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: the hand-written kernels are compiled from ``siammask_tpu_torch/csrc``;
-   ptxas's registers and spills per kernel are printed;
+   ptxas's registers and spills per kernel are printed, and a packed bf16
+   kernel that spills fails the phase;
 3. the forward xcorr kernel vs its plain version at the tracking shape, B=16,
    B=32, the training batch (B=64), stage 2's (64,7,7,256)*(64,5,5,256) and a
    ragged shape; kernel, plain and library times at B=1, B=16, B=32, B=64 and
    stage 2's shape; then bf16 (``phase_bf16_kernels``): at B=1, 16, 64 and
    stage 2's shape the packed bf16 kernel (the wrapper on the model's
    tensors) bit-identical to the scalar bf16 kernel (the same inputs at a
-   2-byte offset) and both against the plain version, C=201 and offset
-   pointers on the scalar kernel, and the packed kernel's time beside its
+   2-byte offset) and both against the plain version, two calls of the
+   packed kernel at B=64 and at stage 2's shape bit-identical, C=201 and
+   offset pointers on the scalar kernel, and the packed kernel's time beside its
    bound, the plain version, the library call, the fp32 kernel and the
    scalar kernel;
 4. the two gradient kernels vs their plain versions at B=1, B=16, B=32,
-   B=64, stage 2's shape and a ragged shape (grad-kernel also in bf16 at
-   B=1, 16 and 64); two calls of each at B=64 and at stage 2's shape
-   bit-identical; kernel and plain times at B=1, B=16, B=32, B=64 and stage
-   2's shape (grad-kernel also in bf16 at B=1, 16 and 64) beside each
-   kernel's bound, and the eager autograd backward through the kernels vs
-   through the plain forward; then bf16 grad-input as phase 3 runs the
-   bf16 forward (two B=64 calls of the packed kernel bit-identical);
+   B=64, stage 2's shape and a ragged shape; two calls of each at B=64 and
+   at stage 2's shape bit-identical; kernel and plain times at B=1, B=16,
+   B=32, B=64 and stage 2's shape beside each kernel's bound, and the eager
+   autograd backward through the kernels vs through the plain forward;
+   then bf16 grad-input and grad-kernel as phase 3 runs the bf16 forward,
+   except that the packed grad-kernel (another summation order) is held
+   within one bf16 step of the scalar kernel, with the elements that
+   differ counted (``check_one_bf16_step``); two calls of each packed
+   kernel at B=64 and at stage 2's shape bit-identical;
 5. the track slice: init + steps, with finite outputs in bounds, three xcorr
    kernel launches per step, and one step under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
@@ -163,10 +168,16 @@ Phases, each of which raises on failure:
     (parameters and BN buffers), the unused mask head moved by weight decay
     alone; the loss over 8 repeated steps; card vs CPU at B=2, both held to
     the CPU's float64 step; a profile (idle share, top 10) and ms/step,
-    samples/s and peak memory;
+    samples/s and peak memory; then ``[bf16-train-refine]``: the same task
+    in bf16 from the same warm start and loader batch, its first step
+    against the fp32 one (loss, update cosine; ``bf16_first_step``), two
+    more steps with 3 / 1 / 1 launches, all of them the packed bf16 kernels,
+    ms/step and peak memory beside the fp32 ones;
 22. ``[train-rpn]``: SiamRPN, 2 frozen and 2 unfrozen steps on loader
     batches with 2 / 2 / 2 launches each, card vs CPU at B=2, a profile and
-    the timings of each phase;
+    the timings of each phase; then ``[bf16-train-rpn]`` as
+    ``[bf16-train-refine]`` (a frozen first step, a frozen and an unfrozen
+    one after it, 2 / 2 / 2 launches, both phases timed);
 23. ``[train-resume]``: 2 SiamRPN steps, a checkpoint, ``Trainer.restore``
     into a fresh trainer, then step 3 bit-identical (weights, BN statistics,
     momentum) to the uninterrupted run, in phase and across the unfreeze
@@ -208,18 +219,18 @@ the time of the one library call (cuDNN's grouped conv) that computes the
 same function, with ``launches_by_path`` (track, video, streams16, vos,
 rpn, base, vot, tune, train, train_refine, train_rpn, dp: rank 0's of the
 two-rank run, sharded, and the bf16 paths bf16_track, bf16_video,
-bf16_streams16, bf16_rpn, bf16_base, bf16_vos, bf16_vot, bf16_train). The
-kernels are the strip kernel's forward and grad-input (fp32; ``bf16_scalar``:
-their bf16 instantiation's times at B=1, 16, 64 and stage 2's shape, on
-inputs at a 2-byte offset), grad-kernel (``bf16``: its bf16 instantiation
-at B=1, 16 and 64) and the packed bf16 forward and grad-input
-(``by_shape``: B=1, 16, 64 and stage 2's shape); the fp32 records also
-hold the times at stage 2's shape (``stage2``) and at the data-parallel
-local batches 16 and 32 (``local_batches``); a bf16 bound is half the fp32
-bytes. Each path's forward and grad-input launches go to the packed kernel
-on the bf16 paths and to the strip kernel on the fp32 ones, which the
-wrappers' ``packed_launches`` counts and the graphs'
-``xcorr_packed_launches`` confirm (``check_route``). A kernel captured in a
+bf16_streams16, bf16_rpn, bf16_base, bf16_vos, bf16_vot, bf16_train,
+bf16_train_refine, bf16_train_rpn). The kernels are the fp32 forward,
+grad-input and grad-kernel (``bf16_scalar``: their bf16
+instantiation's times at B=1, 16, 64 and stage 2's shape, on inputs at a
+2-byte offset) and the packed bf16 forward, grad-input and grad-kernel
+(``by_shape``: B=1, 16, 64 and stage 2's shape, each beside the fp32 and
+the scalar kernel of the run); the fp32 records also hold the times at
+stage 2's shape (``stage2``) and at the data-parallel local batches 16 and
+32 (``local_batches``); a bf16 bound is half the fp32 bytes. Each path's
+launches go to the packed kernels on the bf16 paths and to the fp32
+kernels on the fp32 ones, which the wrappers' ``packed_launches`` counts
+and the graphs' ``xcorr_packed_launches`` confirm (``check_route``). A kernel captured in a
 CUDA graph passes through its wrapper (and its count) once, at capture; on
 the graph paths its launches are the captured launches times the replays,
 which phases 8, 9, 12 and 13 confirm by kernel name in a profiler trace.
@@ -323,8 +334,8 @@ TRAIN_WIDTH = 64
 DEV = "cuda"
 SHARP_TRAIN_CONFIG = REPO / "experiments" / "siammask_sharp" / "config.json"
 SMOKE_TRAIN = REPO / "build" / "train_smoke"
+# the wrappers; each launches a packed bf16 kernel on the bf16 paths
 KERNELS = (depthwise_xcorr, depthwise_xcorr_grad_input, depthwise_xcorr_grad_kernel)
-PACKED = KERNELS[:2]      # the wrappers that launch the packed bf16 kernel
 # an H100 SXM's published peaks at 700 W: HBM3 and fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -528,6 +539,25 @@ def time_kernel(tag: str, kernel_fn, plain_fn, args: tuple, which: str, lib_args
             "bound_ms": bound[0] / 1e3, "bound_by": bound[1]}
 
 
+def check_one_bf16_step(what: str, out: torch.Tensor, ref: torch.Tensor) -> int:
+    """The packed bf16 grad-kernel against the scalar one on the same
+    inputs: both sum the same float32 products in other orders and round
+    once, so each element is at most one bf16 step (2^-7 of the binade of
+    the larger of the two) apart, plus 2^-16 of the largest entry where the
+    sums cancel to near zero (a float32 sum's order moves it by ~1e-6 of
+    the terms' size). Returns how many elements differ."""
+    a, b = out.float(), ref.float()
+    step = torch.exp2(torch.floor(torch.log2(torch.maximum(a.abs(), b.abs()))) - 7)
+    slack = 2.0 ** -16 * b.abs().max()
+    over = int(((a - b).abs() > step + slack).sum())
+    differ = int((out != ref).sum())
+    if over:
+        raise AssertionError(f"[{what}] {over} elements more than one bf16 step apart")
+    print(f"[{what}] {differ} of {out.numel()} elements differ, each by at most one bf16 step "
+          f"(largest difference {(a - b).abs().max().item():.3e})")
+    return differ
+
+
 def check_close(what: str, out: torch.Tensor, ref: torch.Tensor) -> float:
     """Kernel vs plain version: fp32 differs only in summation order (1e-4 of
     the largest entry); bf16 rounds its output once on each side (2e-2)."""
@@ -556,9 +586,15 @@ def phase_build() -> None:
     path = _build.build()
     _build.load_library()
     print(f"[build] {path.relative_to(REPO)} ready in {time.perf_counter() - t0:.2f} s")
+    spills = []
     for name, r in _build.kernel_resources(path.with_suffix(".log").read_text()).items():
         print(f"[build] ptxas: {name}: {r['registers']} registers, {r['spill_stores']} / "
               f"{r['spill_loads']} bytes spill stores / loads")
+        if "bf16x2" in name and (r["spill_stores"] or r["spill_loads"]):
+            spills.append(name)
+    if spills:
+        raise AssertionError(f"[build] packed bf16 kernels that spill: {spills}")
+    print("[build] the packed bf16 kernels do not spill")
 
 
 def offset_copy(t: torch.Tensor) -> torch.Tensor:
@@ -570,29 +606,36 @@ def offset_copy(t: torch.Tensor) -> torch.Tensor:
 
 
 def phase_bf16_kernels(which: str, fp32_ms: dict) -> tuple[dict, dict]:
-    """The bf16 forward (``which`` "forward", ``[kernel]``) or grad-input
-    ("input", ``[grad]``). At each of ``BF16_SHAPES`` the wrapper takes the
-    packed kernel on the model's contiguous tensors and the scalar bf16
-    kernel (the strip kernel's bf16 instantiation) on the same inputs copied
-    to a 2-byte offset: the two outputs must be the same bits, within
-    ``check_close``'s bf16 tolerance of the plain version. C=201 and offset
-    pointers take the scalar kernel and are held to the plain version.
-    Then each shape's packed kernel is timed beside its bound, the plain
-    version, the library call, the fp32 kernel of this run (``fp32_ms``) and
-    the scalar kernel. Returns the packed kernel's record (its times at B=1
-    for the forward, B=64 for grad-input, and ``by_shape``) and the scalar
-    kernel's times and errors by shape."""
+    """The bf16 forward (``which`` "forward", ``[kernel]``), grad-input
+    ("input", ``[grad]``) or grad-kernel ("kernel", ``[grad]``). At each of
+    ``BF16_SHAPES`` the wrapper takes the packed kernel on the model's
+    contiguous tensors and the scalar bf16 kernel (the kernel's bf16
+    instantiation) on the same inputs copied to a 2-byte offset: the
+    forward's and grad-input's two outputs must be the same bits,
+    grad-kernel's (another summation order) within one bf16 step
+    (``check_one_bf16_step``), each within ``check_close``'s bf16 tolerance
+    of the plain version; two calls of the packed kernel at B=64 and at
+    stage 2's shape must be the same bits. C=201 and offset pointers take
+    the scalar kernel and are held to the plain version. Then each shape's
+    packed kernel is timed beside its bound, the plain version, the library
+    call, the fp32 kernel of this run (``fp32_ms``) and the scalar kernel.
+    Returns the packed kernel's record (its times at B=1 for the forward,
+    B=64 for the gradients, and ``by_shape``) and the scalar kernel's times
+    and errors by shape."""
     tag = "[kernel]" if which == "forward" else "[grad]"
+    label = "grad-kernel" if which == "kernel" else which
     wrapper, plain = {
         "forward": (depthwise_xcorr, depthwise_xcorr_reference),
-        "input": (depthwise_xcorr_grad_input, depthwise_xcorr_grad_input_reference)}[which]
+        "input": (depthwise_xcorr_grad_input, depthwise_xcorr_grad_input_reference),
+        "kernel": (depthwise_xcorr_grad_kernel, depthwise_xcorr_grad_kernel_reference)}[which]
     g = torch.Generator().manual_seed(SEED + 2)
 
     def inputs(xs, ks):
-        """x, k and the wrapper's and the library call's arguments."""
+        """x, k and the wrapper's arguments (their first two: the library call's)."""
         go = (xs[0], xs[1] - ks[1] + 1, xs[2] - ks[2] + 1, xs[3])
         x, k, go = (torch.randn(s, generator=g).to("cuda", BF16) for s in (xs, ks, go))
-        return x, k, (x, k) if which == "forward" else (go, k, xs[1], xs[2])
+        return x, k, {"forward": (x, k), "input": (go, k, xs[1], xs[2]),
+                      "kernel": (x, go)}[which]
 
     def run(args):
         """The wrapper's output and whether it launched the packed kernel."""
@@ -611,27 +654,34 @@ def phase_bf16_kernels(which: str, fp32_ms: dict) -> tuple[dict, dict]:
         args_s = shifted(args)
         (out, n_packed), (out_s, n_scalar) = run(args), run(args_s)
         if (n_packed, n_scalar) != (1, 0):
-            raise AssertionError(f"{tag} bf16 {which} {name}: packed launches {n_packed} on "
+            raise AssertionError(f"{tag} bf16 {label} {name}: packed launches {n_packed} on "
                                  f"aligned inputs, {n_scalar} at an offset; expected 1, 0")
-        if not torch.equal(out, out_s):
-            raise AssertionError(f"{tag} bf16 {which} {name}: the packed kernel's output is not "
-                                 "the scalar kernel's")
         ref = plain(*args)
         torch.cuda.synchronize()
-        err = check_close(f"{which} bf16 {name}: packed kernel, bit-identical to the scalar "
-                          "kernel", out, ref)
-        if name == f"B={TRAIN_BATCH}":
+        if which == "kernel":
+            differ = check_one_bf16_step(f"{label} bf16 {name}: packed vs scalar kernel",
+                                         out, out_s)
+            err = check_close(f"{label} bf16 {name}: packed kernel", out, ref)
+            err_s = check_close(f"{label} bf16 {name}: scalar kernel", out_s, ref)
+        else:
+            if not torch.equal(out, out_s):
+                raise AssertionError(f"{tag} bf16 {label} {name}: the packed kernel's output is "
+                                     "not the scalar kernel's")
+            differ = 0
+            err = err_s = check_close(f"{label} bf16 {name}: packed kernel, bit-identical to the "
+                                      "scalar kernel", out, ref)
+        if name in (f"B={TRAIN_BATCH}", "stage2"):
             # no atomics: a second call gives the same bits
             if not torch.equal(run(args)[0], out):
-                raise AssertionError(f"{tag} bf16 {which} {name}: two calls differ")
-            print(f"{tag} bf16 {which} {name}: two calls of the packed kernel bit-identical")
-        timed = time_kernel(f"{tag} bf16 {which} {name}, packed kernel", wrapper, plain, args,
+                raise AssertionError(f"{tag} bf16 {label} {name}: two calls differ")
+            print(f"{tag} bf16 {label} {name}: two calls of the packed kernel bit-identical")
+        timed = time_kernel(f"{tag} bf16 {label} {name}, packed kernel", wrapper, plain, args,
                             which, args[:2], x, k)
         scalar_us = graph_us(wrapper, *args_s)
         by_shape[name] = {"max_abs_err": err, **timed, "fp32_kernel_ms": fp32_ms[name],
-                          "scalar_ms": scalar_us / 1e3}
-        scalar[name] = {"max_abs_err": err, "ms": scalar_us / 1e3}
-        print(f"{tag} bf16 {which} {name}: packed kernel {timed['ms'] * 1e3:.2f} us "
+                          "scalar_ms": scalar_us / 1e3, "differ_from_scalar": differ}
+        scalar[name] = {"max_abs_err": err_s, "ms": scalar_us / 1e3}
+        print(f"{tag} bf16 {label} {name}: packed kernel {timed['ms'] * 1e3:.2f} us "
               f"({100 * timed['bound_ms'] / timed['ms']:.0f}% of its bound "
               f"{timed['bound_ms'] * 1e3:.2f} us); fp32 kernel {fp32_ms[name] * 1e3:.2f} us; "
               f"scalar bf16 kernel {scalar_us:.2f} us (inputs at a 2-byte offset); plain "
@@ -642,16 +692,17 @@ def phase_bf16_kernels(which: str, fp32_ms: dict) -> tuple[dict, dict]:
         args = shifted(args) if offset else args
         out, n_packed = run(args)
         if n_packed:
-            raise AssertionError(f"{tag} bf16 {which} {name}: took the packed kernel")
-        check_close(f"{which} bf16 {name}: scalar kernel", out, plain(*args))
+            raise AssertionError(f"{tag} bf16 {label} {name}: took the packed kernel")
+        check_close(f"{label} bf16 {name}: scalar kernel", out, plain(*args))
     main = "B=1" if which == "forward" else f"B={TRAIN_BATCH}"
-    suffix = "" if which == "forward" else "_grad_input"
+    suffix = {"forward": "", "input": "_grad_input", "kernel": "_grad_kernel"}[which]
     record = {"name": f"depthwise_xcorr{suffix}_bf16x2", "route": "cuda",
               "source": "siammask_tpu_torch/csrc/xcorr.cu",
               "replaces": "siammask_tpu/ops/xcorr_pallas.py:" + ("67" if which == "forward"
                                                                  else "48"),
               **{k: v for k, v in by_shape[main].items() if k not in ("fp32_kernel_ms",
-                                                                      "scalar_ms")},
+                                                                      "scalar_ms",
+                                                                      "differ_from_scalar")},
               "by_shape": by_shape}
     return record, scalar
 
@@ -706,9 +757,9 @@ def phase_kernels() -> list[dict]:
 
 def phase_grad_kernels() -> list[dict]:
     """The two gradient kernels vs their plain versions on the card, then
-    bf16 grad-input (``phase_bf16_kernels``); returns the records of
-    grad-input's strip kernel, grad-kernel and the packed bf16 grad-input,
-    timed at the training shape (B=64)."""
+    bf16 grad-input and grad-kernel (``phase_bf16_kernels``); returns the
+    records of grad-input's strip kernel, grad-kernel and the packed bf16
+    grad-input and grad-kernel, timed at the training shape (B=64)."""
     g = torch.Generator().manual_seed(SEED + 1)
 
     def inputs(xs, ks, dtype):
@@ -721,16 +772,14 @@ def phase_grad_kernels() -> list[dict]:
                           ((32, 29, 29, 256), (32, 5, 5, 256), torch.float32),
                           ((TRAIN_BATCH, 29, 29, 256), (TRAIN_BATCH, 5, 5, 256), torch.float32),
                           (STAGE2_X, STAGE2_K, torch.float32),
-                          ((3, 17, 23, 200), (3, 4, 3, 200), torch.float32),
-                          *(((b, 29, 29, 256), (b, 5, 5, 256), BF16) for b in BF16_BATCHES)]:
-        # bf16 grad-input: phase_bf16_kernels; bf16 grad-kernel here
+                          ((3, 17, 23, 200), (3, 4, 3, 200), torch.float32)]:
+        # bf16: phase_bf16_kernels
         x, k, go = inputs(xs, ks, dtype)
         tag = f"{xs} * {ks} {str(dtype)[6:]}"
         checked = {"kernel": (lambda: depthwise_xcorr_grad_kernel(x, go),
-                              depthwise_xcorr_grad_kernel_reference(x, go))}
-        if dtype == torch.float32:
-            checked["input"] = (lambda: depthwise_xcorr_grad_input(go, k, xs[1], xs[2]),
-                                depthwise_xcorr_grad_input_reference(go, k, xs[1], xs[2]))
+                              depthwise_xcorr_grad_kernel_reference(x, go)),
+                   "input": (lambda: depthwise_xcorr_grad_input(go, k, xs[1], xs[2]),
+                             depthwise_xcorr_grad_input_reference(go, k, xs[1], xs[2]))}
         outs = {which: call() for which, (call, _) in checked.items()}
         torch.cuda.synchronize()
         for which, (_, ref) in checked.items():
@@ -766,13 +815,6 @@ def phase_grad_kernels() -> list[dict]:
         print(f"[grad] autograd backward (dx and dk) B={b} fp32, eager: kernels "
               f"{kernel:.2f} us; plain autograd {plain:.2f} us")
 
-    # grad-kernel's bf16 instantiation, which the bf16 train step runs
-    for b in BF16_BATCHES:
-        x, k, go = inputs((b, 29, 29, 256), (b, 5, 5, 256), BF16)
-        times[("kernel", b, BF16)] = time_kernel(
-            f"[grad] grad-kernel B={b} bf16", depthwise_xcorr_grad_kernel,
-            depthwise_xcorr_grad_kernel_reference, (x, go), "kernel", (x, go), x, k)
-
     # stage-2 refine training's shape: a 3x3 upstream grad
     x, k, go = inputs(STAGE2_X, STAGE2_K, torch.float32)
     times[("input", "stage2")] = time_kernel(
@@ -782,12 +824,11 @@ def phase_grad_kernels() -> list[dict]:
         "[grad] grad-kernel stage 2 fp32", depthwise_xcorr_grad_kernel,
         depthwise_xcorr_grad_kernel_reference, (x, go), "kernel", (x, go), x, k)
 
-    fp32_ms = {**{f"B={b}": times[("input", b)]["ms"] for b in BF16_BATCHES},
-               "stage2": times[("input", "stage2")]["ms"]}
-    packed, scalar = phase_bf16_kernels("input", fp32_ms)
-    bf16 = {"input": ("bf16_scalar", scalar),
-            "kernel": ("bf16", {str(b): {"max_abs_err": errors[("kernel", (b, 29, 29, 256), BF16)],
-                                         **times[("kernel", b, BF16)]} for b in BF16_BATCHES})}
+    packed, scalar = {}, {}
+    for which in ("input", "kernel"):
+        fp32_ms = {**{f"B={b}": times[(which, b)]["ms"] for b in BF16_BATCHES},
+                   "stage2": times[(which, "stage2")]["ms"]}
+        packed[which], scalar[which] = phase_bf16_kernels(which, fp32_ms)
     # the custom_vjp backward of depthwise_xcorr_ad
     return [*({"name": f"depthwise_xcorr_grad_{which}", "route": "cuda",
                "source": "siammask_tpu_torch/csrc/xcorr.cu",
@@ -799,8 +840,8 @@ def phase_grad_kernels() -> list[dict]:
                "local_batches": {str(b): {"max_abs_err": errors[(which, (b, 29, 29, 256),
                                                                   torch.float32)],
                                           **times[(which, b)]} for b in LOCAL_BATCHES},
-               bf16[which][0]: bf16[which][1]}
-              for which in ("input", "kernel")), packed]
+               "bf16_scalar": scalar[which]}
+              for which in ("input", "kernel")), packed["input"], packed["kernel"]]
 
 
 def bf16_twin(model: SiamRPN) -> SiamRPN:
@@ -861,23 +902,22 @@ def check_output(out, hw, out_size: int = 127) -> None:
 def reset_launches() -> None:
     for fn in KERNELS:
         fn.launches = 0
-    for fn in PACKED:
         fn.packed_launches = 0
 
 
 def check_route(tag: str, bf16: bool, graph=None) -> None:
-    """The kernel that every forward and grad-input launch since the last
-    ``reset_launches``, and every xcorr kernel ``graph`` captured, took: the
-    packed bf16 kernel on a bf16 path (the model's shapes: C=256,
-    contiguous), the strip kernel on a float32 one."""
-    totals = [fn.launches for fn in PACKED]
-    packed = [fn.packed_launches for fn in PACKED]
+    """The kernel that every forward, grad-input and grad-kernel launch
+    since the last ``reset_launches``, and every xcorr kernel ``graph``
+    captured, took: the packed bf16 kernel on a bf16 path (the model's
+    shapes: C=256, contiguous), the fp32 kernel on a float32 one."""
+    totals = [fn.launches for fn in KERNELS]
+    packed = [fn.packed_launches for fn in KERNELS]
     if graph is not None:
         totals.append(graph.xcorr_launches)
         packed.append(graph.xcorr_packed_launches)
     if packed != (totals if bf16 else [0] * len(totals)):
         raise AssertionError(f"[{tag}] packed bf16 kernel launches {packed} of {totals} "
-                             "(forward, grad-input, captured in a graph)")
+                             "(forward, grad-input, grad-kernel, captured in a graph)")
 
 
 def read_launches() -> list[int]:
@@ -2239,12 +2279,15 @@ def train_profile(tag: str, trainer: Trainer, batch: dict, epoch: int, label: st
                       for e in top))
 
 
-def phase_train_refine(base_trainer: Trainer, raw: dict, batches: list, smi: str) -> list[int]:
+def phase_train_refine(base_trainer: Trainer, raw: dict, batches: list,
+                       smi: str) -> tuple[list[int], dict, dict]:
     """Stage 2 of the two-stage recipe at TRAIN_BATCH, warm-started from a
     stage-1 checkpoint of ``base_trainer``: 4 steps on loader batches
     through ``to_device`` (3 / 1 / 1 launches a step, backbone, neck and RPN
     bit-identical, the unused head decaying), the loss over 8 repeated
-    steps, card vs CPU at B=2, a profile, ms/step and peak memory."""
+    steps, card vs CPU at B=2, a profile, ms/step and peak memory. Returns
+    the launches, the warm-started weights and the first loader batch on
+    the card."""
     path = str(SMOKE_TRAIN / "stage1.pth")
     save_checkpoint(path, base_trainer.model.state_dict(), base_trainer.optimizer.state_dict(),
                     epoch=TRAIN_EPOCHS, arch="SiamMaskBase",
@@ -2274,14 +2317,14 @@ def phase_train_refine(base_trainer: Trainer, raw: dict, batches: list, smi: str
         init_state, batch, "train-refine-parity")
     train_profile("train-refine", trainer, batch, 1, "stage-2", 5)
     phase_train_timing(trainer, batch, smi, "train-refine-timing", ((1, "stage-2"),))
-    return launches
+    return launches, init_state, batch
 
 
-def phase_train_rpn(raw: dict, batches: list, smi: str) -> tuple[list[int], dict]:
+def phase_train_rpn(raw: dict, batches: list, smi: str) -> tuple[list[int], dict, dict]:
     """SiamRPN at TRAIN_BATCH, 255^2 search: two frozen and two unfrozen
     steps on loader batches (2 / 2 / 2 launches a step), card vs CPU at
-    B=2, a profile and ms/step per phase. Returns the launches and the
-    initial weights."""
+    B=2, a profile and ms/step per phase. Returns the launches, the
+    initial weights and the first loader batch on the card."""
     model = SiamRPN(width=TRAIN_WIDTH).init_weights(torch.Generator().manual_seed(SEED + 2))
     dev_batches = list(to_device(iter(batches), DEV))
     model = model.to(DEV).eval()
@@ -2300,7 +2343,7 @@ def phase_train_rpn(raw: dict, batches: list, smi: str) -> tuple[list[int], dict
     for epoch, label in ((0, "frozen"), (1, "unfrozen")):
         train_profile("train-rpn", trainer, dev_batches[0], epoch, label, 6)
     phase_train_timing(trainer, dev_batches[0], smi, "train-rpn-timing")
-    return launches, init_state
+    return launches, init_state, dev_batches[0]
 
 
 @contextlib.contextmanager
@@ -2883,29 +2926,24 @@ def phase_bf16_vot(models: dict, smi: str) -> int:
     return expected
 
 
-def phase_bf16_train(init_state: dict, batch: dict, cfg: Config, smi: str) -> list[int]:
-    """``[bf16-train]``: SiamMask-base stage 1 at batch TRAIN_BATCH computing
-    in bf16 over float32 weights, from ``[train]``'s initial weights on its
-    batch. The first (frozen) step against the fp32 step from the same
-    weights and batch: the total loss within BF16_TRAIN_LOSS_RTOL of the
-    fp32 one and the cosine of the two parameter updates above
-    BF16_TRAIN_MIN_COS (their relative distance printed). Then a second
-    frozen and two unfrozen steps: each finite, no skip, 3 / 3 / 3
-    launches, the stem and layer1 unchanged, layer2 unchanged while frozen;
-    a profiled unfrozen step whose xcorr kernels are all bf16
-    instantiations (3 forward and 3 of each gradient); ms/step by CUDA
-    events and peak memory per phase beside ``[train-timing]``'s fp32
-    numbers. Returns the launches of the four steps."""
+def bf16_first_step(tag: str, make_trainer, init_state: dict, batch: dict,
+                    epoch: int = 0) -> tuple[Trainer, dict]:
+    """The first step at ``epoch`` of ``make_trainer(dtype)`` (a trainer on
+    the card over ``init_state``'s weights; dtype None or bf16) in float32
+    and in bf16 on ``batch``: the bf16 step finite with no skip, its total
+    loss within BF16_TRAIN_LOSS_RTOL of the float32 one and the cosine of
+    the two steps' parameter updates above BF16_TRAIN_MIN_COS (their
+    relative distance printed). The launch counts start at 0 before the
+    bf16 step. Returns the bf16 trainer and its model's state before the
+    step."""
     runs = {}
     for dtype in (None, BF16):
-        trainer = Trainer(loaded_model(SiamMaskBase, init_state, DEV, dtype), *train_parts(cfg),
-                          epochs=TRAIN_EPOCHS, unfreeze_at=0.5)
+        trainer = make_trainer(dtype)
         if dtype is BF16:
-            model = trainer.model
-            stem0, layer2_0 = _state(model, FROZEN_ALWAYS), _state(model, LAYER2)
+            start = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
             torch.cuda.synchronize()
             reset_launches()
-        metrics = {k: v.item() for k, v in trainer.step(batch, 0).items()}
+        metrics = {k: v.item() for k, v in trainer.step(batch, epoch).items()}
         update = {n: p.detach().double() - init_state[n].to(DEV).double()
                   for n, p in trainer.model.named_parameters() if trainer.labels[n] != "frozen"}
         runs[dtype] = (trainer, metrics, torch.cat([u.flatten() for u in update.values()]))
@@ -2914,16 +2952,37 @@ def phase_bf16_train(init_state: dict, batch: dict, cfg: Config, smi: str) -> li
     rel = ((u16 - u32).norm() / u32.norm()).item()
     loss_rel = abs(m16["total_loss"] - m32["total_loss"]) / abs(m32["total_loss"])
     if not (all(math.isfinite(v) for v in m16.values()) and m16["skipped"] == 0):
-        raise AssertionError(f"bf16-train step 0: {m16}")
+        raise AssertionError(f"[{tag}] step 0: {m16}")
     if not (loss_rel <= BF16_TRAIN_LOSS_RTOL and cos > BF16_TRAIN_MIN_COS):
-        raise AssertionError(f"bf16-train: first step's loss {m16['total_loss']} vs fp32 "
+        raise AssertionError(f"[{tag}] first step's loss {m16['total_loss']} vs fp32 "
                              f"{m32['total_loss']}, update cosine {cos}")
-    print(f"[bf16-train] first step (frozen), B={TRAIN_BATCH}, bf16 against fp32 from the same "
-          f"weights and batch: total loss {m16['total_loss']:.4f} vs {m32['total_loss']:.4f} "
-          f"({loss_rel:.2e} relative; cls {m16['cls_loss']:.4f} vs {m32['cls_loss']:.4f}, loc "
-          f"{m16['loc_loss']:.4f} vs {m32['loc_loss']:.4f}, mask {m16['mask_loss']:.4f} vs "
-          f"{m32['mask_loss']:.4f}); parameter updates: cosine {cos:.4f}, relative distance "
-          f"{rel:.3e}")
+    losses = [k for k in m16 if k.endswith("_loss") and k != "total_loss"]
+    print(f"[{tag}] first step (epoch {epoch}), B={batch['template'].shape[0]}, bf16 against "
+          f"fp32 from the same weights and batch: total loss {m16['total_loss']:.4f} vs "
+          f"{m32['total_loss']:.4f} ({loss_rel:.2e} relative; "
+          + ", ".join(f"{k[:-5]} {m16[k]:.4f} vs {m32[k]:.4f}" for k in losses)
+          + f"); parameter updates: cosine {cos:.4f}, relative distance {rel:.3e}")
+    return trainer, start
+
+
+def phase_bf16_train(init_state: dict, batch: dict, cfg: Config, smi: str) -> list[int]:
+    """``[bf16-train]``: SiamMask-base stage 1 at batch TRAIN_BATCH computing
+    in bf16 over float32 weights, from ``[train]``'s initial weights on its
+    batch. The first (frozen) step against the fp32 step from the same
+    weights and batch (``bf16_first_step``). Then a second frozen and two
+    unfrozen steps: each finite, no skip, 3 / 3 / 3 launches, the stem and
+    layer1 unchanged, layer2 unchanged while frozen; a profiled unfrozen
+    step whose xcorr kernels are all the packed bf16 kernels (3 forward and
+    3 of each gradient); ms/step by CUDA events and peak memory per phase
+    beside ``[train-timing]``'s fp32 numbers. Returns the launches of the
+    four steps."""
+    trainer, start = bf16_first_step(
+        "bf16-train", lambda dtype: Trainer(loaded_model(SiamMaskBase, init_state, DEV, dtype),
+                                            *train_parts(cfg), epochs=TRAIN_EPOCHS,
+                                            unfreeze_at=0.5), init_state, batch)
+    model = trainer.model
+    stem0 = {k: v for k, v in start.items() if k.startswith(FROZEN_ALWAYS)}
+    layer2_0 = {k: v for k, v in start.items() if k.startswith(LAYER2)}
     counts = read_launches()
     if counts != [3, 3, 3]:
         raise AssertionError(f"bf16-train step 0: {counts} launches, expected [3, 3, 3]")
@@ -2949,13 +3008,12 @@ def phase_bf16_train(init_state: dict, batch: dict, cfg: Config, smi: str) -> li
              and "depthwise_xcorr" in e.key}
     packed = sum(c for k, c in names.items() if "depthwise_xcorr_strip_bf16x2_kernel" in k)
     grad_kernel = sum(c for k, c in names.items()
-                      if "depthwise_xcorr_grad_kernel_kernel" in k and "bfloat16" in k)
+                      if "depthwise_xcorr_grad_kernel_bf16x2_kernel" in k)
     if (packed, grad_kernel) != (6, 3) or sum(names.values()) != 9:
         raise AssertionError(f"bf16-train: xcorr kernels in a step's trace {names}")
     kinds = sorted({re.search(r"depthwise_xcorr\w*<[^>]*>", k).group(0) for k in names})
-    print(f"[bf16-train] profiled unfrozen step: 9 xcorr kernels, forward and grad-input the "
-          f"packed bf16 kernel, grad-kernel its bf16 instantiation ({', '.join(kinds)}); device "
-          f"busy {busy:.2f} ms of {step_ms:.2f} ms")
+    print(f"[bf16-train] profiled unfrozen step: 9 xcorr kernels, all packed bf16 kernels "
+          f"({', '.join(kinds)}); device busy {busy:.2f} ms of {step_ms:.2f} ms")
     phase_train_timing(trainer, batch, smi, "bf16-train-timing", mode="bf16")
     for label in ("frozen", "unfrozen"):
         (ms16, peak16), (ms32, peak32) = (MEASURED[t][label] for t in ("bf16-train-timing",
@@ -2964,6 +3022,45 @@ def phase_bf16_train(init_state: dict, batch: dict, cfg: Config, smi: str) -> li
               f"(fp32 / bf16 {ms32 / ms16:.2f}x), {TRAIN_BATCH * 1e3 / ms16:.1f} vs "
               f"{TRAIN_BATCH * 1e3 / ms32:.1f} samples/s; peak memory {peak16:.2f} vs "
               f"{peak32:.2f} GiB | {smi}")
+    return launches
+
+
+def phase_bf16_train_task(tag: str, make_trainer, init_state: dict, batch: dict, epochs: tuple,
+                          per_step: list[int], phases, fp32_tag: str, smi: str) -> list[int]:
+    """``[bf16-train-refine]`` / ``[bf16-train-rpn]``: a task's trainer
+    (``make_trainer(dtype)``) computing in bf16 over float32 weights, from
+    its fp32 phase's initial weights on its first loader batch: the first
+    step at ``epochs[0]`` against the fp32 step (``bf16_first_step``), then
+    a step at each of ``epochs[1:]``, each finite with no skip and
+    ``per_step`` launches; every xcorr launch of those steps the packed
+    bf16 kernels (``check_route``); ms/step by CUDA events and peak memory
+    of each of ``phases`` beside the fp32 phase's (``fp32_tag``) of this
+    run. Fewer steps than the fp32 phase, to keep the smoke inside the chip
+    tool's time limit. Returns the launches of its steps."""
+    trainer, _ = bf16_first_step(tag, make_trainer, init_state, batch, epochs[0])
+    counts = read_launches()
+    if counts != per_step:
+        raise AssertionError(f"[{tag}] step 0: {counts} launches, expected {per_step}")
+    for step, epoch in enumerate(epochs[1:], 1):
+        before = read_launches()
+        metrics = {k: v.item() for k, v in trainer.step(batch, epoch).items()}
+        counts = [a - b for a, b in zip(read_launches(), before)]
+        if (not all(math.isfinite(v) for v in metrics.values()) or metrics["skipped"] != 0
+                or counts != per_step):
+            raise AssertionError(f"[{tag}] step {step}: {metrics}, launches {counts}")
+        print(f"[{tag}] step {step} epoch {epoch}: "
+              + " ".join(f"{k} {v:.4f}" for k, v in metrics.items() if k != "skipped")
+              + f"; launches {counts}")
+    launches = read_launches()
+    check_route(tag, True)
+    print(f"[{tag}] {len(epochs)} steps at B={batch['template'].shape[0]}: launches "
+          f"{launches}, all packed bf16 kernels")
+    phase_train_timing(trainer, batch, smi, f"{tag}-timing", phases, mode="bf16")
+    for _, label in phases:
+        (ms16, peak16), (ms32, peak32) = (MEASURED[t][label] for t in (f"{tag}-timing",
+                                                                        fp32_tag))
+        print(f"[{tag}] {label} step beside [{fp32_tag}]: {ms16:.2f} vs {ms32:.2f} ms (fp32 / "
+              f"bf16 {ms32 / ms16:.2f}x); peak memory {peak16:.2f} vs {peak32:.2f} GiB | {smi}")
     return launches
 
 
@@ -3153,8 +3250,8 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     strip, packed = phase_kernels()
-    strip_input, grad_kernel, packed_input = phase_grad_kernels()
-    records = [strip, strip_input, grad_kernel, packed, packed_input]
+    strip_input, grad_kernel, packed_input, packed_grad_kernel = phase_grad_kernels()
+    records = [strip, strip_input, grad_kernel, packed, packed_input, packed_grad_kernel]
     p = Config.load(str(CONFIG)).tracker_config()
     model, tracker, frames = build_model(p)
     cpu_tracker = cpu_tracker_of(tracker)
@@ -3210,10 +3307,26 @@ def main() -> None:
     configs = {"sharp": train_data_config(SHARP_TRAIN_CONFIG, root, anno, 8 * TRAIN_BATCH),
                "rpn": train_data_config(RPN_CONFIG, root, anno, 8 * TRAIN_BATCH)}
     loaded = phase_data(configs)
-    train_refine_launches = phase_train_refine(trainer, configs["sharp"], loaded["sharp"], smi)
+    train_refine_launches, refine_state, refine_batch = phase_train_refine(
+        trainer, configs["sharp"], loaded["sharp"], smi)
     del trainer, train_model, batch
     torch.cuda.empty_cache()
-    train_rpn_launches, rpn_state = phase_train_rpn(configs["rpn"], loaded["rpn"], smi)
+    bf16_refine_launches = phase_bf16_train_task(
+        "bf16-train-refine", lambda dtype: task_trainer(
+            configs["sharp"], "sharp_refine",
+            loaded_model(SiamMaskSharp, refine_state, DEV, dtype)),
+        refine_state, refine_batch, (0, 0, 1), [3, 1, 1], ((1, "stage-2"),),
+        "train-refine-timing", smi)
+    del refine_batch
+    torch.cuda.empty_cache()
+    train_rpn_launches, rpn_state, rpn_batch = phase_train_rpn(configs["rpn"], loaded["rpn"], smi)
+    torch.cuda.empty_cache()
+    bf16_rpn_launches = phase_bf16_train_task(
+        "bf16-train-rpn", lambda dtype: task_trainer(
+            configs["rpn"], "siamrpn", loaded_model(SiamRPN, rpn_state, DEV, dtype)),
+        rpn_state, rpn_batch, (0, 0, 1), [2, 2, 2], ((0, "frozen"), (1, "unfrozen")),
+        "train-rpn-timing", smi)
+    del rpn_batch
     torch.cuda.empty_cache()
     phase_train_resume(configs["rpn"], rpn_state, loaded["rpn"])
     phase_train_cli({"base": train_data_config(TRAIN_CONFIG, root, anno, 2 * TRAIN_BATCH),
@@ -3231,20 +3344,21 @@ def main() -> None:
              "train_refine": train_refine_launches, "train_rpn": train_rpn_launches,
              "dp": dp_launches, "sharded": [sharded_launches, 0, 0],
              **bf16_paths, "bf16_vos": [bf16_vos_launches, 0, 0],
-             "bf16_vot": [bf16_vot_launches, 0, 0], "bf16_train": bf16_train_launches}
-    # by kernel: check_route held every bf16 path's forward and grad-input
-    # launches to the packed kernel and every fp32 path's to the strip kernel
-    by_kernel = {k: [0, 0, v[2], *v[:2]] if k.startswith("bf16") else [*v, 0, 0]
+             "bf16_vot": [bf16_vot_launches, 0, 0], "bf16_train": bf16_train_launches,
+             "bf16_train_refine": bf16_refine_launches, "bf16_train_rpn": bf16_rpn_launches}
+    # by kernel: check_route held every bf16 path's launches to the packed
+    # kernels and every fp32 path's to the fp32 kernels
+    by_kernel = {k: [0, 0, 0, *v] if k.startswith("bf16") else [*v, 0, 0, 0]
                  for k, v in paths.items()}
     for i, record in enumerate(records):
         record["launches_by_path"] = {k: v[i] for k, v in by_kernel.items()}
         record["launches"] = sum(record["launches_by_path"].values())
     print("[launches] " + ", ".join(f"{k} {v}" for k, v in by_kernel.items())
           + " (strip forward, strip grad-input, grad-kernel, packed bf16 forward, packed bf16 "
-          "grad-input)")
+          "grad-input, packed bf16 grad-kernel)")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "launches_by_path", "stage2", "local_batches",
-             "bf16_scalar", "bf16", "by_shape"]
+             "bf16_scalar", "by_shape"]
     print(smi)
     print(json.dumps({"kernels": [{key: r[key] for key in order if key in r} for r in records]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -60,22 +60,22 @@
 //                `depthwise_xcorr_grad_input_any_kernel`, one thread per
 //                element of dx with its taps clipped to g.
 //   grad-kernel: dk[b, dy, dx, c] = sum_{i < Ho, j < Wo} x[b, i + dy, j + dx, c] * g[b, i, j, c]
-//                A block owns one (b, 32-channel tile) and all taps of it, up
-//                to 5x5 (a larger template takes one block per 5x5 group of
-//                taps). Its 8 warps split the (chunk of 5 outputs along j,
-//                row i) items, each warp walking down the rows of a chunk
-//                with a rolling window of x rows, as the forward does. Per
-//                row a thread loads the chunk's 5 values of g once for all
-//                its taps and one new x row of 9 values; its 25 tap sums stay
-//                in registers: 14 loads per 125 FMAs (against 2 loads per FMA
-//                when a block held one tap), and g comes from DRAM/L2 once per
-//                (b, tile) instead of once per tap. The 8 warps' partial sums
-//                are added in warp order in shared memory: no atomics, the
-//                same bits every call. At B=1 the grid has only 8 blocks (one
-//                per channel tile); that is as fast as the one-tap-per-block
-//                version was, so the launcher does not split further.
+//                fp32 (`depthwise_xcorr_grad_kernel_kernel`): a block owns one (b,
+//                32-channel tile) and all taps of it, up to 5x5 (a larger
+//                template takes one block per 5x5 group of taps). Its 8 warps
+//                split the (chunk of 5 outputs along j, row i) items, each
+//                warp walking down the rows of a chunk with a rolling window
+//                of x rows, as the forward does. Per row a thread loads the
+//                chunk's 5 values of g once for all its taps and one new x row
+//                of 9 values; its 25 tap sums stay in registers: 14 loads per
+//                125 FMAs, and g comes from DRAM/L2 once per (b, tile). The 8
+//                warps' partial sums are added in warp order in shared memory:
+//                no atomics, the same bits every call. Its grid has one block
+//                a (b, tile): 8 at B=1, and at stage 2's 3x3 g 5 of the 8
+//                warps have no item; in fp32 that is as fast as a wider split
+//                was at B=1, so it stays.
 //
-// What bounds the three kernels now (inferred from bytes and time; no
+// What bounds the three fp32 kernels (inferred from bytes and time; no
 // hardware counters are read): at B=64 each moves ~98 MB (x or dx 55 MB, g
 // or out 41 MB), which at the rate a plain copy reaches on an H100
 // (~2.85 TB/s) takes ~34 us, against ~51 us measured for the forward and
@@ -88,21 +88,38 @@
 // grad-kernel in fp32 but is not used: cp.async copies at least 4 bytes, so
 // bf16 and ragged C would need a second path. PERF.md has the times.
 //
-// The strip kernel's bf16 instantiation took 1.7-2x the fp32 kernel's time
-// while it moves half the bytes, at B=1 too (6.2 against 3.1-3.3 us). Not
-// for want of registers: ptxas gives it 119 / 124 registers (forward /
-// grad-input) and no spills against fp32's 116 / 118, so an SM holds the
-// same 16 warps. Its loads are the cause: each 16-bit load is converted to
-// float32 as it arrives, and ptxas issues them a few at a time behind those
-// conversions, so a warp waits out one memory latency per few loads, where
-// the fp32 kernel issues a row of loads at once. The packed bf16 kernel
-// below is the bf16 path's forward and grad-input on the model's shapes.
+// bf16. The kernels' bf16 instantiations took 1.7-2x the fp32 kernels' time
+// while they move half the bytes, at B=1 too (strip kernel 6.2 against
+// 3.1-3.3 us; grad-kernel 23 against 13 us). Not for want of registers: ptxas
+// gives the strip kernel 119 / 124 registers (forward / grad-input) and no
+// spills against fp32's 116 / 118. Their loads are the cause: each 16-bit
+// load is converted to float32 as it arrives, and ptxas issues them a few at
+// a time behind those conversions, so a warp waits out one memory latency
+// per few loads, where the fp32 kernel issues a row of loads at once. So the
+// bf16 paths on the model's shapes (even C, templates up to 5x5, 4-byte
+// aligned pointers) take packed kernels, two channels a lane in one 4-byte
+// load: `depthwise_xcorr_strip_bf16x2_kernel` (forward, grad-input; bit for
+// bit the scalar instantiation's output) and
+// `depthwise_xcorr_grad_kernel_bf16x2_kernel` (grad-kernel). Packing halves
+// the channel tiles, which the grad-kernel's one-block-a-(b, tile) grid could
+// not afford (4 blocks at B=1, 256 at B=64), so the packed grad-kernel also
+// splits each (b, tile) over a thread-block cluster of up to 8 blocks, each
+// a band of x rows, and over tap rows where g is narrow (stage 2's 3x3 g:
+// a warp a tap row, none idle), and reduces the partials through
+// distributed shared memory in a fixed order. A cluster rather than a
+// float32 scratch and a second pass: one launch, nothing allocated, and the
+// partials never leave the GPC; its cost is the 8-block limit, which caps
+// B=1 at 32 blocks. The scalar
+// instantiations stay for odd C and misaligned pointers.
 //
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -582,6 +599,247 @@ __global__ void __launch_bounds__(kChannelTile * kGradWarps)
   }
 }
 
+// ---- bf16, packed: the grad-kernel of the bf16 model's paths ----
+//
+// `depthwise_xcorr_grad_kernel_bf16x2_kernel` (the header has why it exists).
+// A cluster of K blocks owns one (b, tile of 2 * P * 32 channels); P words of
+// two bf16 a lane, loaded as one 4P-byte word and unpacked at the FMA, as in
+// the packed strip kernel. Its work is split into segments, one a (group of
+// gh tap rows dy0 .., chunk of kGradChunk outputs along j), each of the
+// Ho + gh - 1 x rows dy0 + u that the group's taps meet; the segments' x
+// rows are numbered one after another. The cluster's warps take contiguous,
+// balanced slices of them, slice y * K + r for warp y of block r: with the
+// launcher's choice of blockDim.y = segments and K bands of x rows, warp y
+// of every block takes segment y and block r band r, so a warp walks one
+// band of x rows of one chunk, and a block's warps walk the same x rows in
+// step, side by side, and share through L1 the 4 columns their chunks
+// overlap. A warp keeps the g rows in a rolling window: x row dy0 + u meets
+// g rows u - d for the group's tap rows d, so a step loads one x row (n + wk
+// - 1 words) and one g row (n words), a step ahead, for
+// gh * n * wk * 2P FMAs; the window's first g rows (up to 4, the band's
+// start) are loaded at once with its first x row, so a band of R x rows
+// waits out about R + 1 memory latencies. The window holds g (5 x 5 words),
+// not x (5 x 9): the 50 float32 accumulators (25 taps x 2 channels) and the
+// window take ~150 registers, two blocks of 5 warps an SM. Each band adds
+// its sums into the warp's partials in shared memory; the block adds its
+// warps' partials in warp order, and after a cluster barrier the cluster's
+// warps add the K blocks' sums of each tap in rank order through
+// distributed shared memory, round to bf16 once and store. A one-block
+// cluster (B=64) stores its block's sums with no cluster barrier, and
+// where every tap is one warp's alone (stage 2: a warp a tap row, one
+// chunk) the warp stores its sums with no partials at all: the barriers
+// and the shared-memory passes cost ~2-3 us a call. Every addition has a
+// fixed place, so two calls give the same bits; the order differs from
+// the scalar kernel's, so the two differ by at most a bf16 step.
+// What bounds it (scripts/bench_xcorr_bf16.py's diagnostics, PERF.md on an
+// H100): the loads' latency, with one row in flight a warp and 10 warps an
+// SM; its FMAs alone take about two thirds of its time at B=64. None of
+// the bench's variants is faster at B=64 (four channels a lane, a
+// 136-register cap, other cluster sizes), nor were two rows in flight in
+// registers (one block an SM) or a per-warp cp.async ring in shared memory,
+// tried and not kept.
+constexpr int kGradPackWords = 1;         // 32-bit words of two bf16 a lane
+constexpr int kGradPackedMaxWarps = 8;    // warps a block, at most
+constexpr int kGradPackedMaxCluster = 8;  // blocks a cluster: the portable maximum
+constexpr int kGradPackedWaves = 1;       // waves of resident blocks the grid aims at
+
+// One x row of a run: acc[d][dx] += sum_jj xr[jj + dx] * gw[d][jj] over the
+// window rows d whose g row is in the run (bit d of live); channel 2q + h of
+// the lane takes half h of word q. kFull: gh = kTapRows, wk = kTapCols and a
+// whole chunk.
+template <int P, bool kFull>
+__device__ __forceinline__ void grad_kernel_row_packed(
+    float (&acc)[kTapRows][kTapCols][2 * P],
+    const unsigned int (&xr)[kGradChunk + kTapCols - 1][P],
+    const unsigned int (&gw)[kTapRows][kGradChunk][P], unsigned int live, int th, int n,
+    int wk) {
+#pragma unroll
+  for (int d = 0; d < kTapRows; ++d) {
+    if (!kFull && d >= th) break;
+    if (!((live >> d) & 1u)) continue;
+#pragma unroll
+    for (int jj = 0; jj < kGradChunk; ++jj) {
+      if (!kFull && jj >= n) break;
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const float g0 = bf16_lo(gw[d][jj][q]), g1 = bf16_hi(gw[d][jj][q]);
+#pragma unroll
+        for (int dx = 0; dx < kTapCols; ++dx) {
+          if (!kFull && dx >= wk) break;
+          acc[d][dx][2 * q] = fmaf(bf16_lo(xr[jj + dx][q]), g0, acc[d][dx][2 * q]);
+          acc[d][dx][2 * q + 1] = fmaf(bf16_hi(xr[jj + dx][q]), g1, acc[d][dx][2 * q + 1]);
+        }
+      }
+    }
+  }
+}
+
+// grid (K, channel tiles, B), cluster (K, 1, 1), block (32, warps <=
+// kGradPackedMaxWarps); dynamic shared memory: float partial[warps][kTapRows *
+// kTapCols][64 P].
+template <int P>
+__global__ void __launch_bounds__(kChannelTile * kGradPackedMaxWarps)
+    depthwise_xcorr_grad_kernel_bf16x2_kernel(const __nv_bfloat16* __restrict__ x,
+                                              const __nv_bfloat16* __restrict__ g,
+                                              __nv_bfloat16* __restrict__ dk, int hx, int wx,
+                                              int c, int hk, int wk, int ho, int wo, int gh,
+                                              bool direct) {
+  constexpr int V = 2 * P, W = kGradChunk + kTapCols - 1, T = kTapRows * kTapCols;
+  constexpr int L = kChannelTile * V;  // channels a tile
+  extern __shared__ __align__(16) float partial[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), blocks = (int)cluster.num_blocks();
+  const int per_block = blockDim.y, warps = blocks * per_block;
+  const int ch = blockIdx.y * L + threadIdx.x * V;
+  const long long b = blockIdx.z;
+  float* mine = partial + threadIdx.y * T * L + threadIdx.x * V;
+#pragma unroll
+  for (int t = 0; t < T; ++t)
+#pragma unroll
+    for (int v = 0; v < V; ++v) mine[t * L + v] = 0.0f;
+
+  if (ch < c) {
+    const int span = ho + gh - 1;  // x rows a segment's group of tap rows meets
+    const int per_group = (wo + kGradChunk - 1) / kGradChunk * span;
+    const int items = (hk + gh - 1) / gh * per_group;
+    const int slice = threadIdx.y * blocks + rank;
+    const int first = (int)((long long)items * slice / warps);
+    const int last = (int)((long long)items * (slice + 1) / warps);
+    const long long row_x = (long long)wx * c, row_g = (long long)wo * c;
+    for (int item = first; item < last;) {
+      const int group = item / per_group, rest = item - group * per_group;
+      const int chunk = rest / span, u0 = rest - chunk * span;
+      const int u1 = min(span, u0 + last - item);  // x rows dy0 + u0 .. dy0 + u1 - 1
+      item += u1 - u0;
+      const int dy0 = group * gh, th = min(gh, hk - dy0);
+      const int end = min(u1, ho + th - 1);  // a shorter last group meets fewer x rows
+      if (u0 >= end) continue;
+      const int j0 = chunk * kGradChunk, n = min(kGradChunk, wo - j0);
+      // x row dy0 + u at xc + u * row_x, g row i at gc + i * row_g
+      const __nv_bfloat16* xc = x + ((b * hx + dy0) * wx + j0) * c + ch;
+      const __nv_bfloat16* gc = g + (b * ho * wo + j0) * c + ch;
+      float acc[kTapRows][kTapCols][V];
+      // gw: the g window; nx, ng: the next x and g rows, in flight
+      unsigned int gw[kTapRows][kGradChunk][P], xr[W][P], nx[W][P], ng[kGradChunk][P];
+#pragma unroll
+      for (int d = 0; d < kTapRows; ++d)
+#pragma unroll
+        for (int t = 0; t < kTapCols; ++t)
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[d][t][v] = 0.0f;
+      // x row dy0 + u and g row u, g rows past g read as zero
+      auto load = [&](int u) {
+        load_packed_row<P>(nx, xc + u * row_x, c, 0, n + wk - 1);
+        load_packed_row<P>(ng, gc + min(u, ho - 1) * row_g, c, 0, u < ho ? n : 0);
+      };
+      // the window before x row u0 (gw[d - 1] holds g row u0 - d) and the
+      // first rows, all loaded at once
+#pragma unroll
+      for (int d = 1; d < kTapRows; ++d) {
+        const int i = u0 - d;
+        const bool in = d < th && i >= 0 && i < ho;
+        load_packed_row<P>(gw[d - 1], gc + (in ? i : 0) * row_g, c, 0, in ? n : 0);
+      }
+      load(u0);
+      const bool full = th == kTapRows && wk == kTapCols && n == kGradChunk;
+      for (int u = u0; u < end; ++u) {
+        // window row d holds g row u - d; it is in g for lo <= d <= hi
+#pragma unroll
+        for (int d = kTapRows - 1; d > 0; --d)
+#pragma unroll
+          for (int t = 0; t < kGradChunk; ++t)
+#pragma unroll
+            for (int p = 0; p < P; ++p) gw[d][t][p] = gw[d - 1][t][p];
+#pragma unroll
+        for (int t = 0; t < kGradChunk; ++t)
+#pragma unroll
+          for (int p = 0; p < P; ++p) gw[0][t][p] = ng[t][p];
+#pragma unroll
+        for (int t = 0; t < W; ++t)
+#pragma unroll
+          for (int p = 0; p < P; ++p) xr[t][p] = nx[t][p];
+        if (u + 1 < end) load(u + 1);
+        const int lo = max(0, u - ho + 1), hi = min(kTapRows - 1, u);
+        const unsigned int live = ((2u << hi) - 1u) & ~((1u << lo) - 1u);
+        if (full)
+          grad_kernel_row_packed<P, true>(acc, xr, gw, live, th, n, wk);
+        else
+          grad_kernel_row_packed<P, false>(acc, xr, gw, live, th, n, wk);
+      }
+#pragma unroll
+      for (int d = 0; d < kTapRows; ++d) {
+        if (d >= th) break;
+#pragma unroll
+        for (int dx = 0; dx < kTapCols; ++dx) {
+          if (dx >= wk) break;
+          if (direct) {  // this warp's taps are its own: store them
+            unsigned int out[P];
+#pragma unroll
+            for (int q = 0; q < P; ++q)
+              out[q] = pack_bf16x2(acc[d][dx][2 * q], acc[d][dx][2 * q + 1]);
+            store_words<P>(dk + ((b * hk + dy0 + d) * wk + dx) * c + ch, out);
+          } else {
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              mine[((dy0 + d) * kTapCols + dx) * L + v] += acc[d][dx][v];
+          }
+        }
+      }
+    }
+  }
+  if (direct) return;  // the whole grid: nothing to add up
+
+  __syncthreads();
+  if (blocks == 1) {  // each tap's warp partials, added in warp order and stored
+    for (int t = threadIdx.y; t < T; t += per_block) {
+      const int dy = t / kTapCols, dx = t - dy * kTapCols;
+      if (dy >= hk || dx >= wk || ch >= c) continue;
+      const float* p = partial + t * L + threadIdx.x * V;
+      unsigned int out[P];
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        float sum0 = p[2 * q], sum1 = p[2 * q + 1];
+        for (int w = 1; w < per_block; ++w) {
+          sum0 += p[w * T * L + 2 * q];
+          sum1 += p[w * T * L + 2 * q + 1];
+        }
+        out[q] = pack_bf16x2(sum0, sum1);
+      }
+      store_words<P>(dk + ((b * hk + dy) * wk + dx) * c + ch, out);
+    }
+    return;
+  }
+  // each tap's warp partials, added in warp order into warp 0's
+  for (int t = threadIdx.y; t < T; t += per_block) {
+    float* p = partial + t * L + threadIdx.x * V;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      float sum = p[v];
+      for (int w = 1; w < per_block; ++w) sum += p[w * T * L + v];
+      p[v] = sum;
+    }
+  }
+  cluster.sync();
+  // each tap's block sums, added in rank order, by one of the cluster's warps
+  for (int t = rank * per_block + threadIdx.y; t < T; t += warps) {
+    const int dy = t / kTapCols, dx = t - dy * kTapCols;
+    if (dy >= hk || dx >= wk) continue;
+    float sum[V] = {};
+    for (int r = 0; r < blocks; ++r) {
+      const float* p = cluster.map_shared_rank(partial + t * L + threadIdx.x * V, r);
+#pragma unroll
+      for (int v = 0; v < V; ++v) sum[v] = r == 0 ? p[v] : sum[v] + p[v];
+    }
+    if (ch < c) {
+      unsigned int out[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) out[p] = pack_bf16x2(sum[2 * p], sum[2 * p + 1]);
+      store_words<P>(dk + ((b * hk + dy) * wk + dx) * c + ch, out);
+    }
+  }
+  cluster.sync();  // the peers' shared memory stays until every block has read it
+}
+
 // The forward (kFullCorr false: src = x (hx, wx), dst = out (ho, wo)) or
 // grad-input (kFullCorr true: src = g (ho, wo), dst = dx (hx, wx)).
 template <typename T, bool kFullCorr>
@@ -680,13 +938,105 @@ cudaError_t launch_grad_kernel(const void* x, const void* g, void* dk, int b, in
   return cudaGetLastError();
 }
 
+// The packed bf16 grad-kernel. It returns cudaErrorInvalidValue for what the
+// packed kernel does not take (as `launch_bf16x2`). The split: a block's
+// warps are the segments, (tap-row group, chunk) pairs: the 5 chunks of a
+// 25-wide g with one group of all tap rows, or, where the chunks leave room
+// in kGradPackedMaxWarps, groups of fewer tap rows (stage 2's 3x3 g: one
+// chunk, five groups of one tap row, so that no warp idles); then K blocks
+// a cluster, each a band of x rows, as many as fill kGradPackedWaves waves
+// of the blocks the card holds at once over the B * tiles clusters, at
+// most kGradPackedMaxCluster and a segment's x rows, and no more than lets
+// one wave of the clusters be resident together
+// (cudaOccupancyMaxActiveClusters).
+cudaError_t launch_grad_kernel_bf16x2(const void* x, const void* g, void* dk, int b, int hx,
+                                      int wx, int c, int hk, int wk, int device,
+                                      cudaStream_t stream) {
+  constexpr int V = 2 * kGradPackWords, align = 4 * kGradPackWords, L = kChannelTile * V;
+  constexpr size_t kWarpBytes = sizeof(float) * kTapRows * kTapCols * L;  // a warp's partials
+  if (hk > kTapRows || wk > kTapCols || c % V != 0 ||
+      reinterpret_cast<uintptr_t>(x) % align != 0 ||
+      reinterpret_cast<uintptr_t>(g) % align != 0 ||
+      reinterpret_cast<uintptr_t>(dk) % align != 0)
+    return cudaErrorInvalidValue;
+  if ((long long)b * hk * wk * c == 0) return cudaSuccess;
+  const int ho = hx - hk + 1, wo = wx - wk + 1;
+  const auto kernel = depthwise_xcorr_grad_kernel_bf16x2_kernel<kGradPackWords>;
+  // the device's occupancy, queried once a device and shape of launch and
+  // kept, so that a launch inside CUDA-graph capture queries nothing
+  // (0: not queried yet)
+  constexpr int kDevices = 64;
+  static int sms[kDevices], resident[kDevices][kGradPackedMaxWarps + 1];
+  static int active[kDevices][kGradPackedMaxWarps + 1][kGradPackedMaxCluster + 1];
+  if (device < 0 || device >= kDevices) return cudaErrorInvalidDevice;
+  cudaError_t err;
+  if (sms[device] == 0) {
+    constexpr int kMaxBytes = (int)(kGradPackedMaxWarps * kWarpBytes);
+    if (kMaxBytes > 48 * 1024) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxBytes);
+      if (err != cudaSuccess) return err;
+    }
+    err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+  }
+  const int chunks = (wo + kGradChunk - 1) / kGradChunk;
+  const int groups = std::max(1, std::min(hk, kGradPackedMaxWarps / chunks));
+  const int gh = (hk + groups - 1) / groups;
+  const int warps = std::min(kGradPackedMaxWarps, (hk + gh - 1) / gh * chunks);
+  const size_t smem = warps * kWarpBytes;
+  if (resident[device][warps] == 0) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kChannelTile * warps, smem);
+    if (err != cudaSuccess) return err;
+    resident[device][warps] = std::max(n, 1);
+  }
+  const int tiles = (c + L - 1) / L;
+  const long long pairs = (long long)b * tiles;
+  const long long items = (long long)((hk + gh - 1) / gh) * chunks * (ho + gh - 1);
+  int k = (int)std::max<long long>(
+      1, std::min<long long>(
+             std::min<long long>(kGradPackedMaxCluster, std::max<long long>(1, items / warps)),
+             (long long)kGradPackedWaves * resident[device][warps] * sms[device] / pairs));
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.blockDim = dim3(kChannelTile, warps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  for (; k > 1; --k) {  // a wave of the clusters resident at once
+    cluster.val.clusterDim.x = k;
+    cfg.gridDim = dim3(k, tiles, b);
+    int& n = active[device][warps][k];
+    if (n == 0) {
+      err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+      if (err != cudaSuccess) return err;
+      if (n == 0) n = -1;  // queried: none fits
+    }
+    if ((long long)n * kGradPackedWaves >= pairs) break;
+  }
+  cluster.val.clusterDim.x = k;
+  cfg.gridDim = dim3(k, tiles, b);
+  // one block a (b, tile) whose warps are the tap groups of a one-chunk g:
+  // each tap is one warp's alone, which stores it with no partials
+  const bool direct = k == 1 && chunks == 1 && warps == (hk + gh - 1) / gh;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(x),
+                           static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dk),
+                           hx, wx, c, hk, wk, ho, wo, gh, direct);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry launches on the caller's stream, does not synchronise, allocates
 // nothing and returns cudaGetLastError() after the launch.
 // dtype: 0 = float32, 1 = bfloat16. kernel: 0 = the kernel of that type (one
-// channel a lane), 1 = the packed bf16 kernel (bf16 forward and grad-input
-// only; the Python wrapper chooses). Shapes are validated by the Python
+// channel a lane), 1 = the packed bf16 kernel of that entry (bf16 only; the
+// Python wrapper chooses). Shapes are validated by the Python
 // wrapper; (hk, wk) is always the template's size and (hx, wx) the search
 // map's.
 extern "C" int siammask_depthwise_xcorr(const void* x, const void* k, void* out, int b, int hx,
@@ -727,10 +1077,12 @@ extern "C" int siammask_depthwise_xcorr_grad_kernel(const void* x, const void* g
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kernel != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)launch_grad_kernel<float>(x, g, dk, b, hx, wx, c, hk, wk, s);
-  if (dtype == 1)
+  if (dtype == 0 && kernel == 0)
+    return (int)launch_grad_kernel<float>(x, g, dk, b, hx, wx, c, hk, wk, s);
+  if (dtype == 1 && kernel == 0)
     return (int)launch_grad_kernel<__nv_bfloat16>(x, g, dk, b, hx, wx, c, hk, wk, s);
+  if (dtype == 1 && kernel == 1)
+    return (int)launch_grad_kernel_bf16x2(x, g, dk, b, hx, wx, c, hk, wk, device, s);
   return (int)cudaErrorInvalidValue;
 }
 

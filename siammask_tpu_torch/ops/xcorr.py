@@ -17,16 +17,17 @@ k (B, Hk, Wk, C) -> (B, Hx-Hk+1, Wx-Wk+1, C). For SiamMask:
 - ``depthwise_xcorr_grad_input`` / ``depthwise_xcorr_grad_kernel``: the
   gradient wrappers the backward calls; the backward computes each only for
   an input that needs it.
-- In bf16 the forward and grad-input launch one of two hand-written
-  kernels, which ``uses_packed_kernel`` picks from the dtype, C, the
-  template's size and the pointers' alignment: the packed kernel (two
-  channels a lane, 4-byte loads; the model's shapes take it) or the strip
-  kernel's bf16 instantiation (one channel a lane: odd C, or a storage
-  offset that breaks the alignment). Both give the same bits.
+- In bf16 each of the three launches one of two hand-written kernels,
+  which ``uses_packed_kernel`` picks from the dtype, C, the template's size
+  and the pointers' alignment: a packed kernel (two channels a lane, 4-byte
+  loads; the model's shapes take it) or the kernel's bf16 instantiation
+  (one channel a lane: odd C, or a storage offset that breaks the
+  alignment). For the forward and grad-input both give the same bits; the
+  packed grad-kernel sums in another order and differs from the scalar
+  one by at most a bf16 rounding.
 - Each wrapper counts its kernel launches in ``<wrapper>.launches``, a
   host counter that moves where the wrapper launches, and the packed
-  kernel's among them in ``<wrapper>.packed_launches`` (forward and
-  grad-input). A launch captured
+  kernel's among them in ``<wrapper>.packed_launches``. A launch captured
   into a CUDA graph counts once, at capture: each replay launches the kernel
   again without passing through the wrapper, so a graph path launches its
   captured count (``tracker.StepGraph.xcorr_launches``) times its replays.
@@ -119,13 +120,14 @@ def _check(x: torch.Tensor, k: torch.Tensor) -> None:
         raise ValueError(f"template {hk}x{wk} does not fit search {hx}x{wx}")
 
 
-def uses_packed_kernel(*ts: torch.Tensor) -> bool:
-    """Whether a forward (x, k, out) or grad-input (g, k, dx) call on these
-    tensors takes the packed bf16 kernel: bf16, C a multiple of the
-    channels a lane, a template (``ts[1]``) of at most 5x5 and every
-    pointer aligned to a lane's load. Else it takes the strip kernel of
-    its dtype, one channel a lane."""
-    _, hk, wk, c = ts[1].shape
+def uses_packed_kernel(*ts: torch.Tensor, template: int = 1) -> bool:
+    """Whether a forward (x, k, out), grad-input (g, k, dx) or grad-kernel
+    (x, g, dk) call on these tensors takes the packed bf16 kernel: bf16, C
+    a multiple of the channels a lane, a template (``ts[template]``: k, or
+    dk for grad-kernel, whose ``ts[1]`` is g) of at most 5x5 and every
+    pointer aligned to a lane's load. Else it takes the kernel of its
+    dtype, one channel a lane."""
+    _, hk, wk, c = ts[template].shape
     align = 2 * _PACKED_CHANNELS    # bytes a lane loads
     return (ts[0].dtype == torch.bfloat16 and c % _PACKED_CHANNELS == 0
             and hk <= _PACKED_TAPS and wk <= _PACKED_TAPS
@@ -135,12 +137,12 @@ def uses_packed_kernel(*ts: torch.Tensor) -> bool:
 def _launch(wrapper, entry: str, a: torch.Tensor, b_: torch.Tensor, out_shape: tuple,
             dims: tuple) -> torch.Tensor:
     """Launch one C entry on the current stream, the packed kernel where
-    ``uses_packed_kernel`` says so (never for grad-kernel), and count it on
-    ``wrapper``; ``dims`` is (b, hx, wx, c, hk, wk). Raises on a non-zero
-    CUDA code."""
+    ``uses_packed_kernel`` says so, and count it on ``wrapper``; ``dims`` is
+    (b, hx, wx, c, hk, wk). Raises on a non-zero CUDA code."""
     lib = _build.load_library()
     out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
-    packed = wrapper is not depthwise_xcorr_grad_kernel and uses_packed_kernel(a, b_, out)
+    packed = uses_packed_kernel(a, b_, out,
+                                template=2 if wrapper is depthwise_xcorr_grad_kernel else 1)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     code = getattr(lib, entry)(a.data_ptr(), b_.data_ptr(), out.data_ptr(), *dims,
                                _DTYPE_CODE[a.dtype], int(packed), a.device.index,
@@ -228,3 +230,4 @@ depthwise_xcorr_grad_input.launches = 0
 depthwise_xcorr_grad_kernel.launches = 0
 depthwise_xcorr.packed_launches = 0
 depthwise_xcorr_grad_input.packed_launches = 0
+depthwise_xcorr_grad_kernel.packed_launches = 0

@@ -301,14 +301,18 @@ def _offset_copy(t: torch.Tensor) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("case,packed", [
-    ("model", True), ("float32", False), ("odd_c", False), ("offset_search", False),
-    ("offset_template", False), ("template_6x6", False)])
+    ("model", True), ("stage2", True), ("float32", False), ("odd_c", False),
+    ("offset_search", False), ("offset_template", False), ("offset_grad", False),
+    ("template_6x6", False)])
 def test_packed_kernel_choice(case, packed):
-    """The packed bf16 kernel takes bf16 with even C, a template of at most
-    5x5 and 4-byte aligned pointers (the model's shapes); anything else
-    takes the strip kernel of its dtype."""
+    """The packed bf16 kernels take bf16 with even C, a template of at most
+    5x5 and 4-byte aligned pointers (the model's shapes, stage 2's too);
+    anything else takes the kernel of its dtype. For grad-kernel (x, g, dk)
+    the template's size is dk's: the model's 25x25 g takes the packed
+    kernel."""
     shapes = {"odd_c": ((2, 29, 29, 201), (2, 5, 5, 201)),
-              "template_6x6": ((2, 29, 29, 256), (2, 6, 6, 256))}
+              "template_6x6": ((2, 29, 29, 256), (2, 6, 6, 256)),
+              "stage2": ((2, 7, 7, 256), (2, 5, 5, 256))}
     xs, ks = shapes.get(case, ((2, 29, 29, 256), (2, 5, 5, 256)))
     dtype = torch.float32 if case == "float32" else torch.bfloat16
     x, k = (torch.from_numpy(a).to(dtype) for a in _pair(xs, ks))
@@ -317,13 +321,20 @@ def test_packed_kernel_choice(case, packed):
     if case == "offset_template":
         k = _offset_copy(k)
     out = torch.empty((xs[0], xs[1] - ks[1] + 1, xs[2] - ks[2] + 1, xs[3]), dtype=dtype)
+    if case == "offset_grad":
+        out = _offset_copy(out)
     assert xcorr_mod.uses_packed_kernel(x, k, out) is packed
     assert xcorr_mod.uses_packed_kernel(out, k, x) is packed   # grad-input: (g, k, dx)
+    # grad-kernel: (x, g, dk), the template dk
+    assert xcorr_mod.uses_packed_kernel(x, out, k, template=2) is packed
+    if case == "model":
+        # read from g, the template would be 25x25: too big for the packed kernel
+        assert not xcorr_mod.uses_packed_kernel(x, out, k)
 
 
 def test_launch_passes_the_kernel_choice_and_counts_it(monkeypatch):
     """``_launch`` hands the C entry the kernel ``uses_packed_kernel`` picks
-    (never the packed one for grad-kernel) and counts the packed launches
+    (for grad-kernel from dk's size, not g's) and counts the packed launches
     beside the wrapper's count; a non-zero code raises."""
     calls = []
 
@@ -339,7 +350,6 @@ def test_launch_passes_the_kernel_choice_and_counts_it(monkeypatch):
                         lambda device=None: type("Stream", (), {"cuda_stream": 0})())
     for wrapper in (depthwise_xcorr, depthwise_xcorr_grad_input, depthwise_xcorr_grad_kernel):
         monkeypatch.setattr(wrapper, "launches", 0)
-    for wrapper in (depthwise_xcorr, depthwise_xcorr_grad_input):
         monkeypatch.setattr(wrapper, "packed_launches", 0)
     x, k = (torch.from_numpy(a).bfloat16() for a in _pair((2, 29, 29, 256), (2, 5, 5, 256)))
     g = torch.zeros((2, 25, 25, 256), dtype=torch.bfloat16)
@@ -352,16 +362,20 @@ def test_launch_passes_the_kernel_choice_and_counts_it(monkeypatch):
            tuple(x.shape), dims)
     launch(depthwise_xcorr_grad_kernel, "siammask_depthwise_xcorr_grad_kernel", x, g,
            tuple(k.shape), dims)
+    launch(depthwise_xcorr_grad_kernel, "siammask_depthwise_xcorr_grad_kernel", x,
+           _offset_copy(g), tuple(k.shape), dims)
     launch(depthwise_xcorr, "siammask_depthwise_xcorr", x.float(), k.float(), tuple(g.shape),
            dims)
     assert calls == [("siammask_depthwise_xcorr", 1), ("siammask_depthwise_xcorr", 0),
                      ("siammask_depthwise_xcorr_grad_input", 1),
+                     ("siammask_depthwise_xcorr_grad_kernel", 1),
                      ("siammask_depthwise_xcorr_grad_kernel", 0),
                      ("siammask_depthwise_xcorr", 0)]
     assert (depthwise_xcorr.launches, depthwise_xcorr.packed_launches) == (3, 1)
     assert (depthwise_xcorr_grad_input.launches,
             depthwise_xcorr_grad_input.packed_launches) == (1, 1)
-    assert depthwise_xcorr_grad_kernel.launches == 1
+    assert (depthwise_xcorr_grad_kernel.launches,
+            depthwise_xcorr_grad_kernel.packed_launches) == (2, 1)
 
     class FailingLibrary(FakeLibrary):
         def __getattr__(self, entry):
@@ -383,8 +397,8 @@ BF16_SHAPES = [((1, 29, 29, 256), (1, 5, 5, 256)), ((16, 29, 29, 256), (16, 5, 5
 
 def _bf16_call(which, xs, ks, seed, offset=False):
     """(output, plain version's output, packed launches it made) of one
-    bf16 forward or grad-input call on the card, its inputs copied to a
-    2-byte offset with ``offset``."""
+    bf16 forward, grad-input or grad-kernel call on the card, its inputs
+    copied to a 2-byte offset with ``offset``."""
     x, k = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in _pair(xs, ks, seed))
     g = torch.randn((xs[0], xs[1] - ks[1] + 1, xs[2] - ks[2] + 1, xs[3]),
                     generator=torch.Generator().manual_seed(seed + 1))
@@ -394,7 +408,9 @@ def _bf16_call(which, xs, ks, seed, offset=False):
     wrapper, args, plain = {
         "forward": (depthwise_xcorr, (x, k), depthwise_xcorr_reference),
         "input": (depthwise_xcorr_grad_input, (g, k, xs[1], xs[2]),
-                  depthwise_xcorr_grad_input_reference)}[which]
+                  depthwise_xcorr_grad_input_reference),
+        "kernel": (depthwise_xcorr_grad_kernel, (x, g),
+                   depthwise_xcorr_grad_kernel_reference)}[which]
     before = (wrapper.launches, wrapper.packed_launches)
     out = wrapper(*args)
     torch.cuda.synchronize()
@@ -406,6 +422,16 @@ def _close_to_plain(out, ref):
     # one bf16 rounding of the output on each side
     scale = ref.float().abs().max().item()
     torch.testing.assert_close(out.float(), ref.float(), rtol=1e-5, atol=2e-2 * scale)
+
+
+def _within_one_bf16_step(out, ref):
+    """Each element of ``out`` at most one bf16 step (2^-7 of the binade of
+    the larger of the two) from ``ref``'s, plus 2^-16 of ``ref``'s largest
+    entry for float32 sums of the same terms in another order, which can
+    differ by more than that step where they cancel to near zero."""
+    a, b = out.float(), ref.float()
+    step = torch.exp2(torch.floor(torch.log2(torch.maximum(a.abs(), b.abs()))) - 7)
+    assert ((a - b).abs() <= step + 2.0 ** -16 * b.abs().max()).all()
 
 
 @pytest.mark.cuda
@@ -424,7 +450,30 @@ def test_packed_bf16_kernel_is_the_scalar_kernel_bit_for_bit_on_card(cuda_device
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["forward", "input"])
+@pytest.mark.parametrize("xs,ks", [
+    *BF16_SHAPES,
+    ((3, 17, 23, 200), (3, 4, 3, 200)),   # a partial channel tile, a 4x3 template
+    ((2, 12, 12, 64), (2, 5, 5, 64)),     # two chunks, tap groups of 2, 2 and 1 rows
+    ((2, 5, 5, 64), (2, 5, 5, 64)),       # a 1x1 g: one x row a tap row
+    ((1, 7, 7, 64), (1, 5, 5, 64)),       # stage 2's 3x3 g at B=1: a cluster of tap rows
+])
+def test_packed_bf16_grad_kernel_on_card(cuda_device, xs, ks):
+    """At the model's bf16 shapes, and at four that take the split's other
+    paths, the grad-kernel wrapper takes the packed kernel: within the plain
+    version's tolerance, within one bf16 step of the scalar kernel (which
+    the same inputs at a 2-byte offset take; the two sum in other orders)
+    and the same bits on a second call."""
+    packed, ref, n_packed = _bf16_call("kernel", xs, ks, seed=25)
+    scalar, _, n_scalar = _bf16_call("kernel", xs, ks, seed=25, offset=True)
+    again, _, _ = _bf16_call("kernel", xs, ks, seed=25)
+    assert (n_packed, n_scalar) == (1, 0)
+    _close_to_plain(packed, ref)
+    _within_one_bf16_step(packed, scalar)
+    assert torch.equal(packed, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["forward", "input", "kernel"])
 @pytest.mark.parametrize("case", ["odd_c", "offset"])
 def test_scalar_bf16_kernel_takes_odd_c_and_offsets_on_card(cuda_device, which, case):
     xs, ks = {"odd_c": ((3, 29, 29, 201), (3, 5, 5, 201)),
