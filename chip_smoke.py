@@ -32,8 +32,8 @@ synthetic uint8 frames made from a numpy seed, with seeded random weights:
   checkpoint), SiamRPN training (``experiments/siamrpn_resnet/config.json``),
   ``Trainer.restore`` and the train CLI (``siammask_tpu_torch.tools.train``);
 - data-parallel training (``Trainer(distributed=True)`` over
-  ``parallel.dist``) at batch 64, and the sharded stream server
-  (``parallel.serving.ShardedStreamServer``) at 16 streams;
+  ``parallel.dist``) at batch 64, in float32 and in bf16, and the sharded
+  stream server (``parallel.serving.ShardedStreamServer``) at 16 streams;
 - the bf16 compute mode (``build_model(..., dtype=torch.bfloat16)``): the
   sharp track step, video and 16 streams, the SiamRPN and base videos, the
   VOS and VOT drivers against their fp32 runs, and the stage-1, stage-2 and
@@ -156,7 +156,15 @@ Phases, each of which raises on failure:
     the same step computing in bf16 from the same weights, its first step
     against the fp32 one (loss, update cosine), 2 frozen and 2 unfrozen
     steps with 3 / 3 / 3 bf16 launches, ms/step and peak memory beside the
-    fp32 ones;
+    fp32 ones; then ``[trace]``: the Chrome traces of the fp32 and bf16 sharp
+    videos' and the bf16 16-stream call's profiles (phases 8 and 14) and of
+    a frozen fp32 and bf16 step read by ``tools.trace_report``: device ms
+    and share by category (cuDNN conv passes, GEMM, BN, dtype casts,
+    NCHW<->NHWC transposes, copies and memsets, reduce/pool, elementwise,
+    each xcorr kernel, collectives), the idle time in the trace's window
+    with its three longest gaps and its gaps by size, the busy time against
+    the untraced call's; the xcorr rows must count the kernels the profiles
+    found and the device time be within 2% of the profile's;
 20. ``[data]``: 8 batches of 64 from ``PairDataset(seed)`` through
     ``DataLoader`` for the stage-2 and the SiamRPN config, with thread and
     with process workers (min(16, cores)): samples/s of each, the host's
@@ -198,7 +206,13 @@ Phases, each of which raises on failure:
     hold it), the ranks' states bit-identical, 3 / 3 / 3 launches a step a
     rank, collectives a step and ms a step per mode; with two cards or more,
     NCCL over up to four at global batch 64 and 256 against one card
-    (samples/s, scaling), then ``tools.train --num-devices`` over all;
+    (samples/s, scaling), then ``tools.train --num-devices`` over all; then
+    ``[bf16-dp]``: the two ranks, three modes and two steps again on the
+    bf16 twin of the weights, every launch packed, the default mode held to
+    the single-process bf16 step within this run's bf16 noise (its updates
+    and BN statistics no further from it than it is from the float32 step,
+    the loss within 1e-3), the fused modes by direction, ms a step beside
+    ``[dp]``'s; with two cards or more, NCCL bf16 scaling beside float32's;
 26. ``[sharded]``: SiamMask-sharp, 16 streams on 480x854 frames over 32,
     through ``ShardedStreamServer`` over [cuda:0, cuda:0]: bit-identical to
     each replica's tracker on its 8 streams; against the unsharded
@@ -220,7 +234,8 @@ same function, with ``launches_by_path`` (track, video, streams16, vos,
 rpn, base, vot, tune, train, train_refine, train_rpn, dp: rank 0's of the
 two-rank run, sharded, and the bf16 paths bf16_track, bf16_video,
 bf16_streams16, bf16_rpn, bf16_base, bf16_vos, bf16_vot, bf16_train,
-bf16_train_refine, bf16_train_rpn). The kernels are the fp32 forward,
+bf16_train_refine, bf16_train_rpn, bf16_dp: rank 0's of the two-rank
+run). The kernels are the fp32 forward,
 grad-input and grad-kernel (``bf16_scalar``: their bf16
 instantiation's times at B=1, 16, 64 and stage 2's shape, on inputs at a
 2-byte offset) and the packed bf16 forward, grad-input and grad-kernel
@@ -276,6 +291,7 @@ from siammask_tpu_torch.tracker.runtime import TrackerRuntime
 from siammask_tpu_torch.tracker.tracker import BoxStepOutput, StepOutput, Tracker, TrackState
 from siammask_tpu_torch.tracker.vos import track_vos, track_vos_batched
 from siammask_tpu_torch.tracker.vot import SKIP, track_vot
+from siammask_tpu_torch.tools import trace_report
 from siammask_tpu_torch.tools import train as train_cli
 from siammask_tpu_torch.train.checkpoint import merge_state_dict, read_state_dict, save_checkpoint
 from siammask_tpu_torch.train.lr import build_lr_spaces
@@ -354,6 +370,14 @@ BF16_TRAIN_LOSS_RTOL = 1e-2
 BF16_TRAIN_MIN_COS = 0.9   # cosine of the two steps' parameter updates
 # numbers a phase keeps for a later phase to print beside its own, by tag
 MEASURED: dict = {}
+# [trace]: the graph calls whose profile is exported as a Chrome trace (the
+# train phases export a frozen step's), and per tag the trace's path, the
+# profile's device-busy ms and the xcorr kernels expected in each of
+# trace_report's xcorr rows
+TRACED = ("video", "bf16", "bf16-streams")
+TRACE_DIR = REPO / "build" / "traces"
+TRACES: dict = {}
+XCORR_ROWS = tuple(cat for cat, _ in trace_report.CATEGORIES if cat.startswith("xcorr"))
 
 
 def synthetic_frames(n: int, hw=FRAME_HW, seed: int = SEED) -> np.ndarray:
@@ -1131,9 +1155,11 @@ def time_calls(fn) -> tuple[list[float], list[float]]:
     return event_ms, wall_ms
 
 
-def profile_call(fn) -> tuple[list, float, float]:
+def profile_call(fn, trace: str | None = None) -> tuple[list, float, float]:
     """One call under torch.profiler: (the averaged events, the device-busy
-    ms summed over kernels and copies, the call's ms by CUDA events)."""
+    ms summed over kernels and copies, the call's ms by CUDA events). With
+    ``trace``, the profile is also exported as a Chrome trace for
+    ``[trace]`` (``export_trace``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1144,9 +1170,29 @@ def profile_call(fn) -> tuple[list, float, float]:
         end.record()
         end.synchronize()
     events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    busy = device_busy_ms(events)
+    if trace is not None:
+        export_trace(trace, prof, busy)
     return events, busy, start.elapsed_time(end)
+
+
+def device_busy_ms(events) -> float:
+    """The device time of a profile's kernels, copies and memsets. A
+    ``record_function`` span (the optimizer's ``Optimizer.step#SGD.step``)
+    also shows as device time, over the kernels it encloses: left out."""
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation) / 1e3
+
+
+def export_trace(tag: str, prof, busy: float, xcorr: dict | None = None) -> None:
+    """``prof``'s Chrome trace under TRACE_DIR for ``[trace]``, with the
+    profile's device-busy ms and the xcorr kernels expected by row (set
+    later by the caller when None)."""
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / f"{tag}.json"
+    prof.export_chrome_trace(str(path))
+    TRACES[tag] = {"path": path, "busy": busy, "xcorr": xcorr}
 
 
 def check_graph_profile(what: str, call, frames: int, streams: int,
@@ -1159,7 +1205,7 @@ def check_graph_profile(what: str, call, frames: int, streams: int,
     before the check fails."""
     expected = per_frame * frames
     for attempt in (1, 2):
-        events, busy, call_ms = profile_call(call)
+        events, busy, call_ms = profile_call(call, what if what in TRACED else None)
         xcorr = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                     and "depthwise_xcorr" in e.key)
         if xcorr == expected:
@@ -1172,11 +1218,12 @@ def check_graph_profile(what: str, call, frames: int, streams: int,
     host = {k: sum(e.count for e in events if e.key == k)
             for k in ("cudaGraphLaunch", "cudaMemcpyAsync", "cudaLaunchKernel")}
     idle = 100 * (1 - busy / call_ms)
+    packed = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "depthwise_xcorr_strip_bf16x2_kernel" in e.key)
     MEASURED.setdefault(what, {}).update(
-        device_ms_frame=busy / frames, idle=idle, xcorr=xcorr,
-        xcorr_packed=sum(e.count for e in events
-                         if e.device_type == torch.autograd.DeviceType.CUDA
-                         and "depthwise_xcorr_strip_bf16x2_kernel" in e.key))
+        device_ms_frame=busy / frames, idle=idle, xcorr=xcorr, xcorr_packed=packed)
+    if what in TRACED:
+        TRACES[what]["xcorr"] = {XCORR_ROWS[3]: packed, XCORR_ROWS[0]: xcorr - packed}
     print(f"[{what}] profiled call: {xcorr} xcorr kernels by name ({xcorr // frames} a frame); "
           f"device busy {busy:.3f} ms of {call_ms:.3f} ms, {busy / frames:.3f} ms a frame "
           f"({busy / (frames * streams):.3f} ms a stream-frame), idle share "
@@ -2045,7 +2092,9 @@ def phase_train_profile(trainer: Trainer, batch: dict) -> None:
         events = prof.key_averages()
         conv_bwd = sum(e.count for e in events if e.key == "aten::convolution_backward")
         kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        device_ms = device_busy_ms(events)
+        if epoch == 0:
+            export_trace("train-frozen", prof, device_ms, dict.fromkeys(XCORR_ROWS[:3], 3))
         top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
         print(f"[profile] {label} step: {conv_bwd} aten::convolution_backward calls "
               f"(expected {expected}); {len(kernels)} kernel names, {device_ms:.2f} ms "
@@ -2497,13 +2546,15 @@ def _state_digest(model) -> str:
 
 
 def dp_rank(rank: int, world: int, device, init_state: dict, batch: dict, modes, keep,
-            timed: int) -> dict:
+            timed: int, dtype: torch.dtype | None = None) -> dict:
     """One rank of a data-parallel run (``parallel.dist.spawn``): for each
     mode of ``modes`` a frozen and an unfrozen step, each on a fresh trainer
-    from ``init_state``, on this rank's rows of ``batch``; then ``timed``
+    over a model computing in ``dtype`` (None: float32) from
+    ``init_state``, on this rank's rows of ``batch``; then ``timed``
     unfrozen steps after a warm one, by the host clock to a synchronize.
-    Per step: metrics, kernel launches, collectives, a digest of the state,
-    and the state's tensors (all with ``keep`` None, else those named)."""
+    Per step: metrics, kernel launches (and those of the packed bf16
+    kernels), collectives, a digest of the state, and the state's tensors
+    (all with ``keep`` None, else those named)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = Config.load(str(TRAIN_CONFIG), clip=10.0)
@@ -2513,7 +2564,7 @@ def dp_rank(rank: int, world: int, device, init_state: dict, batch: dict, modes,
     for name, kwargs in modes:
         steps = []
         for epoch in (0, 1):
-            model = loaded_model(SiamMaskBase, init_state, device)
+            model = loaded_model(SiamMaskBase, init_state, device, dtype)
             trainer = Trainer(model, *train_parts(cfg), epochs=TRAIN_EPOCHS, distributed=True,
                               **kwargs)
             torch.cuda.synchronize()
@@ -2522,6 +2573,7 @@ def dp_rank(rank: int, world: int, device, init_state: dict, batch: dict, modes,
             metrics = {k: v.item() for k, v in trainer.step(local, epoch).items()}
             torch.cuda.synchronize()
             steps.append({"metrics": metrics, "launches": read_launches(),
+                          "packed": [fn.packed_launches for fn in KERNELS],
                           "collectives": _all_reduce.calls - calls,
                           "digest": _state_digest(model),
                           "state": {k: v.detach().cpu().clone()
@@ -2625,6 +2677,49 @@ def dp_float32_noise(init_state: dict, batch: dict, refs: dict) -> dict:
     return noise
 
 
+def check_dp_ranks(tag: str, name: str, phase: str, runs: list, step: int,
+                   bf16: bool) -> dict:
+    """A data-parallel step on every rank of ``runs``: the ranks' states
+    bit-identical, 3 launches of each kernel a rank, all of the packed bf16
+    kernels' with ``bf16`` and none else, the metrics finite with no skip.
+    Returns rank 0's step."""
+    if len({r["steps"][step]["digest"] for r in runs}) != 1:
+        raise AssertionError(f"[{tag}] {name} {phase}: the ranks' states differ")
+    for r in runs:
+        got = r["steps"][step]
+        if got["launches"] != [3, 3, 3] or got["packed"] != ([3, 3, 3] if bf16 else [0, 0, 0]):
+            raise AssertionError(f"[{tag}] {name} {phase}: launches {got['launches']}, packed "
+                                 f"{got['packed']}, expected [3, 3, 3] "
+                                 f"({'all' if bf16 else 'none'} packed)")
+    ours = runs[0]["steps"][step]
+    if not all(math.isfinite(v) for v in ours["metrics"].values()) \
+            or ours["metrics"]["skipped"] != 0:
+        raise AssertionError(f"[{tag}] {name} {phase}: {ours['metrics']}")
+    return ours
+
+
+def check_dp_direction(tag: str, name: str, epoch: int, ours: dict, default: dict,
+                       init_state: dict, ref_state: dict, labels: dict) -> str:
+    """A fused mode's step held by its update direction against the default
+    mode's (``default``: rank 0's run of it) where ``DP_GATED`` says, cos >
+    0.98; returns the line that reports it, with its updates' distance from
+    the single process's (``ref_state``)."""
+    other = default["steps"][epoch]["state"]
+    coss = {k: _cos(ours["state"][k] - init_state[k], other[k] - init_state[k])
+            for k in DP_DIRECTION if epoch or not k.startswith("features.")}
+    gated = DP_GATED.get((name, epoch), ())
+    if not all(coss[k] > 0.98 for k in gated):
+        raise AssertionError(f"[{tag}] {name} {'unfrozen' if epoch else 'frozen'}: update "
+                             f"direction against the default mode {coss}, {gated} held to "
+                             "cos > 0.98")
+    off = _step_error(_updates(ours["state"], init_state, labels),
+                      _updates(ref_state, init_state, labels))
+    return (f"total loss {ours['metrics']['total_loss']:.6f}; updates {off:.3e} off the single "
+            "process's; update direction against the default mode: "
+            + ", ".join(f"{k} cos {c:.5f}{' (> 0.98)' if k in gated else ''}"
+                        for k, c in coss.items()))
+
+
 def phase_dp(init_state: dict, batch: dict, smi: str) -> list[int]:
     """[dp]: SiamMask-base stage 1 at width 64, global batch TRAIN_BATCH,
     data parallel. World 1 over NCCL against the no-group step; then two
@@ -2648,23 +2743,14 @@ def phase_dp(init_state: dict, batch: dict, smi: str) -> list[int]:
           f"run in {time.perf_counter() - t0:.2f} s")
     labels = {e: refs[e][2] for e in (0, 1)}
     launches = [0, 0, 0]
+    MEASURED["dp"] = {"refs": refs, "ms": {}}
     for name, _ in DP_MODES:
         runs = [r[name] for r in ranks]
         for step, epoch in enumerate((0, 1)):
             phase = "unfrozen" if epoch else "frozen"
-            digests = {r["steps"][step]["digest"] for r in runs}
-            if len(digests) != 1:
-                raise AssertionError(f"[dp] {name} {phase}: the ranks' states differ")
-            for r in runs:
-                if r["steps"][step]["launches"] != [3, 3, 3]:
-                    raise AssertionError(f"[dp] {name} {phase}: launches "
-                                         f"{r['steps'][step]['launches']}, expected [3, 3, 3]")
-            launches = [a + b for a, b in zip(launches, runs[0]["steps"][step]["launches"])]
-            ours = runs[0]["steps"][step]
+            ours = check_dp_ranks("dp", name, phase, runs, step, bf16=False)
+            launches = [a + b for a, b in zip(launches, ours["launches"])]
             ref_metrics, ref_state, _ = refs[epoch]
-            if not all(math.isfinite(v) for v in ours["metrics"].values()) \
-                    or ours["metrics"]["skipped"] != 0:
-                raise AssertionError(f"[dp] {name} {phase}: {ours['metrics']}")
             if name == "default":
                 if not math.isclose(ours["metrics"]["total_loss"], ref_metrics["total_loss"],
                                     rel_tol=1e-5):
@@ -2680,22 +2766,12 @@ def phase_dp(init_state: dict, batch: dict, smi: str) -> list[int]:
                           f"single-process step through cuDNN against native convs: "
                           f"{noise[epoch]:.3e})")
             else:
-                default = ranks[0]["default"]["steps"][step]["state"]
-                coss = {k: _cos(ours["state"][k] - init_state[k], default[k] - init_state[k])
-                        for k in DP_DIRECTION if epoch or not k.startswith("features.")}
-                gated = DP_GATED.get((name, epoch), ())
-                if not all(coss[k] > 0.98 for k in gated):
-                    raise AssertionError(f"[dp] {name} {phase}: update direction against the "
-                                         f"default mode {coss}, {gated} held to cos > 0.98")
-                off = _step_error(_updates(ours["state"], init_state, labels[epoch]),
-                                  _updates(ref_state, init_state, labels[epoch]))
-                detail = (f"total loss {ours['metrics']['total_loss']:.6f}; updates {off:.3e} "
-                          "off the single process's; update direction against the default mode: "
-                          + ", ".join(f"{k} cos {c:.5f}{' (> 0.98)' if k in gated else ''}"
-                                      for k, c in coss.items()))
+                detail = check_dp_direction("dp", name, epoch, ours, ranks[0]["default"],
+                                            init_state, ref_state, labels[epoch])
             print(f"[dp] {name}, {phase} step: {detail}; ranks bit-identical; launches "
                   f"{ours['launches']} a rank; {ours['collectives']} collectives a rank")
         ms = runs[0]["ms"]
+        MEASURED["dp"]["ms"][name] = statistics.median(ms)
         print(f"[dp] {name}: {statistics.median(ms):.2f} ms an unfrozen step (median of "
               f"{len(ms)}, host clock to a synchronize; min {min(ms):.2f}), global batch "
               f"{TRAIN_BATCH}, two ranks sharing one card over gloo: a check of the "
@@ -2709,32 +2785,44 @@ def phase_dp(init_state: dict, batch: dict, smi: str) -> list[int]:
     return launches
 
 
-def phase_dp_cards(init_state: dict, smi: str) -> None:
+def phase_dp_cards(init_state: dict, smi: str, dtype: torch.dtype | None = None) -> None:
     """NCCL over min(4, cards) cards at global batch 64 and 256 against one
-    card (a world-1 group), default and fused modes: samples/s of an
-    unfrozen step and the scaling; then ``tools.train --num-devices`` over
-    every card for two steps."""
+    card (a world-1 group), default and fused modes, on a model computing in
+    ``dtype`` (None: float32): samples/s of an unfrozen step and the
+    scaling (bf16's beside float32's of this run); then, in float32,
+    ``tools.train --num-devices`` over every card for two steps."""
     cfg = Config.load(str(TRAIN_CONFIG), clip=10.0)
     n = min(4, torch.cuda.device_count())
     modes = DP_MODES[:2]
+    tag = "dp" if dtype is None else "bf16-dp"
+    scaling = MEASURED.setdefault(tag, {}).setdefault("scaling", {})
     for gb in (TRAIN_BATCH, 4 * TRAIN_BATCH):
         batch = {k: v.cpu() for k, v in synthetic_train_batch(cfg, gb, DEV).items()}
         rates = {}
         for world in (1, n):
-            runs = spawn(dp_rank, world, "cuda", init_state, batch, modes, (), DP_TIMED,
+            runs = spawn(dp_rank, world, "cuda", init_state, batch, modes, (), DP_TIMED, dtype,
                          timeout=600)
             for name, _ in modes:
                 if len({r[name]["steps"][1]["digest"] for r in runs}) != 1:
-                    raise AssertionError(f"[dp] {name} over {world} cards: ranks differ")
+                    raise AssertionError(f"[{tag}] {name} over {world} cards: ranks differ")
+                if dtype is not None and runs[0][name]["steps"][1]["packed"] != [3, 3, 3]:
+                    raise AssertionError(f"[{tag}] {name} over {world} cards: packed launches "
+                                         f"{runs[0][name]['steps'][1]['packed']}")
                 ms = statistics.median(runs[0][name]["ms"])
                 rates[(name, world)] = gb * 1e3 / ms
-                print(f"[dp] NCCL, {world} card(s), global batch {gb} ({gb // world} a card), "
-                      f"{name}: {ms:.2f} ms an unfrozen step, {rates[(name, world)]:.1f} "
-                      f"samples/s; {runs[0][name]['steps'][1]['collectives']} collectives "
-                      f"a step; peak {runs[0][name]['peak'] / 2**30:.2f} GiB a card | {smi}")
+                print(f"[{tag}] NCCL, {world} card(s), global batch {gb} ({gb // world} a "
+                      f"card), {name}: {ms:.2f} ms an unfrozen step, "
+                      f"{rates[(name, world)]:.1f} samples/s; "
+                      f"{runs[0][name]['steps'][1]['collectives']} collectives a step; peak "
+                      f"{runs[0][name]['peak'] / 2**30:.2f} GiB a card | {smi}")
         for name, _ in modes:
-            print(f"[dp] scaling at global batch {gb}, {name}: {n} cards "
-                  f"{rates[(name, n)] / rates[(name, 1)]:.2f}x one card")
+            scaling[(name, gb)] = rates[(name, n)] / rates[(name, 1)]
+            beside = "" if dtype is None else \
+                f" (float32 {MEASURED['dp']['scaling'][(name, gb)]:.2f}x)"
+            print(f"[{tag}] scaling at global batch {gb}, {name}: {n} cards "
+                  f"{scaling[(name, gb)]:.2f}x one card{beside}")
+    if dtype is not None:
+        return
     shutil.rmtree(SMOKE_DP, ignore_errors=True)
     root, anno = write_crop_dataset(SMOKE_DP / "crop511")
     config = SMOKE_DP / "base.json"
@@ -2752,6 +2840,85 @@ def phase_dp_cards(init_state: dict, smi: str) -> None:
           f"{time.perf_counter() - t0:.2f} s (spawn, model build, loader, checkpoint); total "
           f"loss {metrics['total_loss']:.4f}; rank 0 wrote checkpoint_e1.pth")
     shutil.rmtree(SMOKE_DP)
+
+def phase_bf16_dp(init_state: dict, batch: dict, smi: str) -> list[int]:
+    """``[bf16-dp]``: ``[dp]``'s two ranks sharing card 0 over gloo, 32 rows
+    each, the three modes, a frozen and an unfrozen step each, on the bf16
+    twin of the stage-1 weights: the ranks' states bit-identical, 3 / 3 / 3
+    launches a step a rank, all of the packed bf16 kernels. The default
+    mode against the single-process bf16 step, bf16 noise measured in this
+    run as the yardstick: its updates and its BN running statistics no
+    further from the single process's than the single-process bf16 step's
+    are from ``[dp]``'s float32 one, its total loss within 1e-3 relative.
+    The fused modes by update direction against the default mode, as in
+    ``[dp]``. ms an unfrozen step beside ``[dp]``'s. With two cards or
+    more, NCCL at global batch 64 and 256 against one card
+    (``phase_dp_cards``). Returns rank 0's launches."""
+    cfg = Config.load(str(TRAIN_CONFIG), clip=10.0)
+    refs32 = MEASURED["dp"]["refs"]
+    refs = {}
+    for epoch in (0, 1):
+        trainer = Trainer(loaded_model(SiamMaskBase, init_state, DEV, BF16), *train_parts(cfg),
+                          epochs=TRAIN_EPOCHS)
+        metrics = {k: v.item() for k, v in trainer.step(batch, epoch).items()}
+        refs[epoch] = (metrics, {k: v.detach().cpu().clone()
+                                 for k, v in trainer.model.state_dict().items()})
+    del trainer
+    t0 = time.perf_counter()
+    ranks = spawn(dp_rank, 2, "cuda", init_state, {k: v.cpu() for k, v in batch.items()},
+                  DP_MODES, None, DP_TIMED, BF16, backend="gloo", local_ranks=[0, 0],
+                  timeout=600)
+    print(f"[bf16-dp] two ranks on {torch.cuda.get_device_name(0)} over gloo, "
+          f"{TRAIN_BATCH // 2} rows each, bf16 over float32 weights: spawned and run in "
+          f"{time.perf_counter() - t0:.2f} s")
+    launches = [0, 0, 0]
+    for name, _ in DP_MODES:
+        runs = [r[name] for r in ranks]
+        for step, epoch in enumerate((0, 1)):
+            phase = "unfrozen" if epoch else "frozen"
+            ours = check_dp_ranks("bf16-dp", name, phase, runs, step, bf16=True)
+            launches = [a + b for a, b in zip(launches, ours["launches"])]
+            (ref_metrics, ref_state), (_, state32, labels) = refs[epoch], refs32[epoch]
+            if name != "default":
+                detail = check_dp_direction("bf16-dp", name, epoch, ours, ranks[0]["default"],
+                                            init_state, ref_state, labels)
+            else:
+                loss_rel = abs(ours["metrics"]["total_loss"] / ref_metrics["total_loss"] - 1)
+                off = _step_error(_updates(ours["state"], init_state, labels),
+                                  _updates(ref_state, init_state, labels))
+                noise = _step_error(_updates(ref_state, init_state, labels),
+                                    _updates(state32, init_state, labels))
+                bn = [k for k in ref_state if k.endswith(("running_mean", "running_var"))]
+                bn_off = _step_error({k: ours["state"][k] for k in bn},
+                                     {k: ref_state[k] for k in bn})
+                bn_noise = _step_error({k: ref_state[k] for k in bn},
+                                       {k: state32[k] for k in bn})
+                if not (loss_rel <= 1e-3 and off <= noise and bn_off <= bn_noise):
+                    raise AssertionError(
+                        f"[bf16-dp] default {phase}: total loss {ours['metrics']['total_loss']} "
+                        f"vs {ref_metrics['total_loss']} single-process bf16; updates {off:.3e} "
+                        f"and BN statistics {bn_off:.3e} off it, against bf16's own "
+                        f"{noise:.3e} / {bn_noise:.3e} off float32")
+                for k, label in labels.items():
+                    if label == "frozen" and not torch.equal(ours["state"][k], init_state[k]):
+                        raise AssertionError(f"[bf16-dp] default {phase}: frozen {k} moved")
+                detail = (f"total loss {ours['metrics']['total_loss']:.6f} vs "
+                          f"{ref_metrics['total_loss']:.6f} single-process bf16 ({loss_rel:.2e} "
+                          f"relative, bound 1e-3); updates {off:.3e} off the single-process "
+                          f"bf16 step's, BN statistics {bn_off:.3e}, against that step's "
+                          f"{noise:.3e} / {bn_noise:.3e} off float32's (the bound)")
+            print(f"[bf16-dp] {name}, {phase} step: {detail}; ranks bit-identical; launches "
+                  f"{ours['launches']} a rank, all packed; {ours['collectives']} collectives "
+                  "a rank")
+        ms = statistics.median(runs[0]["ms"])
+        fp32 = MEASURED["dp"]["ms"][name]
+        print(f"[bf16-dp] {name}: {ms:.2f} ms an unfrozen step (median of {len(runs[0]['ms'])}, "
+              f"host clock to a synchronize) beside [dp]'s float32 {fp32:.2f} ms (float32 / "
+              f"bf16 {fp32 / ms:.2f}x), two ranks sharing one card over gloo; peak "
+              f"{runs[0]['peak'] / 2**30:.2f} GiB a rank | {smi}")
+    if torch.cuda.device_count() >= 2:
+        phase_dp_cards(init_state, smi, BF16)
+    return launches
 
 # ---------------- bf16 compute ----------------
 
@@ -3014,6 +3181,9 @@ def phase_bf16_train(init_state: dict, batch: dict, cfg: Config, smi: str) -> li
     kinds = sorted({re.search(r"depthwise_xcorr\w*<[^>]*>", k).group(0) for k in names})
     print(f"[bf16-train] profiled unfrozen step: 9 xcorr kernels, all packed bf16 kernels "
           f"({', '.join(kinds)}); device busy {busy:.2f} ms of {step_ms:.2f} ms")
+    trainer.step(batch, 0)
+    profile_call(lambda: trainer.step(batch, 0), "bf16-train-frozen")
+    TRACES["bf16-train-frozen"]["xcorr"] = dict.fromkeys(XCORR_ROWS[3:], 3)
     phase_train_timing(trainer, batch, smi, "bf16-train-timing", mode="bf16")
     for label in ("frozen", "unfrozen"):
         (ms16, peak16), (ms32, peak32) = (MEASURED[t][label] for t in ("bf16-train-timing",
@@ -3246,6 +3416,50 @@ def phase_sharded(p, smi: str) -> int:
     return launches
 
 
+def phase_trace(smi: str) -> None:
+    """``[trace]``: each Chrome trace the profiled calls exported (the fp32
+    and bf16 sharp videos, the bf16 16-stream call, the fp32 and bf16
+    frozen stage-1 steps) read by ``tools.trace_report``: device ms and
+    share by category, the idle time in the window of the device events
+    with its three longest gaps, the top two kernels of each category. Its
+    xcorr rows must count the kernels the phase expected, and its device
+    time (self time summed) must be within 2% of the profile's busy ms.
+    The busy time is also given as a share of the untraced call's
+    CUDA-event time: tracing adds time between the kernels (and slows
+    some). The traces are removed."""
+    untraced = {"video": VIDEO_T * MEASURED["video"]["ms_frame"],
+                "bf16": VIDEO_T * MEASURED["bf16"]["ms_frame"],
+                "bf16-streams": STREAMS_T * MEASURED["bf16-streams"]["ms_frame"],
+                "train-frozen": MEASURED["train-timing"]["frozen"][0],
+                "bf16-train-frozen": MEASURED["bf16-train-timing"]["frozen"][0]}
+    for tag, entry in TRACES.items():
+        t0 = time.perf_counter()
+        table = trace_report.report(trace_report.load_trace_events(str(entry["path"])))
+        got = {row: table["categories"].get(row, {}).get("calls", 0) for row in XCORR_ROWS}
+        want = {row: entry["xcorr"].get(row, 0) for row in XCORR_ROWS}
+        if got != want:
+            raise AssertionError(f"[trace] {tag}: xcorr kernels by row {got}, expected {want}")
+        if not abs(table["total_ms"] - entry["busy"]) <= 0.02 * entry["busy"]:
+            raise AssertionError(f"[trace] {tag}: {table['total_ms']:.3f} ms of device time in "
+                                 f"the trace, {entry['busy']:.3f} ms in the profile")
+        print(f"[trace] {tag}: device time {table['total_ms']:.3f} ms (the profile's "
+              f"{entry['busy']:.3f}); window {table['window_ms']:.3f} ms, busy "
+              f"{table['busy_ms']:.3f}, idle {table['idle_ms']:.3f} ms "
+              f"({100 * table['idle_share']:.1f}%), longest gaps "
+              + ", ".join(f"{d:.3f} ms at +{s:.3f}" for s, d in table["gaps"])
+              + "; gaps by size " + ", ".join(f"< {edge:g} us {n} ({ms:.3f} ms)"
+                                              for edge, n, ms in table["gap_bins"])
+              + f"; the untraced call {untraced[tag]:.3f} ms by CUDA events, the traced "
+              f"busy time {100 * table['busy_ms'] / untraced[tag]:.1f}% of it; xcorr rows "
+              f"{({k: v for k, v in got.items() if v})}; read in "
+              f"{time.perf_counter() - t0:.2f} s | {smi}")
+        for cat, row in table["categories"].items():
+            top = [n for n, op in table["ops"].items() if op["category"] == cat][:2]
+            print(f"[trace] {tag} | {cat}: {row['ms']:.3f} ms, {100 * row['share']:.1f}%, "
+                  f"{row['calls']} calls; top: " + " ; ".join(n[:90] for n in top))
+    shutil.rmtree(TRACE_DIR)
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -3298,8 +3512,10 @@ def main() -> None:
     phase_train_profile(trainer, batch)
     phase_train_timing(trainer, batch, smi)
     bf16_train_launches = phase_bf16_train(init_state, batch, cfg, smi)
+    phase_trace(smi)
     torch.cuda.empty_cache()
     dp_launches = phase_dp(init_state, batch, smi)
+    bf16_dp_launches = phase_bf16_dp(init_state, batch, smi)
 
     # the data pipeline and the other training tasks, on a synthetic set
     shutil.rmtree(SMOKE_TRAIN, ignore_errors=True)
@@ -3345,7 +3561,8 @@ def main() -> None:
              "dp": dp_launches, "sharded": [sharded_launches, 0, 0],
              **bf16_paths, "bf16_vos": [bf16_vos_launches, 0, 0],
              "bf16_vot": [bf16_vot_launches, 0, 0], "bf16_train": bf16_train_launches,
-             "bf16_train_refine": bf16_refine_launches, "bf16_train_rpn": bf16_rpn_launches}
+             "bf16_train_refine": bf16_refine_launches, "bf16_train_rpn": bf16_rpn_launches,
+             "bf16_dp": bf16_dp_launches}
     # by kernel: check_route held every bf16 path's launches to the packed
     # kernels and every fp32 path's to the fp32 kernels
     by_kernel = {k: [0, 0, 0, *v] if k.startswith("bf16") else [*v, 0, 0, 0]

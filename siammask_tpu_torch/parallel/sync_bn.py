@@ -7,11 +7,17 @@ runs on the CPU's gloo groups too, where the tests hold it against JAX.
 
 In training mode with a group of more than one rank, one all-reduce of
 ``[sum x, sum x^2, n]`` per channel gives the global mean and the biased
-variance ``E[x^2] - E[x]^2`` (flax's fast variance); the output is
-normalized with them, and the running variance takes the global biased
-variance, as flax's does. In eval mode, or with no group or a group of
-one, it is the port's ``BatchNorm2d``. Parameters, buffers and state-dict
-keys are ``nn.BatchNorm2d``'s.
+variance ``E[x^2] - E[x]^2``, clamped at 0 (flax's fast variance); the
+output is normalized with them, and the running variance takes the global
+biased variance, as flax's does. As flax's ``_compute_stats``
+(``force_float32_reductions``), the sums, the collective and its gradient
+are in float32 at least whatever the maps' dtype: bf16 maps are summed,
+normalized in float32 and returned in bf16 (bf16's 8 significant bits
+would leave ``E[x^2] - E[x]^2`` nothing of the variance of a channel whose
+mean is large against its spread). float32 and float64 maps compute in
+their own dtype. In eval mode, or with no group or a group of one, it is
+the port's ``BatchNorm2d``, which does the same through ``F.batch_norm``.
+Parameters, buffers and state-dict keys are ``nn.BatchNorm2d``'s.
 """
 from __future__ import annotations
 
@@ -29,8 +35,9 @@ class SyncBatchNorm2d(BatchNorm2d):
         if not (self.training and dist.is_initialized() and dist.get_world_size() > 1):
             return super().forward(x)
         c = x.shape[1]
-        stats = AllReduceSum.apply(torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
-                                              x.new_full((1,), float(x.numel() // c))]))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        stats = AllReduceSum.apply(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                                              xf.new_full((1,), float(x.numel() // c))]))
         n = stats[2 * c]
         mean = stats[:c] / n
         var = (stats[c:2 * c] / n - mean * mean).clamp(min=0.0)
@@ -40,8 +47,9 @@ class SyncBatchNorm2d(BatchNorm2d):
             self.running_var.mul_(1 - m).add_(m * var.detach())
             self.num_batches_tracked.add_(1)
         scale = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[None, :, None, None]) * scale[None, :, None, None] \
+        out = (xf - mean[None, :, None, None]) * scale[None, :, None, None] \
             + self.bias[None, :, None, None]
+        return out.to(x.dtype)
 
 
 def convert_sync_bn(module: nn.Module) -> nn.Module:

@@ -3,9 +3,12 @@ SiamMask-sharp end to end or its stage-2 refine training.
 
 Counterpart of ``tools/train.py`` (the reference's ``train_siammask.py``,
 ``train_siamrpn.py`` and ``train_siammask_refine.py``), with the same flags
-less the JAX package's ``--xcorr``, ``--platform`` and ``--tb-dir``, plus
-``--device`` (``cuda`` by default; ``cpu`` runs on the CPU). The
-tensorboard scalars are in the log line. The two-stage recipe::
+less the JAX package's ``--xcorr`` and ``--platform``, plus ``--device``
+(``cuda`` by default; ``cpu`` runs on the CPU). ``--tb-dir DIR`` writes
+the scalars of each log line (every metric, ``lr`` and each group's
+``lr/<group>``) at its step to a TensorBoard event file under DIR through
+``tensorboardX``, which is imported only then; without the package it
+raises ``ImportError`` before training starts. The two-stage recipe::
 
     python -m siammask_tpu_torch.tools.train --config experiments/siammask_base/config.json \\
         --task base --epochs 20 --batch 64 --save-dir snapshot_base
@@ -38,6 +41,7 @@ returns rank 0's metrics.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import random
 import time
@@ -98,11 +102,26 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--remat", action="store_true",
                         help="recompute the forward in the backward: about a third more "
                              "FLOPs for the activation memory of one forward")
+    parser.add_argument("--tb-dir", default=None,
+                        help="TensorBoard log dir (tensorboardX): the scalars of each log "
+                             "line, by rank 0")
     return parser.parse_args(argv)
+
+
+def summary_writer_class():
+    """``tensorboardX.SummaryWriter``, imported on demand (``--tb-dir``)."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError as e:
+        raise ImportError("--tb-dir needs the tensorboardX package, which is not "
+                          "installed") from e
+    return SummaryWriter
 
 
 def main(argv=None) -> dict[str, float]:
     args = parse_args(argv)
+    if args.tb_dir:
+        summary_writer_class()
     rank, world, device = init_distributed(args.device)
     if world > 1:
         try:
@@ -159,30 +178,36 @@ def train(rank: int, world: int, device: torch.device, args) -> dict[str, float]
     step = start_epoch * len(loader)
     metrics: dict[str, torch.Tensor] = {}
     t_last = time.time()
-    for epoch in range(start_epoch, args.epochs):
-        dataset.shuffle()
-        lr = float(lr_spaces[min(epoch, len(lr_spaces) - 1)])
-        for batch in to_device(iter(loader), device, size=2):
-            metrics = trainer.step(batch, epoch)
-            step += 1
-            if step % args.log_interval == 0:
-                logged = {k: v.item() for k, v in metrics.items()}
-                dt = (time.time() - t_last) / args.log_interval
-                t_last = time.time()
-                # the per-group rates after the metrics: tools/curves.py reads
-                # the \w+=value run that follows "lr L"
-                groups = " ".join(f"lr/{g['name']}={lr * g['mult']:.6f}"
-                                  for g in trainer.optimizer.param_groups)
-                log.info(f"epoch {epoch} step {step} lr {lr:.5f} "
-                         + " ".join(f"{k}={v:.4f}" for k, v in logged.items())
-                         + f" {groups} ({dt:.2f}s/it)")
-        path = join(args.save_dir, f"checkpoint_e{epoch + 1}.pth")
-        if rank == 0:
-            save_checkpoint(path, model.state_dict(), trainer.optimizer.state_dict(),
-                            epoch + 1, arch=cfg.arch, anchor_cfg=cfg.anchors.to_dict())
-            log.info(f"saved {path}")
-        if world > 1:
-            dist.barrier()
+    writer = summary_writer_class()(args.tb_dir) if args.tb_dir and rank == 0 else None
+    with writer or contextlib.nullcontext() as tb:
+        for epoch in range(start_epoch, args.epochs):
+            dataset.shuffle()
+            lr = float(lr_spaces[min(epoch, len(lr_spaces) - 1)])
+            for batch in to_device(iter(loader), device, size=2):
+                metrics = trainer.step(batch, epoch)
+                step += 1
+                if step % args.log_interval == 0:
+                    logged = {k: v.item() for k, v in metrics.items()}
+                    dt = (time.time() - t_last) / args.log_interval
+                    t_last = time.time()
+                    rates = {f"lr/{g['name']}": lr * g["mult"]
+                             for g in trainer.optimizer.param_groups}
+                    # the per-group rates after the metrics: tools/curves.py
+                    # reads the \w+=value run that follows "lr L"
+                    log.info(f"epoch {epoch} step {step} lr {lr:.5f} "
+                             + " ".join(f"{k}={v:.4f}" for k, v in logged.items()) + " "
+                             + " ".join(f"{k}={v:.6f}" for k, v in rates.items())
+                             + f" ({dt:.2f}s/it)")
+                    if tb is not None:
+                        for k, v in {**logged, "lr": lr, **rates}.items():
+                            tb.add_scalar(k, v, step)
+            path = join(args.save_dir, f"checkpoint_e{epoch + 1}.pth")
+            if rank == 0:
+                save_checkpoint(path, model.state_dict(), trainer.optimizer.state_dict(),
+                                epoch + 1, arch=cfg.arch, anchor_cfg=cfg.anchors.to_dict())
+                log.info(f"saved {path}")
+            if world > 1:
+                dist.barrier()
     return {k: v.item() for k, v in metrics.items()}
 
 

@@ -51,11 +51,14 @@ Data-parallel training (``distributed``: one process per device in a
 - ``fused_allreduce`` + ``sync_bn``: the same with BN statistics synced.
 
 A bf16 model (``SiamMaskBase(dtype=torch.bfloat16)``, the JAX package's
-``Trainer`` over a bf16 flax model) trains through the same step: float32
+``Trainer`` over a bf16 flax model) trains through the same step, on one
+process or under ``distributed`` in every mode and with ``remat``: float32
 parameters, bf16 activations, bf16 xcorr kernels forward and backward,
-float32 losses and gradients, the NaN guard on the float32 loss. It runs on
-one process: bf16 under ``distributed`` (and its sync-BN) is not ported and
-raises.
+float32 losses and gradients, the NaN guard on the float32 loss. No
+collective carries a bf16 tensor: sync-BN reduces its statistics in
+float32 (flax's ``force_float32_reductions``), the gradient bucket and the
+BN running statistics are float32 (the parameters' and buffers' dtype),
+and the loss normalizers and metrics go over in float64.
 
 Every rank clips the exchanged gradients and decides the NaN guard on the
 reduced loss, so all ranks step or skip together and hold the same
@@ -359,9 +362,6 @@ class Trainer:
                  lr_spaces: np.ndarray, epochs: int, unfreeze_at: float = 0.5,
                  distributed: bool = False, fused_allreduce: bool = False,
                  sync_bn: bool = False, remat: bool = False):
-        if distributed and getattr(model, "dtype", None) not in (None, torch.float32):
-            raise NotImplementedError(f"data-parallel training of a {model.dtype} model "
-                                      "is not ported")
         if distributed and not dist.is_initialized():
             raise RuntimeError("distributed=True needs an initialised process group "
                                "(parallel.dist.init_distributed)")

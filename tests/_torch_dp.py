@@ -6,10 +6,12 @@ import json
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from siammask_tpu_torch.data.dataset import PairDataset
 from siammask_tpu_torch.models.siammask import SiamMaskBase
 from siammask_tpu_torch.parallel.dist import AllReduceSum, _all_reduce, local_rows
+from siammask_tpu_torch.parallel.sync_bn import SyncBatchNorm2d
 from siammask_tpu_torch.tools import train as train_cli
 from siammask_tpu_torch.train.trainer import Trainer
 
@@ -35,37 +37,60 @@ def _state(model):
     return {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
 
 
-def run_cases(rank, world, device, state, batch, parts, cases):
-    """Each case of ``cases`` (name, Trainer keyword arguments and the
-    ``dtype``, epochs to step, the rank whose template gets a NaN or None)
-    from the weights
-    ``state`` on this rank's rows of ``batch``: per step the metrics, the
-    state after it, the BNs run in training mode so far and the collectives
-    issued; and
-    an ``AllReduceSum`` of rank-made values with its gradient."""
+def _recording_all_reduce(dtypes: list):
+    """Wraps ``torch.distributed.all_reduce``, which every collective of
+    ``parallel.dist`` calls, so that each call appends its tensor's dtype
+    to ``dtypes``."""
+    all_reduce = dist.all_reduce
+
+    def recording(t, *args, **kwargs):
+        dtypes.append(str(t.dtype).removeprefix("torch."))
+        return all_reduce(t, *args, **kwargs)
+    dist.all_reduce = recording
+
+
+def run_cases(rank, world, device, states, batch, parts, cases, bn_input):
+    """Each case of ``cases`` (name, Trainer keyword arguments with the
+    ``dtype`` and the ``weights``, epochs to step, the rank whose template
+    gets a NaN or None) on this rank's rows of ``batch``, from
+    ``states[weights]`` (``"channel"`` by default): per step the metrics,
+    the state after it, the BNs run in training mode so far and the
+    collectives issued with their dtypes. A float32 or float64 case's model,
+    data and parameters are in its dtype; a bfloat16 case's model computes
+    in bf16 over float32 parameters and data (``SiamMaskBase(dtype=...)``).
+    Then an ``AllReduceSum`` of rank-made values with its gradient, and a
+    ``SyncBatchNorm2d`` in training mode on this rank's rows of
+    ``bn_input``: its output, running statistics and gradients."""
     torch.set_num_threads(1)
+    dtypes = []
+    _recording_all_reduce(dtypes)
     rows = local_rows(batch["template"].shape[0], rank, world)
     local = {k: v[rows] for k, v in batch.items()}
     out = {}
     for name, kwargs, epochs, nan_rank in cases:
         kwargs = dict(kwargs)
         dtype = kwargs.pop("dtype", torch.float32)
-        model = SiamMaskBase(width=8)
+        state = states[kwargs.pop("weights", "channel")]
+        bf16 = dtype == torch.bfloat16
+        model = SiamMaskBase(width=8, dtype=dtype if bf16 else None)
         model.load_state_dict(state)
-        model.to(dtype)
+        if not bf16:
+            model.to(dtype)
         trainer = Trainer(model, *parts, epochs=2, distributed=True, **kwargs)
         recorder = BNRecorder(model)
         # a copy: the batch's storage is shared with the parent process
-        data = {k: v.to(dtype, copy=True) if v.is_floating_point() else v
-                for k, v in local.items()}
+        data = {k: v.to(torch.float32 if bf16 else dtype, copy=True)
+                if v.is_floating_point() else v for k, v in local.items()}
         if nan_rank == rank:
             data["template"][0, 0, 0, 0] = float("nan")
         steps = []
         for epoch in epochs:
             calls = _all_reduce.calls
+            del dtypes[:]
             metrics = trainer.step(data, epoch)
             steps.append({"metrics": {k: float(v) for k, v in metrics.items()},
                           "state": _state(model), "collectives": _all_reduce.calls - calls,
+                          "collective_dtypes": sorted(set(dtypes)),
                           "bn_updated": set(recorder.updated)})
         out[name] = {"steps": steps, "labels": dict(trainer.labels)}
 
@@ -75,7 +100,29 @@ def run_cases(rank, world, device, state, batch, parts, cases):
     (y * (rank + 2)).sum().backward()
     out["all_reduce_sum"] = {"x": x.detach().numpy(), "y": y.detach().numpy(),
                              "grad": x.grad.numpy()}
+    out["sync_bn"] = sync_bn_rows(bn_input, local_rows(bn_input.shape[0], rank, world))
     return out
+
+
+def sync_bn_rows(x, rows):
+    """A fresh ``SyncBatchNorm2d`` in training mode (its affine terms set
+    from a seed) on ``x[rows]``, made leaf: the output, the running mean and
+    variance after the step, and the gradients of ``x[rows]``, the weight
+    and the bias for the loss ``sum(out * w)`` (``w`` from a seed). Without
+    a group of more than one rank it is the port's ``BatchNorm2d``."""
+    c = x.shape[1]
+    g = torch.Generator().manual_seed(1)
+    bn = SyncBatchNorm2d(c).train()
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=g)
+        bn.bias.normal_(0.0, 1.0, generator=g)
+    w = torch.randn(x.shape, generator=g)[rows]
+    x = x[rows].clone().requires_grad_()
+    y = bn(x)
+    (y.float() * w).sum().backward()
+    return {"out": y.detach(), "running_mean": bn.running_mean.clone(),
+            "running_var": bn.running_var.clone(), "grad_x": x.grad,
+            "grad_weight": bn.weight.grad, "grad_bias": bn.bias.grad}
 
 
 def recording_shuffle(out_dir, rank: int):

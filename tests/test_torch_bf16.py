@@ -525,12 +525,14 @@ def test_vos_batched_base_matches_jax(tmp_path):
 
 
 def test_trainer_refuses_bf16_under_distributed():
-    """bf16 under data parallelism is not ported: the Trainer says so
-    before it looks for a process group."""
+    """A bf16 model under ``distributed`` is refused only as a float32 one
+    is, for want of a process group: the dtype itself is accepted
+    (``tests/test_torch_parallel.py`` trains it on two ranks)."""
     *_, tset, topt, tlr = settings_pair()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Trainer(SiamMaskBase(width=WIDTH, dtype=BF16), tset, topt, tlr, epochs=EPOCHS,
-                distributed=True)
+    for dtype in (BF16, None):
+        with pytest.raises(RuntimeError, match="needs an initialised process group"):
+            Trainer(SiamMaskBase(width=WIDTH, dtype=dtype), tset, topt, tlr, epochs=EPOCHS,
+                    distributed=True)
 
 
 def test_cli_dtype_runs_a_vot_video_in_bf16(tmp_path, monkeypatch):

@@ -3,16 +3,20 @@ curves.py`` reads the log of the port's own train CLI (a two-epoch CPU run
 on the synthetic crop511 set) into one row per epoch with the JAX tool's
 metric keys, and still gives exactly the committed
 ``stage2_e24_curve.json`` on ``stage2_e24.log``; ``tools/visualize.py``
-draws the same overlays as the JAX tool.
+draws the same overlays as the JAX tool. The train CLI's ``--tb-dir``
+writes each log line's scalars to a TensorBoard event file, and without
+``tensorboardX`` raises before it trains.
 """
 import importlib.util
 import json
 import logging
+import struct
 import sys
 from pathlib import Path
 
 import cv2
 import numpy as np
+import pytest
 
 from siammask_tpu_torch.tools import curves, train, visualize
 
@@ -79,3 +83,46 @@ def test_visualize_draws_the_jax_overlays(tmp_path, monkeypatch, capsys):
     assert [p.name for p in ours] == sorted(p.name for p in (tmp_path / "jax").iterdir())
     for p in ours:
         np.testing.assert_array_equal(cv2.imread(str(p)), cv2.imread(str(tmp_path / "jax" / p.name)))
+
+
+def _event_scalars(path: Path) -> dict:
+    """{tag: [(step, value)]} of the scalars in a TensorBoard event file
+    (TFRecord framing: length, its CRC, the ``Event`` proto, its CRC)."""
+    from tensorboardX.proto.event_pb2 import Event
+
+    data, out, at = path.read_bytes(), {}, 0
+    while at < len(data):
+        (n,) = struct.unpack_from("<Q", data, at)
+        event = Event.FromString(data[at + 12:at + 12 + n])
+        at += 12 + n + 4
+        for v in event.summary.value:
+            out.setdefault(v.tag, []).append((event.step, v.simple_value))
+    return out
+
+
+def test_train_cli_tb_dir_writes_the_log_lines_scalars(tmp_path):
+    """One epoch of 2 steps, a line a step, with ``--tb-dir``: one event
+    file whose scalars are each line's metrics, ``lr`` and the groups'
+    rates, at steps 1 and 2, equal to the returned last step's."""
+    metrics = train.main(["--config", _cli_config(tmp_path, "siammask_base/config.json", 255),
+                          "--task", "base", "--epochs", "1", "--batch", "2", "--workers", "0",
+                          "--width", str(WIDTH), "--log-interval", "1", "--seed", "3",
+                          "--save-dir", str(tmp_path / "snap"), "--device", "cpu",
+                          "--tb-dir", str(tmp_path / "board")])
+    files = list((tmp_path / "board").glob("events.out.tfevents.*"))
+    assert len(files) == 1
+    scalars = _event_scalars(files[0])
+    assert set(scalars) == {*metrics, "lr", "lr/neck", "lr/rpn", "lr/mask"}
+    assert all([s for s, _ in v] == [1, 2] for v in scalars.values())
+    for k, v in metrics.items():
+        assert scalars[k][-1][1] == pytest.approx(v, rel=1e-6), k
+
+
+def test_train_cli_tb_dir_without_tensorboardx_raises_first(tmp_path, monkeypatch):
+    """Without the package, ``--tb-dir`` raises ImportError before anything
+    else: the config (here a missing file) is not read, nothing trains."""
+    monkeypatch.setitem(sys.modules, "tensorboardX", None)
+    with pytest.raises(ImportError, match="--tb-dir needs the tensorboardX package"):
+        train.main(["--config", str(tmp_path / "missing.json"), "--device", "cpu",
+                    "--save-dir", str(tmp_path / "snap"), "--tb-dir", str(tmp_path / "board")])
+    assert not (tmp_path / "snap").exists() and not (tmp_path / "board").exists()

@@ -30,6 +30,7 @@ port's, like flax's, take the biased batch variance
 (``_torch_dp.BNRecorder`` notes which BNs ran in training mode).
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -37,6 +38,7 @@ import torch
 from siammask_tpu.models.siammask import SiamMaskBase as JaxSiamMaskBase
 from siammask_tpu.parallel.mesh import data_parallel_mesh, shard_batch
 from siammask_tpu.train.trainer import Trainer as JaxTrainer
+from siammask_tpu.utils.torch_convert import convert_state_dict
 from siammask_tpu_torch.data.dataset import DataLoader, PairDataset
 from siammask_tpu_torch.models.siammask import SiamMaskBase
 from siammask_tpu_torch.parallel.dist import local_rows, spawn
@@ -45,6 +47,7 @@ from siammask_tpu_torch.train.trainer import Trainer, label_params
 from siammask_tpu_torch.utils.convert import state_dict_from_jax
 
 import _torch_dp
+from chip_smoke import bn_calibration
 from test_checkpoint_prep import _make_crop_dataset
 from test_torch_data import ANCHORS, train_cfg
 from test_torch_tracker import one_torch_thread  # noqa: F401  (autouse)
@@ -54,16 +57,21 @@ from test_torch_train import (WIDTH, calibrated_variables, make_batch, port_mode
 B = 4
 WORLD = 2
 # (name, Trainer keyword arguments, epochs stepped, the rank given a NaN)
+BF16 = {"dtype": torch.bfloat16, "weights": "layer"}
 CASES = [("default", {}, (0, 1), None),
          ("default64", {"dtype": torch.float64}, (0, 1), None),
          ("remat", {"remat": True}, (0, 1), None),
          ("fused", {"fused_allreduce": True}, (1,), None),
          ("fused_sync", {"fused_allreduce": True, "sync_bn": True}, (1,), None),
          ("nan", {}, (0,), 1),
-         ("nan_fused", {"fused_allreduce": True}, (0,), 0)]
+         ("nan_fused", {"fused_allreduce": True}, (0,), 0),
+         ("bf16", BF16, (0, 1), None),
+         ("bf16_remat", {**BF16, "remat": True}, (0, 1), None),
+         ("bf16_fused_sync", {**BF16, "fused_allreduce": True, "sync_bn": True}, (0,), None)]
 # the JAX Trainer's keyword arguments for each compared case
 JAX_MODES = {"default": {}, "fused": {"fused_allreduce": True},
              "fused_sync": {"fused_allreduce": True, "sync_bn": True}}
+JAX_BF16_MODES = {"bf16": {}, "bf16_fused_sync": {"fused_allreduce": True, "sync_bn": True}}
 VALUE = 1e-4          # metrics and BN statistics, of the largest entry
 PARAM = {"rtol": 1e-4, "atol": 1e-6}
 
@@ -77,19 +85,46 @@ def setup():
 
 
 @pytest.fixture(scope="module")
-def dp_runs(setup):
+def layer_weights(setup):
+    """The bf16 cases' weights: seeded, BN-calibrated per layer on the
+    batch's first pair (``chip_smoke.bn_calibration``, as
+    ``tests/test_torch_bf16.py``'s train step and ``chip_smoke.py``'s train
+    phases calibrate: per-channel statistics leave bf16 ~45% off float32 in
+    train mode). (JAX variables, port state)."""
+    _, tbatch, _, _ = setup
+    model = SiamMaskBase(width=WIDTH).init_weights(torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad(), bn_calibration(model):
+        model.forward_train(tbatch["template"][:1], tbatch["search"][:1])
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    # copies: ``spawn`` moves the state's storage to shared memory and frees
+    # the old one, which numpy views would still point to
+    return convert_state_dict({k: v.numpy().copy() for k, v in state.items()}), state
+
+
+def bn_input():
+    """bf16 maps (4, 16, 5, 5) whose channels' means (50 to 150) are large
+    against their spread (std 1), seeded by numpy."""
+    rng = np.random.RandomState(11)
+    x = rng.uniform(50, 150, (1, 16, 1, 1)) + rng.standard_normal((4, 16, 5, 5))
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+@pytest.fixture(scope="module")
+def dp_runs(setup, layer_weights):
     """{case: (rank 0's results, rank 1's)} from one spawn of two ranks."""
     _, tbatch, _, state = setup
     *_, tset, topt, tlr = settings_pair()
-    ranks = spawn(_torch_dp.run_cases, WORLD, "cpu", state, tbatch, (tset, topt, tlr), CASES,
-                  timeout=600)
+    ranks = spawn(_torch_dp.run_cases, WORLD, "cpu", {"channel": state, "layer": layer_weights[1]},
+                  tbatch, (tset, topt, tlr), CASES, bn_input(), timeout=600)
     return {name: tuple(r[name] for r in ranks) for name in ranks[0]}
 
 
-def _jax_steps(variables, jbatch, epochs, **kwargs):
+def _jax_steps(variables, jbatch, epochs, dtype=None, **kwargs):
     jset, jopt, jlr, *_ = settings_pair()
     mesh = data_parallel_mesh(WORLD)
-    trainer = JaxTrainer(JaxSiamMaskBase(width=WIDTH), variables, jset, jopt, jlr, epochs=2,
+    model = JaxSiamMaskBase(width=WIDTH) if dtype is None else JaxSiamMaskBase(width=WIDTH,
+                                                                               dtype=dtype)
+    trainer = JaxTrainer(model, variables, jset, jopt, jlr, epochs=2,
                          mesh=mesh, unfreeze_at=0.5, **kwargs)
     steps = []
     for epoch in epochs:
@@ -106,6 +141,37 @@ def jax_runs(setup):
     epochs = {name: ep for name, _, ep, _ in CASES}
     return {name: _jax_steps(variables, jbatch, epochs[name], **kw)
             for name, kw in JAX_MODES.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_bf16_runs(setup, layer_weights):
+    """The JAX mesh step's frozen step over its bf16 ``SiamMaskBase``, in
+    the default mode and fused + sync-BN, from the per-layer weights."""
+    jbatch = setup[0]
+    return {name: _jax_steps(layer_weights[0], jbatch, (0,), jnp.bfloat16, **kw)
+            for name, kw in JAX_BF16_MODES.items()}
+
+
+@pytest.fixture(scope="module")
+def single_bf16_run(setup, layer_weights):
+    """The port's single-process trainer on the whole batch from the
+    per-layer weights, on a bf16 and on a float32 model: a frozen and an
+    unfrozen step, each state and metrics."""
+    tbatch = setup[1]
+    *_, tset, topt, tlr = settings_pair()
+    runs = {}
+    for dtype in (torch.bfloat16, None):
+        model = SiamMaskBase(width=WIDTH, dtype=dtype)
+        model.load_state_dict(layer_weights[1])
+        trainer = Trainer(model, tset, topt, tlr, epochs=2)
+        steps = []
+        for epoch in (0, 1):
+            metrics = trainer.step(tbatch, epoch)
+            steps.append({"metrics": {k: float(v) for k, v in metrics.items()},
+                          "state": {k: v.detach().numpy().copy()
+                                    for k, v in model.state_dict().items()}})
+        runs[dtype] = steps
+    return runs
 
 
 @pytest.fixture(scope="module")
@@ -415,3 +481,121 @@ def test_losses_with_global_counts_sum_over_shards_to_the_batch_loss():
     torch.testing.assert_close(losses(everything, counts), whole, rtol=0, atol=0)
     shards = sum(losses(local_rows(B, r, WORLD), counts) for r in range(WORLD))
     torch.testing.assert_close(shards, whole, rtol=1e-12, atol=1e-12)
+
+
+
+def _rel_l2(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.parametrize("case", list(JAX_BF16_MODES))
+def test_bf16_modes_match_jax_mesh_step(dp_runs, jax_bf16_runs, case):
+    """The frozen step of a bf16 model on two ranks, in the default mode
+    and fused + sync-BN, against the JAX mesh step over its bf16
+    ``SiamMaskBase`` from the same weights: no skip; the total loss within
+    5e-3 relative (9.3e-4 / 1.0e-3 measured), each loss within 5e-2 (loc
+    1.6e-2 measured, the largest; JAX's own bf16 step is 2.5e-2 off its
+    float32 step there); the running mean of each BN that ran in training
+    mode within 3e-2 of JAX's in relative L2 norm (1.0e-2 measured: a batch
+    mean of bf16 maps) and its running variance within 3e-3 (4.5e-4)."""
+    ours, ref = dp_runs[case][0]["steps"][0], jax_bf16_runs[case][0]
+    assert ours["metrics"]["skipped"] == ref["metrics"]["skipped"] == 0.0
+    np.testing.assert_allclose(ours["metrics"]["total_loss"], ref["metrics"]["total_loss"],
+                               rtol=5e-3)
+    for k in ("cls_loss", "loc_loss", "mask_loss"):
+        np.testing.assert_allclose(ours["metrics"][k], ref["metrics"][k], rtol=5e-2, err_msg=k)
+    updated = 0
+    for k, v in ref["state"].items():
+        name, _, stat = k.rpartition(".")
+        if stat in ("running_mean", "running_var") and name in ours["bn_updated"]:
+            err = _rel_l2(ours["state"][k], v)
+            assert err < (3e-2 if stat == "running_mean" else 3e-3), (case, k, err)
+            updated += 1
+    assert updated == 2 * 10    # the neck's BN and 3 heads x 3 BNs
+
+
+@pytest.mark.parametrize("step", [0, 1], ids=["frozen", "unfrozen"])
+def test_bf16_default_mode_matches_single_process_step(dp_runs, single_bf16_run, layer_weights,
+                                                       step):
+    """A bf16 model on two ranks in the default mode against the port's
+    single-process bf16 step on the whole batch, with bf16 noise measured in
+    the same run as the yardstick: the two-rank step's updates no further
+    from the single process's than half the single-process bf16 step is
+    from its float32 step (the two-rank step 1.4e-2 / 0.50 off, the float32
+    step 0.29 / 1.67, frozen / unfrozen, over the step), and so its BN
+    running statistics, all of them in relative L2 norm (1.2e-8 / 6.4e-7
+    against 3.2e-6 / 9.4e-6); the total loss within 1e-4 / 5e-3 relative
+    (2.4e-6 / 1.1e-3 measured; the unfrozen step is the second, after
+    updates already apart)."""
+    initial = {k: v.numpy() for k, v in layer_weights[1].items()}
+    labels = dp_runs["bf16"][0]["labels"]
+    ours = dp_runs["bf16"][0]["steps"][step]
+    ref, fp32 = single_bf16_run[torch.bfloat16][step], single_bf16_run[None][step]
+    before = initial if step == 0 else single_bf16_run[torch.bfloat16][0]["state"]
+    assert ours["metrics"]["skipped"] == ref["metrics"]["skipped"] == 0.0
+    np.testing.assert_allclose(ours["metrics"]["total_loss"], ref["metrics"]["total_loss"],
+                               rtol=1e-4 if step == 0 else 5e-3)
+    error = _step_error(ours["state"], ref["state"], before, labels)
+    noise = _step_error(fp32["state"], ref["state"], before, labels)
+    assert error <= noise / 2, (error, noise)
+    bn = [k for k in ref["state"] if k.endswith(("running_mean", "running_var"))]
+
+    def flat(state):
+        return np.concatenate([state[k].ravel() for k in bn])
+    bn_error, bn_noise = (_rel_l2(flat(s["state"]), flat(ref["state"])) for s in (ours, fp32))
+    assert bn_error <= bn_noise / 2, (bn_error, bn_noise)
+
+
+def test_bf16_remat_matches_plain_step_on_the_ranks(dp_runs):
+    """Remat on a bf16 model: the same parameters and BN statistics as its
+    plain step (``test_remat_matches_plain_step_on_the_ranks``'s
+    tolerances: the recompute rounds as the forward did)."""
+    for plain, remat in zip(dp_runs["bf16"][0]["steps"], dp_runs["bf16_remat"][0]["steps"]):
+        for k, v in plain["state"].items():
+            np.testing.assert_allclose(remat["state"][k], v, rtol=1e-6, atol=1e-9, err_msg=k)
+
+
+def test_collectives_carry_no_bf16(dp_runs):
+    """Every collective of every case is float32 or float64; a bf16 model's
+    steps issue as many as the float32 model's in the same mode: sync-BN's
+    statistics and their gradients, the gradient bucket and the BN running
+    statistics are float32, the loss normalizers and the metrics float64."""
+    for name, _, _, _ in CASES:
+        for step in dp_runs[name][0]["steps"]:
+            assert set(step["collective_dtypes"]) <= {"float32", "float64"}, (name, step)
+    for bf16, fp32 in (("bf16", "default"), ("bf16_remat", "remat")):
+        assert [s["collectives"] for s in dp_runs[bf16][0]["steps"]] == \
+            [s["collectives"] for s in dp_runs[fp32][0]["steps"]]
+        assert all(s["collective_dtypes"] == ["float32", "float64"]
+                   for s in dp_runs[bf16][0]["steps"])
+    assert dp_runs["bf16_fused_sync"][0]["steps"][0]["collectives"] == 3 + 2 * 11
+
+
+def test_sync_bn_reduces_bf16_statistics_in_float32(dp_runs):
+    """``SyncBatchNorm2d`` on two ranks' rows of bf16 maps whose channels'
+    means (50 to 150) are large against their spread (std 1), against the
+    port's ``BatchNorm2d`` on all the rows (``F.batch_norm``, which
+    reduces in float32): the output and the input's gradient within one
+    bf16 step (rtol 2^-7; 5% of the outputs differ, by one step), the
+    running mean within 1e-5 and the running variance within 1e-3 relative
+    of its and of the float64 batch variance's (1e-4 measured), the ranks'
+    weight and bias gradients summing to its within 1e-3 (6.5e-4). Summed
+    in bf16, whose steps are 0.5 at 100, ``E[x^2] - E[x]^2`` would keep
+    nothing of a variance of 1."""
+    x = bn_input()
+    ref = _torch_dp.sync_bn_rows(x, slice(0, 4))
+    runs = dp_runs["sync_bn"]
+    var = x.double().var(dim=(0, 2, 3), unbiased=False)
+    torch.testing.assert_close(ref["running_var"].double(), 0.9 + 0.1 * var, rtol=1e-3, atol=0)
+    for r, run in enumerate(runs):
+        rows = local_rows(x.shape[0], r, WORLD)
+        assert run["out"].dtype == run["grad_x"].dtype == torch.bfloat16
+        for k in ("out", "grad_x"):
+            torch.testing.assert_close(run[k].float(), ref[k][rows].float(), rtol=2**-7,
+                                       atol=1e-3, msg=lambda m, k=k: f"rank {r} {k}: {m}")
+        torch.testing.assert_close(run["running_mean"], ref["running_mean"], rtol=1e-5, atol=0)
+        torch.testing.assert_close(run["running_var"], ref["running_var"], rtol=1e-3, atol=0)
+    for k in ("grad_weight", "grad_bias"):
+        torch.testing.assert_close(sum(run[k] for run in runs), ref[k], rtol=1e-3, atol=0,
+                                   msg=k)
