@@ -226,8 +226,18 @@ Phases, each of which raises on failure:
     kernels a frame a replica by name in a profile, aggregate frames/s of
     both; with two cards or more, 16 streams a card over all of them
     against one card.
+27. ``[bench]``: ``python3 -m siammask_tpu_torch.bench --summary --iters
+    BENCH_ITERS`` (its five rows in bf16, each in its own process) and its
+    scan row with ``--fp32``: every row a value above 0 from at least 5
+    windows, with the card's name and power limit; every xcorr launch of
+    its timed windows a kernel's (3 forward a frame; a training step's
+    forward and gradient launches), all packed in bf16 and none in fp32,
+    where TF32 must be off; each row's ms beside this run's ``[bf16]``,
+    ``[bf16-streams]``, ``[bf16-train]``, ``[bf16-train-refine]`` or
+    ``[video]`` ms of the same work.
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it lists
+Before the card's line, ``[time]`` gives the seconds the script held the
+card. The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel with its launches on the main paths, error, times, bound and
 the time of the one library call (cuDNN's grouped conv) that computes the
 same function, with ``launches_by_path`` (track, video, streams16, vos,
@@ -235,7 +245,10 @@ rpn, base, vot, tune, train, train_refine, train_rpn, dp: rank 0's of the
 two-rank run, sharded, and the bf16 paths bf16_track, bf16_video,
 bf16_streams16, bf16_rpn, bf16_base, bf16_vos, bf16_vot, bf16_train,
 bf16_train_refine, bf16_train_rpn, bf16_dp: rank 0's of the two-rank
-run). The kernels are the fp32 forward,
+run, and the bench's rows' timed windows: bf16_bench_scan,
+bf16_bench_serving_16streams, bf16_bench_train_frozen,
+bf16_bench_train_unfrozen, bf16_bench_train_refine and bench_scan_fp32).
+The kernels are the fp32 forward,
 grad-input and grad-kernel (``bf16_scalar``: their bf16
 instantiation's times at B=1, 16, 64 and stage 2's shape, on inputs at a
 2-byte offset) and the packed bf16 forward, grad-input and grad-kernel
@@ -261,6 +274,7 @@ import re
 import shutil
 import statistics
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -375,6 +389,23 @@ MEASURED: dict = {}
 # profile's device-busy ms and the xcorr kernels expected in each of
 # trace_report's xcorr rows
 TRACED = ("video", "bf16", "bf16-streams")
+# [bench]: --iters for at least 5 windows of every row (5 x 64 frames, and
+# max(5, 320 // 128) windows of 8 training steps)
+BENCH_ITERS = 320
+# the bench's rows by summary name -> this run's ms ([bf16], [bf16-streams],
+# [bf16-train], [bf16-train-refine]) and the per-what of a row's ms
+BENCH_BESIDE = {
+    "scan": (lambda: MEASURED["bf16"]["ms_frame"], "frame", "[bf16] video"),
+    "serving_16streams": (lambda: MEASURED["bf16-streams"]["ms_frame"] / STREAMS,
+                          "stream-frame", "[bf16-streams]"),
+    "train_frozen": (lambda: MEASURED["bf16-train-timing"]["frozen"][0], "step",
+                     "[bf16-train] frozen"),
+    "train_unfrozen": (lambda: MEASURED["bf16-train-timing"]["unfrozen"][0], "step",
+                       "[bf16-train] unfrozen"),
+    "train_refine": (lambda: MEASURED["bf16-train-refine-timing"]["stage-2"][0], "step",
+                     "[bf16-train-refine]"),
+    "scan_fp32": (lambda: MEASURED["video"]["ms_frame"], "frame", "[video]"),
+}
 TRACE_DIR = REPO / "build" / "traces"
 TRACES: dict = {}
 XCORR_ROWS = tuple(cat for cat, _ in trace_report.CATEGORIES if cat.startswith("xcorr"))
@@ -3416,6 +3447,83 @@ def phase_sharded(p, smi: str) -> int:
     return launches
 
 
+def run_bench(argv: list[str], timeout: float) -> dict:
+    """``python3 -m siammask_tpu_torch.bench <argv>`` from the repo root: its
+    result line; its stderr breadcrumbs are printed. Raises unless it exits
+    0 with a result line."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-m", "siammask_tpu_torch.bench", *argv],
+                          capture_output=True, text=True, cwd=REPO, env=env, timeout=timeout)
+    for line in proc.stderr.splitlines():
+        if line.startswith(("bench", "  [")):
+            print(f"[bench] {' '.join(argv)}: {line.strip()}")
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"[bench] {' '.join(argv)}: rc={proc.returncode}; "
+                             f"{(lines or [''])[-1][:2000]} {proc.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def check_bench_row(name: str, row: dict, bf16: bool) -> list[int]:
+    """A bench row: no error, a value above 0 from at least 5 windows on
+    the card, its name and power limit; every xcorr launch of its timed
+    windows a kernel's (3 forward a frame, the training steps' forward and
+    gradient launches), packed in bf16, none packed in fp32, where TF32 is
+    off. Returns its launches (forward, grad-input, grad-kernel)."""
+    if "error" in row or not row.get("value", 0) > 0 or row.get("windows", 0) < 5:
+        raise AssertionError(f"[bench] {name}: {row}")
+    if row["device"] != "cuda" or not row["name"] or not row["power_limit"]:
+        raise AssertionError(f"[bench] {name}: device {row['device']}, card {row['name']}, "
+                             f"{row['power_limit']}")
+    launches = row["xcorr_launches"]
+    counts = [launches[k]["launches"] for k in ("forward", "grad_input", "grad_kernel")]
+    packed = [launches[k]["packed"] for k in ("forward", "grad_input", "grad_kernel")]
+    training = name.startswith("train")
+    if counts[0] == 0 or (training and 0 in counts) or packed != (counts if bf16 else [0] * 3):
+        raise AssertionError(f"[bench] {name}: xcorr launches {counts}, packed {packed}")
+    if not bf16 and row["tf32"]:
+        raise AssertionError(f"[bench] {name}: TF32 is on in a float32 row")
+    return counts
+
+
+def phase_bench(smi: str) -> dict:
+    """``[bench]``: ``python3 -m siammask_tpu_torch.bench --summary --iters
+    BENCH_ITERS`` (the five rows in bf16, a process each), then its scan row
+    with ``--fp32``, each row held by ``check_bench_row`` and printed beside
+    this run's ms of the same work on the calibrated weights
+    (``BENCH_BESIDE``: the bench fills its weights by the JAX bench's rule).
+    Returns the rows' launches by path."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    summary = run_bench(["--summary", "--iters", str(BENCH_ITERS)], timeout=600)
+    rows = {**summary["summary"],
+            "scan_fp32": run_bench(["--scan", str(VIDEO_T), "--fp32", "--iters",
+                                    str(BENCH_ITERS)], timeout=150)}
+    paths = {}
+    for name, row in rows.items():
+        bf16 = name != "scan_fp32"
+        counts = check_bench_row(name, row, bf16)
+        paths[f"bf16_bench_{name}" if bf16 else f"bench_{name}"] = counts
+        ms, what, beside = BENCH_BESIDE[name]
+        per = (row["device_step_ms"] if "device_step_ms" in row else
+               row["device_step_us"] / 1e3)
+        lo, hi = ((row["device_step_ms_min"], row["device_step_ms_max"])
+                  if "device_step_ms" in row else
+                  (row["device_step_us_min"] / 1e3, row["device_step_us_max"] / 1e3))
+        flops = (f"{row['model_gflops_per_frame']} GFLOP a frame, MFU {row['mfu_pct']}%"
+                 if "model_gflops_per_frame" in row else
+                 f"{row['train_gflops_per_step']} GFLOP a step, MFU {row['train_mfu_pct']}%")
+        print(f"[bench] {name}: {row['metric']} {row['value']} {row['unit']}; {per:.3f} ms a "
+              f"{what} (median of {row['windows']} windows, {lo:.3f}-{hi:.3f}); beside "
+              f"{beside} {ms():.3f} ms a {what} in this run; {flops}; xcorr launches "
+              f"{counts}, {'all packed bf16' if bf16 else 'fp32 kernels, TF32 off'} | "
+              f"{row['name']}, {row['power_limit']}")
+    print(f"[bench] headline {summary['metric']} {summary['value']} {summary['unit']}; "
+          f"{len(rows)} rows in {time.perf_counter() - t0:.1f} s | {smi}")
+    return paths
+
+
 def phase_trace(smi: str) -> None:
     """``[trace]``: each Chrome trace the profiled calls exported (the fp32
     and bf16 sharp videos, the bf16 16-stream call, the fp32 and bf16
@@ -3461,6 +3569,7 @@ def phase_trace(smi: str) -> None:
 
 
 def main() -> None:
+    t_start = time.monotonic()
     smi = phase_device()
     phase_build()
     strip, packed = phase_kernels()
@@ -3550,6 +3659,8 @@ def main() -> None:
     shutil.rmtree(SMOKE_TRAIN)
     torch.cuda.empty_cache()
     sharded_launches = phase_sharded(p, smi)
+    torch.cuda.empty_cache()
+    bench_paths = phase_bench(smi)
 
     # the forward also runs on the video and 16-stream paths, by graph replay
     paths = {"track": track_launches, "video": [video_launches, 0, 0],
@@ -3562,7 +3673,7 @@ def main() -> None:
              **bf16_paths, "bf16_vos": [bf16_vos_launches, 0, 0],
              "bf16_vot": [bf16_vot_launches, 0, 0], "bf16_train": bf16_train_launches,
              "bf16_train_refine": bf16_refine_launches, "bf16_train_rpn": bf16_rpn_launches,
-             "bf16_dp": bf16_dp_launches}
+             "bf16_dp": bf16_dp_launches, **bench_paths}
     # by kernel: check_route held every bf16 path's launches to the packed
     # kernels and every fp32 path's to the fp32 kernels
     by_kernel = {k: [0, 0, 0, *v] if k.startswith("bf16") else [*v, 0, 0, 0]
@@ -3576,6 +3687,7 @@ def main() -> None:
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "launches_by_path", "stage2", "local_batches",
              "bf16_scalar", "by_shape"]
+    print(f"[time] the card held {time.monotonic() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [{key: r[key] for key in order if key in r} for r in records]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

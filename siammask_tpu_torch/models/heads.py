@@ -15,9 +15,9 @@ module names (``downsample.{0,1}``, ``conv_kernel``/``conv_search``/``head``,
 
 ``dtype`` is the compute dtype of ``models/resnet.py``: each conv casts its
 input and weight to it (``Conv2d``), and the xcorr takes the bf16 maps (its
-kernels accumulate in float32 and write bf16). ``DeconvExpand`` has none: its
-float32 weight promotes the product to float32, as the JAX package's does
-with float32 weights (see its docstring).
+kernels accumulate in float32 and write bf16). ``DeconvExpand`` is the one
+layer whose parameters are created in ``dtype``, as the JAX package declares
+them; loaded weights keep their own dtype (see its docstring).
 """
 from __future__ import annotations
 
@@ -107,14 +107,27 @@ class DeconvExpand(nn.ConvTranspose2d):
     ``out[b, o, h, w] = sum_i x[b, i] * W[i, o, h, w] + bias[o]``, computed as
     one matrix product. The weight keeps torch's (in, out, kh, kw) layout.
 
-    It computes in the promoted dtype of its input and weight: a bf16 corr
-    vector times the float32 weight is a float32 product. The JAX package's
-    ``DeconvExpand`` declares its parameters in the compute dtype but is
-    handed float32 arrays by every checkpoint and the weight bridge, and its
-    einsum promotes the same way, so its output is float32 under bf16 too."""
+    Its parameters are created in ``dtype`` (float32 when None), as the JAX
+    package's ``DeconvExpand`` declares its kernel and bias in the compute
+    dtype: a bf16 model built from scratch holds a bf16 weight and bias and
+    computes a bf16 product, as JAX's bf16 ``model.init`` and einsum do.
+    Loaded weights keep the dtype they arrive in (``_load_from_state_dict``),
+    as flax keeps the arrays it is handed: float32 weights from the weight
+    bridge or a float32 checkpoint stay float32 in a bf16 model. The product
+    is in the promoted dtype of the input and the weight, so a bf16 corr
+    vector times a float32 weight is a float32 product, as in JAX."""
 
-    def __init__(self, in_features: int = 256, out_features: int = 32, size: int = 15):
-        super().__init__(in_features, out_features, size, stride=size)
+    def __init__(self, in_features: int = 256, out_features: int = 32, size: int = 15,
+                 dtype: torch.dtype | None = None):
+        super().__init__(in_features, out_features, size, stride=size, dtype=dtype)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        for name, param in self._parameters.items():
+            value = state_dict.get(prefix + name)
+            if (isinstance(value, torch.Tensor) and value.is_floating_point()
+                    and value.dtype != param.dtype):
+                param.data = param.data.to(value.dtype)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x):
         """x: (B, in) -> (B, out, size, size)."""
@@ -162,7 +175,7 @@ class Refine(nn.Module):
         self.h2 = ConvReluBlock(32, 32, 32, d)
         self.h1 = ConvReluBlock(16, 16, 16, d)
         self.h0 = ConvReluBlock(4, 4, 4, d)
-        self.deconv = DeconvExpand(4 * width, 32, 15)
+        self.deconv = DeconvExpand(4 * width, 32, 15, d)
         self.post0 = Conv3x3(32, 16, d)
         self.post1 = Conv3x3(16, 4, d)
         self.post2 = Conv3x3(4, 1, d)

@@ -23,11 +23,13 @@ channels are ordered (2, k) and loc channels (4, k), as the reference.
 
 Each family takes ``dtype``, the compute dtype of the JAX package's models:
 ``torch.bfloat16`` runs bf16 activations over float32 parameters (every conv
-casts its input and weight; ``models/resnet.py``), so the state_dict, the
-optimizer and checkpoints do not change; ``None`` (the default) computes in
-the parameters' dtype. Under bf16 the outputs are bf16, but Refine's logits
-start from a float32 deconv (``heads.DeconvExpand``); the xcorr runs its
-bf16 kernels, forward and backward.
+casts its input and weight; ``models/resnet.py``), except Refine's deconv
+(``heads.DeconvExpand``), whose weight and bias are created in bf16, as the
+JAX package declares them; ``None`` (the default) computes in the
+parameters' dtype. Weights loaded into a bf16 model keep their dtype, so a
+bf16 twin of float32 weights holds a float32 deconv and computes a float32
+product there, as JAX does on float32 arrays. Under bf16 the outputs are
+bf16; the xcorr runs its bf16 kernels, forward and backward.
 
 Building a float32 model (``dtype`` None or ``torch.float32``) switches
 TF32 off for the whole process, ``torch.backends.cudnn.allow_tf32`` and
@@ -105,11 +107,14 @@ class SiamRPN(nn.Module):
     def init_weights(self, generator: torch.Generator):
         """Seeded random init with the JAX package's initialisers: convs
         LeCun-normal (truncated at 2 sigma), biases 0, BN identity, the
-        deconv uniform with variance 1/(3 fan_in)."""
+        deconv uniform with variance 1/(3 fan_in), in its parameter's dtype
+        (a bf16 model's deconv: the float32 draws rounded to bf16)."""
         for m in self.modules():
             if isinstance(m, DeconvExpand):
                 bound = math.sqrt(1.0 / m.weight.shape[0])
-                m.weight.uniform_(-bound, bound, generator=generator)
+                # drawn in float32: a bf16 deconv is the float32 one, rounded
+                m.weight.copy_(torch.empty(m.weight.shape).uniform_(-bound, bound,
+                                                                    generator=generator))
                 m.bias.zero_()
             elif isinstance(m, nn.Conv2d):
                 fan_in = m.weight[0].numel()

@@ -137,8 +137,9 @@ class AllReduceSum(torch.autograd.Function):
 
 def all_reduce_tensors(tensors: list[torch.Tensor], op: str = "sum") -> None:
     """Sum (``op="sum"``) or average (``"mean"``, the sum divided by the
-    world size, as ``pmean``) tensors of one dtype over the group, in
-    place: one collective over all of them flattened into a single bucket."""
+    world size, as ``pmean``) tensors over the group, in place: one
+    collective over all of them flattened into a single bucket of their
+    promoted dtype (a bf16 tensor among float32 ones goes over in float32)."""
     if op not in ("sum", "mean"):
         raise ValueError(f"op {op!r}: 'sum' or 'mean'")
     if not tensors:

@@ -110,15 +110,18 @@ def categorize(name: str) -> str:
 
 def _self_times(lanes: dict) -> tuple[collections.Counter, collections.Counter]:
     """Per name, the self time (us) and the count of its events over every
-    lane: each event's duration less that of the events strictly nested
-    in it on its lane."""
+    lane: each event's duration less that of the events nested in it on its
+    lane. An event nests in one that starts no later and ends no earlier;
+    two that only overlap (a kernel whose start the device stamps before
+    the previous kernel's end) each keep their whole duration, as the
+    profiler's own self device time does."""
     per_op, per_op_n = collections.Counter(), collections.Counter()
     for lane in lanes.values():
         # start ascending, end descending: a parent before its children
         lane.sort(key=lambda ev: (ev[0], -ev[1]))
         stack, self_time, names = [], [], []
         for ts, te, name in lane:
-            while stack and stack[-1][0] <= ts:
+            while stack and stack[-1][0] < te:   # ends before this one: not its parent
                 stack.pop()
             if stack:
                 self_time[stack[-1][1]] -= te - ts

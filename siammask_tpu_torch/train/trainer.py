@@ -53,11 +53,14 @@ Data-parallel training (``distributed``: one process per device in a
 A bf16 model (``SiamMaskBase(dtype=torch.bfloat16)``, the JAX package's
 ``Trainer`` over a bf16 flax model) trains through the same step, on one
 process or under ``distributed`` in every mode and with ``remat``: float32
-parameters, bf16 activations, bf16 xcorr kernels forward and backward,
-float32 losses and gradients, the NaN guard on the float32 loss. No
+parameters (but a sharp model's deconv built from scratch, bf16 with its
+gradient and momentum, as optax keeps a bf16 leaf), bf16 activations, bf16
+xcorr kernels forward and backward, float32 losses and gradients, the NaN
+guard on the float32 loss. No
 collective carries a bf16 tensor: sync-BN reduces its statistics in
 float32 (flax's ``force_float32_reductions``), the gradient bucket and the
-BN running statistics are float32 (the parameters' and buffers' dtype),
+BN running statistics are float32 (the parameters' and buffers' dtype; the
+bf16 deconv of a model built from scratch joins the bucket in float32),
 and the loss normalizers and metrics go over in float64.
 
 Every rank clips the exchanged gradients and decides the NaN guard on the

@@ -62,6 +62,7 @@ from siammask_tpu_torch.tools import test as cli
 from siammask_tpu_torch.tracker.runtime import TrackerRuntime
 from siammask_tpu_torch.tracker.tracker import Tracker, TrackState
 from siammask_tpu_torch.tracker.vos import track_vos_batched
+from siammask_tpu_torch.train.checkpoint import read_state_dict, save_checkpoint
 from siammask_tpu_torch.train.trainer import Trainer
 from siammask_tpu_torch.utils import bbox
 from siammask_tpu_torch.utils.convert import state_dict_from_jax
@@ -268,15 +269,20 @@ def test_track_video_matches_step_loop(family):
 def test_float32_dtype_changes_nothing(cls):
     """``dtype=torch.float32`` against no dtype: the same parameter names,
     dtypes and values, and the same step outputs bit for bit; a bf16 model's
-    parameters and buffers stay float32 under the same names."""
+    parameters and buffers stay float32 under the same names, with the same
+    values, but for sharp's deconv, created in bf16 as JAX's bf16 init
+    creates it, whose values are the float32 ones rounded to bf16."""
     models = [cls(width=WIDTH, **kw).init_weights(torch.Generator().manual_seed(0)).eval()
               for kw in ({}, {"dtype": torch.float32}, {"dtype": BF16})]
     assert models[0].dtype is None and models[1].dtype is torch.float32
     states = [m.state_dict() for m in models]
     assert list(states[0]) == list(states[1]) == list(states[2])
     for k, v in states[0].items():
-        assert states[1][k].dtype == states[2][k].dtype == v.dtype, k
-        assert torch.equal(states[1][k], v) and torch.equal(states[2][k], v), k
+        assert states[1][k].dtype == v.dtype and torch.equal(states[1][k], v), k
+        if k.startswith("refine_model.deconv."):
+            assert states[2][k].dtype == BF16 and torch.equal(states[2][k], v.to(BF16)), k
+        else:
+            assert states[2][k].dtype == v.dtype and torch.equal(states[2][k], v), k
     p = Config.load(str(EXPERIMENTS / FAMILIES[{SiamRPN: "rpn", SiamMaskBase: "base",
                                                  SiamMaskSharp: "sharp"}[cls]][2])).tracker_config()
     mask = cls is not SiamRPN
@@ -368,6 +374,76 @@ def test_deconv_and_skip_windows_keep_the_jax_dtypes():
     maps = [torch.randn(1, c, n, n).to(BF16) for c, n in ((4, 61), (8, 31), (16, 15))]
     for w in slice_skip_windows(*maps, torch.tensor([[0, 24]])):
         assert w.dtype == BF16 and (w == 0).any()
+
+
+def test_bf16_init_gives_the_jax_parameter_dtypes():
+    """A bf16 sharp model built from scratch holds every parameter in the
+    dtype JAX's ``SiamMaskSharp(dtype=bfloat16).init`` gives it: the
+    deconv's kernel and bias in bf16 (the one layer that declares its
+    parameters in the compute dtype), everything else float32."""
+    model = SiamMaskSharp(width=WIDTH, dtype=BF16).init_weights(torch.Generator().manual_seed(0))
+    shapes = jax.eval_shape(jsiammask.SiamMaskSharp(width=WIDTH, dtype=jnp.bfloat16).init,
+                            jax.random.PRNGKey(0), jnp.zeros((1, 127, 127, 3)),
+                            jnp.zeros((1, 255, 255, 3)))
+    leaves = jax.tree_util.tree_leaves_with_path(shapes)
+    theirs = {"/".join(str(getattr(k, "key", k)) for k in path) for path, s in leaves
+              if s.dtype == jnp.bfloat16}
+    assert theirs == {"params/refine/deconv/kernel", "params/refine/deconv/bias"}
+    assert all(s.dtype in (jnp.bfloat16, jnp.float32) for _, s in leaves)
+    ours = {k: v.dtype for k, v in model.state_dict().items() if v.is_floating_point()}
+    assert {k for k, v in ours.items() if v == BF16} == {"refine_model.deconv.weight",
+                                                         "refine_model.deconv.bias"}
+    assert {v for v in ours.values()} == {BF16, torch.float32}
+    out = model.refine_model.deconv(torch.randn(2, 4 * WIDTH).to(BF16))
+    assert out.dtype == BF16
+
+
+def test_bf16_deconv_matches_jax_bf16_apply():
+    """``DeconvExpand`` with bf16 parameters on a bf16 corr vector is a bf16
+    product, as JAX's bf16 ``DeconvExpand.apply`` on bf16 arrays: each
+    element within one bf16 step of JAX's (both accumulate in float32 and
+    round once, in another summation order)."""
+    gen = torch.Generator().manual_seed(1)
+    deconv = DeconvExpand(16, 4, 15, dtype=BF16)
+    with torch.no_grad():
+        deconv.weight.copy_(torch.randn(deconv.weight.shape, generator=gen))
+        deconv.bias.copy_(torch.randn(deconv.bias.shape, generator=gen))
+    corr = torch.randn(2, 16, generator=gen).to(BF16)
+    ours = deconv(corr)
+    params = {"params": {k: jnp.asarray(v.detach().float().numpy(), jnp.bfloat16)
+                         for k, v in (("kernel", deconv.weight), ("bias", deconv.bias))}}
+    ref = jheads.DeconvExpand(16, 4, 15, jnp.bfloat16).apply(
+        params, jnp.asarray(corr.float().numpy(), jnp.bfloat16))
+    assert ours.dtype == BF16 and ref.dtype == jnp.bfloat16
+    theirs = np.asarray(ref, np.float32)
+    step = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(theirs), 1e-30))) - 7)
+    diff = np.abs(ours.detach().float().permute(0, 2, 3, 1).numpy() - theirs)
+    assert (diff <= step).all(), diff.max()
+
+
+def test_bf16_model_loaded_from_float32_weights_keeps_float32(tmp_path):
+    """Float32 weights loaded into a bf16 model, from a float32 model's
+    state_dict, through the JAX weight bridge or from a checkpoint, leave
+    its deconv float32 (as flax keeps the float32 arrays it is handed), with
+    the same values, and its product float32; a bf16 checkpoint of a model
+    built from scratch loads back bf16."""
+    fp32 = SiamMaskSharp(width=WIDTH).init_weights(torch.Generator().manual_seed(0))
+    state = fp32.state_dict()
+    save_checkpoint(str(tmp_path / "fp32.pth"), state)
+    bridged = state_dict_from_jax(convert_state_dict({k: v.numpy() for k, v in state.items()}))
+    for source in (state, bridged, read_state_dict(str(tmp_path / "fp32.pth"))):
+        twin = SiamMaskSharp(width=WIDTH, dtype=BF16)
+        twin.load_state_dict(source)
+        deconv = twin.refine_model.deconv
+        assert deconv.weight.dtype == deconv.bias.dtype == torch.float32
+        assert torch.equal(deconv.weight, fp32.refine_model.deconv.weight)
+        assert deconv(torch.randn(2, 4 * WIDTH).to(BF16)).dtype == torch.float32
+    scratch = SiamMaskSharp(width=WIDTH, dtype=BF16).init_weights(torch.Generator().manual_seed(0))
+    save_checkpoint(str(tmp_path / "bf16.pth"), scratch.state_dict())
+    back = SiamMaskSharp(width=WIDTH, dtype=BF16)
+    back.load_state_dict(read_state_dict(str(tmp_path / "bf16.pth")))
+    assert back.refine_model.deconv.weight.dtype == BF16
+    assert torch.equal(back.refine_model.deconv.weight, scratch.refine_model.deconv.weight)
 
 
 def test_losses_match_jax_on_bf16_maps():

@@ -95,6 +95,20 @@ def test_synthetic_trace_every_lane():
     assert table["lanes"] == {}
 
 
+def test_overlapping_kernels_keep_their_durations():
+    """Two kernels on one lane whose stamps overlap by 1 us, then one nested
+    in the second: the first keeps its 10 us, the second its 11 us less the
+    nested 2 us; the busy time is their union, 20 us."""
+    events = [{"ph": "X", "cat": "kernel", "name": name, "pid": 0, "tid": 7, "ts": ts,
+               "dur": dur} for name, ts, dur in (("gemm_a", 0, 10), ("gemm_b", 9, 11),
+                                                  ("gemm_c", 12, 2))]
+    table = trace_report.report(events)
+    assert {n: row["ms"] for n, row in table["ops"].items()} == pytest.approx(
+        {"gemm_a": 0.010, "gemm_b": 0.009, "gemm_c": 0.002})
+    assert table["total_ms"] == pytest.approx(0.021)
+    assert table["busy_ms"] == pytest.approx(0.020)
+
+
 @pytest.mark.parametrize("name, category", [
     ("void depthwise_xcorr_strip_kernel<__nv_bfloat16, false>(int)",
      "xcorr strip fwd (fp32, bf16 scalar)"),
