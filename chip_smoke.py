@@ -31,6 +31,10 @@ synthetic uint8 frames made from a numpy seed, with seeded random weights:
   (``experiments/siammask_sharp/config.json``, warm-started from a stage-1
   checkpoint), SiamRPN training (``experiments/siamrpn_resnet/config.json``),
   ``Trainer.restore`` and the train CLI (``siammask_tpu_torch.tools.train``);
+- the overfit experiment (``siammask_tpu_torch.tools.overfit``): the
+  two-stage mask recipe trained through the train CLI at the tool's
+  schedule on a synthetic 70-frame clip written under ``build/``, then
+  scored by the train step at lr 0 and by held-out tracking;
 - data-parallel training (``Trainer(distributed=True)`` over
   ``parallel.dist``) at batch 64, in float32 and in bf16, and the sharded
   stream server (``parallel.serving.ShardedStreamServer``) at 16 streams;
@@ -213,7 +217,24 @@ Phases, each of which raises on failure:
     and BN statistics no further from it than it is from the float32 step,
     the loss within 1e-3), the fused modes by direction, ms a step beside
     ``[dp]``'s; with two cards or more, NCCL bf16 scaling beside float32's;
-26. ``[sharded]``: SiamMask-sharp, 16 streams on 480x854 frames over 32,
+26. ``[overfit]`` (run after phase 24): ``siammask_tpu_torch.tools.overfit
+    --prepare --train --evaluate --task mask`` at width 64 with the tool's
+    schedule (stage 1: 16 epochs of 64 steps of 8 across the unfreeze;
+    stage 2: 24 epochs) on a 70-frame 480x854 clip written under
+    ``build/`` (``write_overfit_clip``: a textured ellipse along the
+    tool's keyframe boxes), the train CLI's logs in a file there: the
+    wall s of each stage, each train run's samples/s on its own clock,
+    the report's fit and held-out numbers, which must clear
+    ``tests/test_overfit_artifact.py``'s thresholds (mask and total loss
+    under init's / 10; held-out mean IoU over init's + 0.2 and over 0.5;
+    no more lost frames than init's), and stage 1's log must show the
+    backbone's optimizer group from the unfreeze on and not before (those
+    thresholds alone pass a stage 1 that never unfreezes and a stage-2
+    warmup 10x too high; they catch a warm start that drops the RPN);
+    the xcorr launches of the tool's
+    own process (its lr-0 train steps and tracking), every kernel at
+    least once;
+27. ``[sharded]``: SiamMask-sharp, 16 streams on 480x854 frames over 32,
     through ``ShardedStreamServer`` over [cuda:0, cuda:0]: bit-identical to
     each replica's tracker on its 8 streams; against the unsharded
     ``track_video_multi`` at O=16 the same best_id at every frame and
@@ -226,7 +247,7 @@ Phases, each of which raises on failure:
     kernels a frame a replica by name in a profile, aggregate frames/s of
     both; with two cards or more, 16 streams a card over all of them
     against one card.
-27. ``[bench]``: ``python3 -m siammask_tpu_torch.bench --summary --iters
+28. ``[bench]``: ``python3 -m siammask_tpu_torch.bench --summary --iters
     BENCH_ITERS`` (its five rows in bf16, each in its own process) and its
     scan row with ``--fp32``: every row a value above 0 from at least 5
     windows, with the card's name and power limit; every xcorr launch of
@@ -242,7 +263,8 @@ each kernel with its launches on the main paths, error, times, bound and
 the time of the one library call (cuDNN's grouped conv) that computes the
 same function, with ``launches_by_path`` (track, video, streams16, vos,
 rpn, base, vot, tune, train, train_refine, train_rpn, dp: rank 0's of the
-two-rank run, sharded, and the bf16 paths bf16_track, bf16_video,
+two-rank run, overfit: the overfit tool's scoring, not its train CLI
+subprocesses, sharded, and the bf16 paths bf16_track, bf16_video,
 bf16_streams16, bf16_rpn, bf16_base, bf16_vos, bf16_vot, bf16_train,
 bf16_train_refine, bf16_train_rpn, bf16_dp: rank 0's of the two-rank
 run, and the bench's rows' timed windows: bf16_bench_scan,
@@ -266,6 +288,7 @@ which phases 8, 9, 12 and 13 confirm by kernel name in a profiler trace.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import hashlib
 import json
 import math
@@ -305,7 +328,7 @@ from siammask_tpu_torch.tracker.runtime import TrackerRuntime
 from siammask_tpu_torch.tracker.tracker import BoxStepOutput, StepOutput, Tracker, TrackState
 from siammask_tpu_torch.tracker.vos import track_vos, track_vos_batched
 from siammask_tpu_torch.tracker.vot import SKIP, track_vot
-from siammask_tpu_torch.tools import trace_report
+from siammask_tpu_torch.tools import overfit, trace_report
 from siammask_tpu_torch.tools import train as train_cli
 from siammask_tpu_torch.train.checkpoint import merge_state_dict, read_state_dict, save_checkpoint
 from siammask_tpu_torch.train.lr import build_lr_spaces
@@ -409,6 +432,14 @@ BENCH_BESIDE = {
 TRACE_DIR = REPO / "build" / "traces"
 TRACES: dict = {}
 XCORR_ROWS = tuple(cat for cat, _ in trace_report.CATEGORIES if cat.startswith("xcorr"))
+# [overfit]: the tool's work tree, its default batch, a train CLI step line
+# (its timestamp, epoch and step), an optimizer group's LR on it,
+# a stage's wall-time line of the tool
+OVERFIT_ROOT = REPO / "build" / "overfit_smoke"
+OVERFIT_BATCH = 8
+OVERFIT_STEP = re.compile(r"^(\S+ \S+) INFO epoch (\d+) step (\d+) ")
+OVERFIT_GROUP = re.compile(r" lr/(\w+)=([0-9.eE+-]+)")
+OVERFIT_WALL = re.compile(r"^(.+): ([0-9.]+) s wall$")
 
 
 def synthetic_frames(n: int, hw=FRAME_HW, seed: int = SEED) -> np.ndarray:
@@ -3447,6 +3478,151 @@ def phase_sharded(p, smi: str) -> int:
     return launches
 
 
+def write_overfit_clip(root: Path, hw: tuple[int, int] = FRAME_HW, seed: int = SEED) -> None:
+    """The overfit tool's clip under ``root``: ``overfit.N_FRAMES`` uint8
+    JPEG frames ``{f:05d}.jpg`` of ``hw``. A seeded static background of
+    blue-green blobs with fine grain; a target, a textured warm-coloured
+    ellipse (one seeded texture, scaled to the box) filling
+    ``overfit.interpolate_boxes()[f]``; seeded pixel noise a frame."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    blobs = rng.randint(30, 180, (h // 24 + 2, w // 24 + 2, 3)).astype(np.float32)
+    blobs[..., 2] *= 0.5                                  # BGR: little red
+    background = cv2.resize(blobs, (w, h), interpolation=cv2.INTER_CUBIC)
+    background += rng.normal(0.0, 12.0, (h, w, 3))
+    texture = np.stack([rng.uniform(0, 90, (16, 16)), rng.uniform(60, 200, (16, 16)),
+                        rng.uniform(170, 255, (16, 16))], axis=-1).astype(np.float32)
+    root.mkdir(parents=True, exist_ok=True)
+    for f, (x0, y0, x1, y1) in enumerate(overfit.interpolate_boxes()):
+        im = background.copy()
+        bw, bh = int(round(x1 - x0)), int(round(y1 - y0))
+        ix, iy = int(round(x0)), int(round(y0))
+        inside = np.zeros((bh, bw), np.uint8)
+        cv2.ellipse(inside, (bw // 2, bh // 2), (bw // 2, bh // 2), 0, 0, 360, 1, -1)
+        patch = cv2.resize(texture, (bw, bh), interpolation=cv2.INTER_LINEAR)
+        region = im[iy:iy + bh, ix:ix + bw]
+        region[inside == 1] = patch[inside == 1]
+        im += np.random.RandomState(seed + 1 + f).normal(0.0, 6.0, (h, w, 3))
+        cv2.imwrite(str(root / f"{f:05d}.jpg"), np.clip(im, 0, 255).astype(np.uint8))
+
+
+@contextlib.contextmanager
+def stderr_to(path: Path):
+    """While open, this process's file descriptor 2 (and so the stderr of
+    the subprocesses it starts) writes to ``path``."""
+    sys.stderr.flush()
+    saved = os.dup(2)
+    try:
+        with open(path, "wb") as f:
+            os.dup2(f.fileno(), 2)
+            yield
+    finally:
+        sys.stderr.flush()
+        os.dup2(saved, 2)
+        os.close(saved)
+
+
+def train_log_runs(path: Path) -> list[dict]:
+    """The train CLI runs of a log, in order: each run's last step, and its
+    seconds an iteration from the step lines' millisecond timestamps (the
+    CLI's own clock, data waits, epoch starts and checkpoint saves
+    included), from its first step line on (the interval before it holds
+    the start): over the run (``s_it``), and over the first and the second
+    half of its epochs (``s_it_halves``; the train CLI unfreezes at half);
+    and the optimizer groups each half logs with an LR over 0
+    (``lr_groups_halves``)."""
+    runs = []
+    for line in path.read_text().splitlines():
+        if " INFO torch " in line:
+            runs.append([])
+        elif m := OVERFIT_STEP.match(line):
+            t = datetime.datetime.strptime(m.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp()
+            groups = {g for g, lr in OVERFIT_GROUP.findall(line) if float(lr) > 0}
+            runs[-1].append((t, int(m.group(2)), int(m.group(3)), groups))
+
+    def s_it(points: list) -> float:
+        return (points[-1][0] - points[0][0]) / (points[-1][2] - points[0][2])
+
+    out = []
+    for points in runs:
+        half = (points[-1][1] + 1) / 2
+        first = [p for p in points if p[1] < half]
+        second = first[-1:] + [p for p in points if p[1] >= half]
+        out.append({"steps": points[-1][2], "s_it": s_it(points),
+                    "s_it_halves": [s_it(first), s_it(second)],
+                    "lr_groups_halves": [sorted(set().union(*(p[3] for p in half_points)))
+                                         for half_points in (first, second[1:])]})
+    return out
+
+
+def phase_overfit(smi: str) -> list[int]:
+    """``[overfit]``: ``siammask_tpu_torch.tools.overfit`` ``--prepare --train
+    --evaluate --task mask`` at width 64 with its default schedule on the
+    clip of ``write_overfit_clip`` (480x854): stage 1 for 16 epochs of 64
+    steps of 8 across the unfreeze, stage 2 for 24. The train CLI's logs go
+    to a file, read for each stage's samples/s on its clock
+    (``train_log_runs``). The report must clear the thresholds
+    ``tests/test_overfit_artifact.py`` pins for the JAX run's: mask and
+    total loss under init's / 10, held-out mean IoU over init's + 0.2 and
+    over 0.5, no more lost frames than init's; and stage 1's log must show
+    the backbone's optimizer group (``lr/resnet``) in the second half of its
+    epochs and not in the first. Returns the xcorr launches of the tool's own process (the scoring: the lr-0 train
+    step and the tracking), all fp32 kernels."""
+    shutil.rmtree(OVERFIT_ROOT, ignore_errors=True)
+    clip, work = OVERFIT_ROOT / "clip", OVERFIT_ROOT / "work"
+    write_overfit_clip(clip)
+    walls = {}
+
+    def log(msg: str) -> None:
+        if m := OVERFIT_WALL.match(msg):
+            walls[m.group(1)] = float(m.group(2))
+        if not msg.startswith("{"):       # the report's summary: printed below
+            print(f"[overfit] {msg}")
+
+    train_log = OVERFIT_ROOT / "train.log"
+    reset_launches()
+    with stderr_to(train_log):
+        report = overfit.main(["--prepare", "--train", "--evaluate", "--task", "mask",
+                               "--work-dir", str(work), "--frames-dir", str(clip)], log=log)
+    sync_all()
+    launches = read_launches()
+    check_route("overfit", False)
+    runs = train_log_runs(train_log)
+    fit, held = report["train_fit"], report["held_out_tracking"]
+    for label, run in zip(("stage 1", "stage 2"), runs):
+        print(f"[overfit] {label}: {run['steps']} steps of {OVERFIT_BATCH}, "
+              f"{walls[label]:.1f} s wall; {run['s_it']:.4f} s/it, "
+              f"{OVERFIT_BATCH / run['s_it']:.1f} samples/s on the train CLI's clock "
+              f"(halves of its epochs {run['s_it_halves'][0]:.4f} / "
+              f"{run['s_it_halves'][1]:.4f} s/it) | " + smi)
+    for s in ("init", "trained"):
+        f, h = fit[s], held[s]
+        print(f"[overfit] {s}: train fit mask_loss {f['mask_loss']:.4f} total_loss "
+              f"{f['total_loss']:.4f} iou_at_5 {f['iou_at_5']:.4f} iou_mean "
+              f"{f['iou_mean']:.4f}; held-out mean IoU {h['mean_iou']:.4f} (min "
+              f"{h['min_iou']:.4f}), lost {h['lost']}")
+    print(f"[overfit] wall s: prepare {walls['prepare']:.1f}, stage 1 {walls['stage 1']:.1f}, "
+          f"stage 2 {walls['stage 2']:.1f}, evaluate {walls['evaluate']:.1f}; xcorr launches "
+          f"of the scoring {launches} (the train CLI's subprocesses not counted)")
+    init, trained = fit["init"], fit["trained"]
+    gates = {"mask loss under init's / 10": trained["mask_loss"] < init["mask_loss"] / 10,
+             "total loss under init's / 10": trained["total_loss"] < init["total_loss"] / 10,
+             "held-out mean IoU over init's + 0.2":
+                 held["trained"]["mean_iou"] > held["init"]["mean_iou"] + 0.2,
+             "held-out mean IoU over 0.5": held["trained"]["mean_iou"] > 0.5,
+             "lost no more than init's": held["trained"]["lost"] <= held["init"]["lost"],
+             "stage 1 trains the backbone from the unfreeze on, not before":
+                 [("resnet" in g) for g in runs[0]["lr_groups_halves"]] == [False, True]}
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed or len(runs) != 2 or 0 in launches:
+        raise AssertionError(f"[overfit] failed: {failed}; {len(runs)} train runs; "
+                             f"launches {launches}")
+    shutil.rmtree(OVERFIT_ROOT)
+    return launches
+
+
 def run_bench(argv: list[str], timeout: float) -> dict:
     """``python3 -m siammask_tpu_torch.bench <argv>`` from the repo root: its
     result line; its stderr breadcrumbs are printed. Raises unless it exits
@@ -3658,6 +3834,8 @@ def main() -> None:
                      "sharp": configs["sharp"]})
     shutil.rmtree(SMOKE_TRAIN)
     torch.cuda.empty_cache()
+    overfit_launches = phase_overfit(smi)
+    torch.cuda.empty_cache()
     sharded_launches = phase_sharded(p, smi)
     torch.cuda.empty_cache()
     bench_paths = phase_bench(smi)
@@ -3669,7 +3847,8 @@ def main() -> None:
              "vot": [vot_launches, 0, 0], "tune": [tune_launches, 0, 0],
              "train": train_launches,
              "train_refine": train_refine_launches, "train_rpn": train_rpn_launches,
-             "dp": dp_launches, "sharded": [sharded_launches, 0, 0],
+             "dp": dp_launches, "overfit": overfit_launches,
+             "sharded": [sharded_launches, 0, 0],
              **bf16_paths, "bf16_vos": [bf16_vos_launches, 0, 0],
              "bf16_vot": [bf16_vot_launches, 0, 0], "bf16_train": bf16_train_launches,
              "bf16_train_refine": bf16_refine_launches, "bf16_train_rpn": bf16_rpn_launches,
