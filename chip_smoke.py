@@ -19,6 +19,10 @@ synthetic uint8 frames made from a numpy seed, with seeded random weights:
 - the VOT reset-on-failure driver (``track_vot``) for all three families
   and the test CLI (``siammask_tpu_torch.tools.test.main``) on two VOT2018-
   layout videos written under ``build/``;
+- the metric-level parity harness (``siammask_tpu_torch.tools.metric_parity``):
+  the VOT reset protocol and VOS fusion over a pseudo-benchmark of two
+  105-frame videos, the card against the CPU in float32 and bf16 against
+  float32, scored as EAO/A/R and J/F;
 - the tune CLI (``siammask_tpu_torch.tools.tune.main``): a VOT grid and a
   VOS grid of SiamMask-sharp cells over those videos, and the eval CLI
   (``siammask_tpu_torch.tools.eval.main``) over the result trees;
@@ -230,7 +234,10 @@ Phases, each of which raises on failure:
     no more lost frames than init's), and stage 1's log must show the
     backbone's optimizer group from the unfreeze on and not before (those
     thresholds alone pass a stage 1 that never unfreezes and a stage-2
-    warmup 10x too high; they catch a warm start that drops the RPN);
+    warmup 10x too high; they catch a warm start that drops the RPN), and
+    each logged ``lr/<group>`` of each stage must be ``build_lr_spaces`` of
+    the recipe's schedule (``OVERFIT_SCHEDULES``) at its epoch times the
+    group's multiplier;
     the xcorr launches of the tool's
     own process (its lr-0 train steps and tracking), every kernel at
     least once;
@@ -256,6 +263,22 @@ Phases, each of which raises on failure:
     where TF32 must be off; each row's ms beside this run's ``[bf16]``,
     ``[bf16-streams]``, ``[bf16-train]``, ``[bf16-train-refine]`` or
     ``[video]`` ms of the same work.
+29. ``[metric-parity]`` (run after phase 16):
+    ``siammask_tpu_torch.tools.metric_parity`` on SiamMask-sharp at width
+    64, seeded weights tempered on the card (LSUV): the card in float32
+    makes the pseudo-benchmark (two 105-frame videos that reorder the
+    first 36 frames of ``write_overfit_clip``'s clip, their gt its own
+    no-reset trajectory displaced over two 5-frame windows each, and those
+    frames' VOS masks) and
+    runs the VOT reset protocol in box mode; the CPU runs it in the same
+    process and must make the same protocol decisions (marker lines: lost,
+    skipped and re-init frames) with a mean per-frame box overlap of at
+    least ``MP_MIN_IOU``; bf16 on the card runs it, and its EAO/A/R/lost
+    deltas to float32 (the bf16 deployment delta) and both runs' reset
+    frames are printed; then the mask-polygon protocol and VOS fusion in
+    float32 and bf16 on the card, EAO/A/lost and J/F printed with their
+    deltas, not held; xcorr launches 2 a tracked frame in box mode and 3
+    with the mask, packed in bf16; the phase's wall time.
 
 Before the card's line, ``[time]`` gives the seconds the script held the
 card. The last line is ``{"ok": true, "device": {...}}``; the line before it lists
@@ -329,6 +352,7 @@ from siammask_tpu_torch.tracker.tracker import BoxStepOutput, StepOutput, Tracke
 from siammask_tpu_torch.tracker.vos import track_vos, track_vos_batched
 from siammask_tpu_torch.tracker.vot import SKIP, track_vot
 from siammask_tpu_torch.tools import overfit, trace_report
+from siammask_tpu_torch.tools.overfit import write_overfit_clip
 from siammask_tpu_torch.tools import train as train_cli
 from siammask_tpu_torch.train.checkpoint import merge_state_dict, read_state_dict, save_checkpoint
 from siammask_tpu_torch.train.lr import build_lr_spaces
@@ -440,6 +464,23 @@ OVERFIT_BATCH = 8
 OVERFIT_STEP = re.compile(r"^(\S+ \S+) INFO epoch (\d+) step (\d+) ")
 OVERFIT_GROUP = re.compile(r" lr/(\w+)=([0-9.eE+-]+)")
 OVERFIT_WALL = re.compile(r"^(.+): ([0-9.]+) s wall$")
+# the overfit recipe's LR schedule and epochs a stage (tools/overfit.py's
+# stage configs and --epochs1 / --epochs2), which [overfit] holds the rates
+# its train CLI logs to; the log prints a rate with 6 decimals
+OVERFIT_SCHEDULES = {
+    "stage 1": ({"type": "log", "start_lr": 0.005, "end_lr": 0.001}, 16),
+    "stage 2": ({"type": "log", "start_lr": 0.003, "end_lr": 0.001,
+                 "warmup": {"start_lr": 0.001, "end_lr": 0.003, "type": "step", "step": 1,
+                            "epoch": 2}}, 24),
+}
+OVERFIT_LR_ATOL = 6e-7
+# [metric-parity]: the harness's work tree; the clip frames its benchmark
+# uses (two videos of 3 * MP_FRAMES - 3 frames: 105, the fewest over the
+# EAO interval's 100 that the CPU's half, the phase's cost, allows); the
+# least mean overlap of the card's and the CPU's float32 boxes
+MP_ROOT = REPO / "build" / "metric_parity_smoke"
+MP_FRAMES = 36
+MP_MIN_IOU = 0.99
 
 
 def synthetic_frames(n: int, hw=FRAME_HW, seed: int = SEED) -> np.ndarray:
@@ -1891,6 +1932,169 @@ def phase_eval(tune_scores: dict, lost_by_tracker: dict) -> None:
           + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()))
     for root in (TUNE_ROOT, VOT_ROOT, VOS_ROOT):
         shutil.rmtree(root, ignore_errors=True)
+
+
+def tracked_frames(tree: Path, name: str) -> int:
+    """The frames a VOT tree's driver tracked: every line but the (re-)init
+    and skipped markers."""
+    files = (tree / "VOT2018" / name / "baseline").glob("*/*_001.txt")
+    return sum(line not in ("0", "1") for f in files for line in f.read_text().splitlines())
+
+
+def temper_launches(model, iters: int) -> tuple[int, int]:
+    """The forward xcorr launches that ``metric_parity.temper(model, frame,
+    iters)`` makes, worked out from the order in which one forward of
+    ``temper``'s (template, track_mask, track_refine at one cell) runs the
+    convs: the measuring forward of a conv stops at the conv's first output,
+    so it makes the launches before that point, or a whole forward's if the
+    conv never runs; ``iters`` sweeps, then two whole forwards (the centring
+    and the check). Returns (that count, the launches of the forward run
+    here to find it)."""
+    convs = [m for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    first: dict = {}
+
+    def hook(m, inp, out):
+        first.setdefault(m, depthwise_xcorr.launches)
+
+    hooks = [c.register_forward_hook(hook) for c in convs]
+    device = next(model.parameters()).device
+    start = depthwise_xcorr.launches
+    try:
+        with torch.no_grad():
+            out = model.track_mask(model.template(torch.zeros(1, 3, 127, 127, device=device)),
+                                   torch.zeros(1, 3, 255, 255, device=device))
+            model.track_refine(out.skips, out.corr, torch.tensor([[12, 12]], device=device))
+    finally:
+        for h in hooks:
+            h.remove()
+    whole = depthwise_xcorr.launches - start
+    sweep = sum(first.get(c, start + whole) - start for c in convs)
+    return iters * sweep + 2 * whole, whole
+
+
+def phase_metric_parity(smi: str) -> tuple[int, int]:
+    """``[metric-parity]``: ``siammask_tpu_torch.tools.metric_parity`` (its
+    ``run`` on its own arguments) on SiamMask-sharp at width 64, seeded
+    weights tempered on the card. The card in float32 makes the benchmark
+    (two videos of 3 * MP_FRAMES - 3 frames, gt displaced over two windows
+    each, and a VOS video of MP_FRAMES) and runs the VOT protocol in box
+    mode; the CPU runs it in the same process on that benchmark and must
+    make the same protocol decisions (marker lines, so lost and reset
+    frames) with a mean per-frame box overlap of at least MP_MIN_IOU; bf16
+    on the card runs it too, and its deltas to float32 are printed; then
+    mask-polygon mode and VOS fusion in float32 and in bf16 on the card,
+    printed, not held (tempered random masks are razor-edge for
+    minAreaRect). Each card run's xcorr launches must be 2 a tracked frame
+    in box mode and 3 with the mask (the benchmark's run: those of its
+    no-reset passes too, and the tempering's, which must be what
+    ``temper_launches`` works out), all fp32 kernels in float32 and all
+    packed in bf16. Returns the forward launches of the float32 and of the
+    bf16 runs."""
+    from siammask_tpu_torch.tools import metric_parity as mp
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(MP_ROOT, ignore_errors=True)
+    bench, trees = MP_ROOT / "benchmark", MP_ROOT / "results"
+    video_len, launches, runs = 3 * MP_FRAMES - 3, {False: 0, True: 0}, {}
+    tempering: dict = {}
+    real_temper = mp.temper
+
+    def pinned_temper(model, frame, iters=2):
+        expected, extra = temper_launches(model, iters)
+        before = depthwise_xcorr.launches
+        real_temper(model, frame, iters)
+        made = depthwise_xcorr.launches - before
+        if made != expected:
+            raise AssertionError(f"[metric-parity] the tempering made {made} xcorr launches, "
+                                 f"its forwards {expected}")
+        tempering["launches"], tempering["extra"] = made, extra
+        return model
+
+    def run(tag: str, argv: list[str], card: bool = True, bf16: bool = False) -> dict:
+        if card:
+            sync_all()
+            reset_launches()
+        t0 = time.perf_counter()
+        out = mp.run(mp.parse_args(["--work-dir", str(MP_ROOT), "--frames", str(MP_FRAMES),
+                                    "--tracker-name", tag, *argv]),
+                     log=lambda msg: print(f"[metric-parity] {tag}: {msg}"))
+        out["wall"] = time.perf_counter() - t0
+        if card:
+            sync_all()
+            check_route(f"metric-parity {tag}", bf16)
+            got = read_launches()
+            box = "--box-only" in argv
+            want = (2 if box else 3) * tracked_frames(trees, tag)
+            if not box:
+                want += 3 * (MP_FRAMES - 1)                       # VOS
+            if "--make-benchmark" in argv:
+                # the no-reset runs, the tempering's forwards and the one
+                # forward that counted them
+                want += (3 * (2 * (video_len - 1) + MP_FRAMES - 1) + tempering["launches"]
+                         + tempering["extra"])
+                print(f"[metric-parity] {tag}: {tempering['launches']} xcorr launches in the "
+                      f"tempering, as its forwards make")
+            if got != [want, 0, 0]:
+                raise AssertionError(f"[metric-parity] {tag}: xcorr launches {got}, expected "
+                                     f"{[want, 0, 0]}")
+            launches[bf16] += read_launches()[0]
+        runs[tag] = out
+        return out
+
+    def scores(out: dict, keys=("eao", "accuracy", "robustness", "lost")) -> str:
+        s = out["scores"]
+        return ", ".join(f"{k} {s[k]:.4f}" for k in keys if k in s)
+
+    def resets(out: dict) -> str:
+        return "; ".join(f"{v} lost {d['lost_frames']} init {d['init_frames']}"
+                         for v, d in out["scores"]["videos"].items())
+
+    mp.temper = pinned_temper
+    try:
+        fp32 = run("card_fp32_box", ["--make-benchmark", "--box-only"])
+    finally:
+        mp.temper = real_temper
+    cpu = run("cpu_fp32_box", ["--benchmark", str(bench), "--box-only", "--device", "cpu",
+                               "--compare", str(trees / "VOT2018" / "card_fp32_box")], card=False)
+    cmp = cpu["compare"]
+    settings = json.loads((bench / "benchmark.json").read_text())
+    print(f"[metric-parity] benchmark: 2 videos of {video_len} frames from a {MP_FRAMES}-frame "
+          f"480x854 clip, gt displaced over 5 frames from {settings['fail_windows']}, VOS "
+          f"{MP_FRAMES} frames; made on the card in float32 in {fp32['seconds']['benchmark']:.1f} "
+          "s (tempering included)")
+    print(f"[metric-parity] box, card float32 against the CPU's: same decisions "
+          f"{cmp['same_decisions']}, box overlap mean {cmp['iou_mean']:.6f} min "
+          f"{cmp['iou_min']:.6f} over {cmp['frames_compared']} frames; card {scores(fp32)}; CPU "
+          f"{scores(cpu)}; {resets(fp32)}; wall card {fp32['seconds']['protocol']:.1f} s, CPU "
+          f"{cpu['seconds']['protocol']:.1f} s ({2 * (video_len - 1)} frames) | {smi}")
+    if (not cmp["same_decisions"] or cmp["iou_mean"] < MP_MIN_IOU
+            or cpu["scores"]["videos"] != fp32["scores"]["videos"]
+            or cpu["scores"]["lost"] != fp32["scores"]["lost"]):
+        raise AssertionError(f"[metric-parity] the CPU's protocol decisions or boxes differ "
+                             f"from the card's: {cmp}; {resets(cpu)}")
+    bf16 = run("card_bf16_box", ["--benchmark", str(bench), "--box-only", "--dtype", "bfloat16",
+                                 "--compare", str(trees / "VOT2018" / "card_fp32_box")], bf16=True)
+    print(f"[metric-parity] box, card bf16 against card float32 (the bf16 deployment delta): "
+          f"{scores(bf16)}; deltas "
+          + ", ".join(f"{k} {v:.4f}" for k, v in bf16["compare"]["deltas"].items())
+          + f"; same decisions {bf16['compare']['same_decisions']}, box overlap mean "
+          f"{bf16['compare']['iou_mean']:.4f}; bf16 {resets(bf16)}; float32 {resets(fp32)} | {smi}")
+    mask = run("card_fp32_mask", ["--benchmark", str(bench)])
+    bf16_mask = run("card_bf16_mask", ["--benchmark", str(bench), "--dtype", "bfloat16",
+                                       "--compare", str(trees / "VOT2018" / "card_fp32_mask")],
+                    bf16=True)
+    keys = ("eao", "accuracy", "lost", "J", "F")
+    print(f"[metric-parity] mask-polygon and VOS, card float32: {scores(mask, keys)}; bf16: "
+          f"{scores(bf16_mask, keys)}; deltas "
+          + ", ".join(f"{k} {v:.4f}" for k, v in bf16_mask["compare"]["deltas"].items())
+          + f"; float32 {resets(mask)}; bf16 {resets(bf16_mask)} (recorded, not held) | {smi}")
+    print("[metric-parity] wall s: " + ", ".join(f"{k} {v['wall']:.1f}" for k, v in runs.items())
+          + f"; the phase {time.perf_counter() - t_phase:.1f} s; xcorr launches float32 "
+          f"{launches[False]}, bf16 {launches[True]} (packed) | {smi}")
+    MEASURED["metric-parity"] = {k: v["scores"] for k, v in runs.items()}
+    shutil.rmtree(MP_ROOT)
+    return launches[False], launches[True]
 
 
 FROZEN_ALWAYS = ("features.features.conv1.", "features.features.bn1.",
@@ -3478,36 +3682,6 @@ def phase_sharded(p, smi: str) -> int:
     return launches
 
 
-def write_overfit_clip(root: Path, hw: tuple[int, int] = FRAME_HW, seed: int = SEED) -> None:
-    """The overfit tool's clip under ``root``: ``overfit.N_FRAMES`` uint8
-    JPEG frames ``{f:05d}.jpg`` of ``hw``. A seeded static background of
-    blue-green blobs with fine grain; a target, a textured warm-coloured
-    ellipse (one seeded texture, scaled to the box) filling
-    ``overfit.interpolate_boxes()[f]``; seeded pixel noise a frame."""
-    import cv2
-
-    rng = np.random.RandomState(seed)
-    h, w = hw
-    blobs = rng.randint(30, 180, (h // 24 + 2, w // 24 + 2, 3)).astype(np.float32)
-    blobs[..., 2] *= 0.5                                  # BGR: little red
-    background = cv2.resize(blobs, (w, h), interpolation=cv2.INTER_CUBIC)
-    background += rng.normal(0.0, 12.0, (h, w, 3))
-    texture = np.stack([rng.uniform(0, 90, (16, 16)), rng.uniform(60, 200, (16, 16)),
-                        rng.uniform(170, 255, (16, 16))], axis=-1).astype(np.float32)
-    root.mkdir(parents=True, exist_ok=True)
-    for f, (x0, y0, x1, y1) in enumerate(overfit.interpolate_boxes()):
-        im = background.copy()
-        bw, bh = int(round(x1 - x0)), int(round(y1 - y0))
-        ix, iy = int(round(x0)), int(round(y0))
-        inside = np.zeros((bh, bw), np.uint8)
-        cv2.ellipse(inside, (bw // 2, bh // 2), (bw // 2, bh // 2), 0, 0, 360, 1, -1)
-        patch = cv2.resize(texture, (bw, bh), interpolation=cv2.INTER_LINEAR)
-        region = im[iy:iy + bh, ix:ix + bw]
-        region[inside == 1] = patch[inside == 1]
-        im += np.random.RandomState(seed + 1 + f).normal(0.0, 6.0, (h, w, 3))
-        cv2.imwrite(str(root / f"{f:05d}.jpg"), np.clip(im, 0, 255).astype(np.uint8))
-
-
 @contextlib.contextmanager
 def stderr_to(path: Path):
     """While open, this process's file descriptor 2 (and so the stderr of
@@ -3532,15 +3706,17 @@ def train_log_runs(path: Path) -> list[dict]:
     the start): over the run (``s_it``), and over the first and the second
     half of its epochs (``s_it_halves``; the train CLI unfreezes at half);
     and the optimizer groups each half logs with an LR over 0
-    (``lr_groups_halves``)."""
+    (``lr_groups_halves``); and each step line's epoch with its rates by
+    group (``rates``)."""
     runs = []
     for line in path.read_text().splitlines():
         if " INFO torch " in line:
             runs.append([])
         elif m := OVERFIT_STEP.match(line):
             t = datetime.datetime.strptime(m.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp()
-            groups = {g for g, lr in OVERFIT_GROUP.findall(line) if float(lr) > 0}
-            runs[-1].append((t, int(m.group(2)), int(m.group(3)), groups))
+            rates = {g: float(lr) for g, lr in OVERFIT_GROUP.findall(line)}
+            runs[-1].append((t, int(m.group(2)), int(m.group(3)),
+                             {g for g, lr in rates.items() if lr > 0}, rates))
 
     def s_it(points: list) -> float:
         return (points[-1][0] - points[0][0]) / (points[-1][2] - points[0][2])
@@ -3552,9 +3728,27 @@ def train_log_runs(path: Path) -> list[dict]:
         second = first[-1:] + [p for p in points if p[1] >= half]
         out.append({"steps": points[-1][2], "s_it": s_it(points),
                     "s_it_halves": [s_it(first), s_it(second)],
+                    "rates": [(p[1], p[4]) for p in points],
                     "lr_groups_halves": [sorted(set().union(*(p[3] for p in half_points)))
                                          for half_points in (first, second[1:])]})
     return out
+
+
+def schedule_mismatches(run: dict, lr_cfg: dict, epochs: int) -> list[str]:
+    """A train run's logged rates against the schedule: each step line's
+    ``lr/<group>`` must be ``build_lr_spaces(lr_cfg, epochs)`` at the line's
+    epoch times the group's multiplier (``OptimizerConfig.from_lr_cfg``),
+    within the log's rounding, and the run must log its last epoch. Returns
+    what differs, at most 5 lines of it."""
+    spaces = build_lr_spaces(lr_cfg, epochs)
+    mults = OptimizerConfig.from_lr_cfg(lr_cfg).lr_mults()
+    bad = [f"epoch {e} lr/{g}={lr} against {want:.6f}"
+           for e, rates in run["rates"] for g, lr in rates.items()
+           if not abs(lr - (want := spaces[min(e, epochs - 1)] * mults[g])) <= OVERFIT_LR_ATOL]
+    last = run["rates"][-1][0] if run["rates"] else None
+    if last != epochs - 1:
+        bad.insert(0, f"last logged epoch {last}, the schedule's {epochs - 1}")
+    return bad[:5]
 
 
 def phase_overfit(smi: str) -> list[int]:
@@ -3568,7 +3762,8 @@ def phase_overfit(smi: str) -> list[int]:
     total loss under init's / 10, held-out mean IoU over init's + 0.2 and
     over 0.5, no more lost frames than init's; and stage 1's log must show
     the backbone's optimizer group (``lr/resnet``) in the second half of its
-    epochs and not in the first. Returns the xcorr launches of the tool's own process (the scoring: the lr-0 train
+    epochs and not in the first; each stage's logged rates must follow its
+    schedule in ``OVERFIT_SCHEDULES`` (``schedule_mismatches``). Returns the xcorr launches of the tool's own process (the scoring: the lr-0 train
     step and the tracking), all fp32 kernels."""
     shutil.rmtree(OVERFIT_ROOT, ignore_errors=True)
     clip, work = OVERFIT_ROOT / "clip", OVERFIT_ROOT / "work"
@@ -3615,6 +3810,11 @@ def phase_overfit(smi: str) -> list[int]:
              "lost no more than init's": held["trained"]["lost"] <= held["init"]["lost"],
              "stage 1 trains the backbone from the unfreeze on, not before":
                  [("resnet" in g) for g in runs[0]["lr_groups_halves"]] == [False, True]}
+    for label, run in zip(OVERFIT_SCHEDULES, runs):
+        bad = schedule_mismatches(run, *OVERFIT_SCHEDULES[label])
+        gates[f"{label}'s logged rates follow its schedule: {bad}"] = not bad
+        print(f"[overfit] {label}: {sum(len(r) for _, r in run['rates'])} logged rates held "
+              f"to build_lr_spaces x the group's multiplier, {len(bad)} off")
     failed = [k for k, ok in gates.items() if not ok]
     if failed or len(runs) != 2 or 0 in launches:
         raise AssertionError(f"[overfit] failed: {failed}; {len(runs)} train runs; "
@@ -3781,6 +3981,8 @@ def main() -> None:
     tune_launches, tune_scores = phase_tune(smi)
     phase_eval(tune_scores, lost_by_tracker)
     torch.cuda.empty_cache()
+    mp_launches, bf16_mp_launches = phase_metric_parity(smi)
+    torch.cuda.empty_cache()
 
     cfg = Config.load(str(TRAIN_CONFIG), clip=10.0)
     batch = synthetic_train_batch(cfg, TRAIN_BATCH, "cuda")
@@ -3845,12 +4047,14 @@ def main() -> None:
              "streams16": [streams_launches, 0, 0], "vos": [vos_launches, 0, 0],
              "rpn": [rpn_launches, 0, 0], "base": [base_launches, 0, 0],
              "vot": [vot_launches, 0, 0], "tune": [tune_launches, 0, 0],
+             "metric_parity": [mp_launches, 0, 0],
              "train": train_launches,
              "train_refine": train_refine_launches, "train_rpn": train_rpn_launches,
              "dp": dp_launches, "overfit": overfit_launches,
              "sharded": [sharded_launches, 0, 0],
              **bf16_paths, "bf16_vos": [bf16_vos_launches, 0, 0],
-             "bf16_vot": [bf16_vot_launches, 0, 0], "bf16_train": bf16_train_launches,
+             "bf16_vot": [bf16_vot_launches, 0, 0],
+             "bf16_metric_parity": [bf16_mp_launches, 0, 0], "bf16_train": bf16_train_launches,
              "bf16_train_refine": bf16_refine_launches, "bf16_train_rpn": bf16_rpn_launches,
              "bf16_dp": bf16_dp_launches, **bench_paths}
     # by kernel: check_route held every bf16 path's launches to the packed

@@ -52,6 +52,7 @@ import sys
 import time
 from os import makedirs
 from os.path import dirname, isdir, join, realpath
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -71,6 +72,7 @@ PACKAGE_ROOT = dirname(dirname(dirname(realpath(__file__))))
 # the reference checkout's demo clip (its tools/demo.py reads ../data/tennis)
 TENNIS_DIR = "data/tennis"
 N_FRAMES = 70
+CLIP_HW = (480, 854)     # the tennis clip's frame size (h, w)
 HELD_OUT_START = 56      # frames 56..69 are never trained on
 
 # Hand-annotated (x0, y0, x1, y1) boxes of the tennis clip's player (racket
@@ -107,6 +109,36 @@ def interpolate_boxes() -> np.ndarray:
     for c in range(4):
         out[:, c] = np.interp(np.arange(N_FRAMES), keys, kb[:, c])
     return out
+
+
+def write_overfit_clip(root: Path, hw: tuple[int, int] = CLIP_HW, seed: int = 0) -> None:
+    """The overfit tool's clip under ``root``: ``N_FRAMES`` uint8
+    JPEG frames ``{f:05d}.jpg`` of ``hw``. A seeded static background of
+    blue-green blobs with fine grain; a target, a textured warm-coloured
+    ellipse (one seeded texture, scaled to the box) filling
+    ``interpolate_boxes()[f]``; seeded pixel noise a frame."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    blobs = rng.randint(30, 180, (h // 24 + 2, w // 24 + 2, 3)).astype(np.float32)
+    blobs[..., 2] *= 0.5                                  # BGR: little red
+    background = cv2.resize(blobs, (w, h), interpolation=cv2.INTER_CUBIC)
+    background += rng.normal(0.0, 12.0, (h, w, 3))
+    texture = np.stack([rng.uniform(0, 90, (16, 16)), rng.uniform(60, 200, (16, 16)),
+                        rng.uniform(170, 255, (16, 16))], axis=-1).astype(np.float32)
+    root.mkdir(parents=True, exist_ok=True)
+    for f, (x0, y0, x1, y1) in enumerate(interpolate_boxes()):
+        im = background.copy()
+        bw, bh = int(round(x1 - x0)), int(round(y1 - y0))
+        ix, iy = int(round(x0)), int(round(y0))
+        inside = np.zeros((bh, bw), np.uint8)
+        cv2.ellipse(inside, (bw // 2, bh // 2), (bw // 2, bh // 2), 0, 0, 360, 1, -1)
+        patch = cv2.resize(texture, (bw, bh), interpolation=cv2.INTER_LINEAR)
+        region = im[iy:iy + bh, ix:ix + bw]
+        region[inside == 1] = patch[inside == 1]
+        im += np.random.RandomState(seed + 1 + f).normal(0.0, 6.0, (h, w, 3))
+        cv2.imwrite(str(root / f"{f:05d}.jpg"), np.clip(im, 0, 255).astype(np.uint8))
 
 
 def grabcut_mask(im: np.ndarray, box) -> np.ndarray:

@@ -64,8 +64,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                         choices=["float32", "bfloat16"],
                         help="model compute dtype (params stay fp32). float32 "
                              "is the metrics default; bfloat16 trades a "
-                             "measured metric delta (PARITY_METRICS.md) for "
-                             "the bench's headline throughput")
+                             "metric delta for the bench's headline "
+                             "throughput: one observation of the port's, on "
+                             "tempered random weights on an H100 by "
+                             "chip_smoke.py [metric-parity], is in PERF.md §6 "
+                             "and README.md")
     return parser.parse_args(argv)
 
 

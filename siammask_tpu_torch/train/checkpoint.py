@@ -8,6 +8,13 @@ tensor is saved on the CPU, and the file holds only tensors, dicts, lists,
 numbers, strings and None, so ``torch.load(..., weights_only=True)`` reads
 it.
 
+The state_dict holds no bf16 tensor: a loader that calls ``.numpy()`` on
+every entry (the JAX package's ``load_torch_checkpoint``) could not read
+one, since numpy has no bf16. A bf16 entry (the deconv of a bf16 SiamMask-
+sharp built from scratch) is saved as float32, which is exact, and its name
+goes into a top-level ``dtypes`` entry; ``load_checkpoint`` and
+``read_state_dict`` cast it back, so a bf16 model resumes in bf16.
+
 - ``save_checkpoint`` writes a temp file beside the target, fsyncs it and
   renames it into place: a crash mid-write never leaves half a checkpoint
   at the published path.
@@ -37,13 +44,31 @@ def _to_cpu(obj):
     return obj
 
 
+def _widen_bf16(state: dict) -> tuple[dict, dict]:
+    """The state_dict with each bf16 tensor as float32, and those names."""
+    dtypes = {k: "bfloat16" for k, v in state.items()
+              if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16}
+    return {k: v.float() if k in dtypes else v for k, v in state.items()}, dtypes
+
+
+def _narrow(state: dict, dtypes: Mapping[str, str] | None) -> dict:
+    """The saved state_dict with the names in ``dtypes`` cast back."""
+    dtypes = dtypes or {}
+    return {k: v.to(getattr(torch, dtypes[k])) if k in dtypes else v for k, v in state.items()}
+
+
 def save_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor],
                     optimizer: dict | None = None, epoch: int = 0, arch: str = "Custom",
                     anchor_cfg: dict | None = None) -> None:
     """Write ``{epoch, arch, state_dict, optimizer, anchor_cfg}`` to ``path``
-    atomically; ``optimizer`` is an optimizer's ``state_dict()`` or None."""
-    data = {"epoch": int(epoch), "arch": arch, "state_dict": _to_cpu(dict(state_dict)),
+    atomically; ``optimizer`` is an optimizer's ``state_dict()`` or None.
+    bf16 entries of the state_dict are written as float32 and named in
+    ``dtypes`` (the module docstring)."""
+    state, dtypes = _widen_bf16(_to_cpu(dict(state_dict)))
+    data = {"epoch": int(epoch), "arch": arch, "state_dict": state,
             "optimizer": _to_cpu(optimizer), "anchor_cfg": dict(anchor_cfg or {})}
+    if dtypes:
+        data["dtypes"] = dtypes
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
@@ -58,18 +83,21 @@ def save_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor],
 
 
 def load_checkpoint(path: str) -> dict:
-    """``{epoch, arch, state_dict, optimizer, anchor_cfg}``, on the CPU."""
+    """``{epoch, arch, state_dict, optimizer, anchor_cfg}``, on the CPU, the
+    state_dict in the dtypes it was saved from."""
     ck = torch.load(path, map_location="cpu", weights_only=True)
     return {"epoch": int(ck["epoch"]), "arch": ck.get("arch", "Custom"),
-            "state_dict": ck["state_dict"], "optimizer": ck.get("optimizer"),
+            "state_dict": _narrow(ck["state_dict"], ck.get("dtypes")),
+            "optimizer": ck.get("optimizer"),
             "anchor_cfg": ck.get("anchor_cfg") or {}}
 
 
 def read_state_dict(path: str) -> dict[str, torch.Tensor]:
     """The state_dict of a full checkpoint or of a bare state_dict file,
-    without the ``module.`` prefix of a DataParallel save."""
+    without the ``module.`` prefix of a DataParallel save, in the dtypes it
+    was saved from."""
     ck = torch.load(path, map_location="cpu", weights_only=True)
-    state = ck.get("state_dict", ck)
+    state = _narrow(ck["state_dict"], ck.get("dtypes")) if "state_dict" in ck else ck
     return {k.removeprefix("module."): v for k, v in state.items()}
 
 

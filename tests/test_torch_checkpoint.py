@@ -3,7 +3,8 @@
 - ``save_checkpoint``/``load_checkpoint``: a round trip, a crash mid-write
   that leaves the old file as it was, and ``torch.load(weights_only=True)``;
 - a port checkpoint read by the JAX package's ``load_torch_checkpoint``
-  gives the variables the weights came from;
+  gives the variables the weights came from, also for a bf16 SiamMask-sharp,
+  whose deconv is bf16; a bf16 resume keeps that deconv bf16;
 - ``merge_state_dict`` of SiamMask-base into sharp (and back) reports the
   names the JAX package's ``merge_variables`` reports;
 - ``Trainer.restore``: the step after a resume is bit-identical, weights,
@@ -105,19 +106,70 @@ def test_save_is_atomic(tmp_path, monkeypatch):
     assert [p.name for p in tmp_path.iterdir()] == ["ck.pth"]
 
 
+def _flat(tree) -> dict:
+    return {"/".join(p.key for p in path): np.asarray(v) for path, v in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _bf16_sharp():
+    """A bf16 SiamMask-sharp of the port holding the JAX bf16 model's
+    ``init`` variables, deconv kernel and bias in bf16 as JAX creates them;
+    and those variables."""
+    variables = jax.jit(JaxSiamMaskSharp(width=WIDTH, dtype=jnp.bfloat16).init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, 127, 127, 3)), jnp.zeros((1, 255, 255, 3)))
+    wide = jax.tree.map(lambda v: np.asarray(v, np.float32), variables)
+    state = state_dict_from_jax(wide)
+    model = SiamMaskSharp(width=WIDTH, dtype=torch.bfloat16)
+    for k, v in model.state_dict().items():
+        if v.dtype == torch.bfloat16:
+            state[k] = state[k].to(torch.bfloat16)
+    model.load_state_dict(state, strict=True)
+    return model, variables
+
+
 def test_jax_loader_reads_a_port_checkpoint(tmp_path):
+    """float32, and a bf16 sharp whose deconv is bf16: the JAX package's
+    loader reads the checkpoint into the JAX model's variables (the bf16
+    ones widened to float32, which is exact)."""
     variables = jax_variables(JaxSiamMaskSharp(width=WIDTH))
     model = SiamMaskSharp(width=WIDTH)
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
-    path = str(tmp_path / "sharp.pth")
+    bf16_model, bf16_variables = _bf16_sharp()
+    deconv = bf16_model.refine_model.deconv
+    assert deconv.weight.dtype == deconv.bias.dtype == torch.bfloat16
+    for name, m, v in (("sharp", model, variables), ("bf16_sharp", bf16_model, bf16_variables)):
+        path = str(tmp_path / f"{name}.pth")
+        save_checkpoint(path, m.state_dict(), epoch=1)
+        ours, ref = _flat(load_torch_checkpoint(path)), _flat(v)
+        assert ours.keys() == ref.keys()
+        for k in ref:
+            assert ours[k].dtype == np.float32, k
+            np.testing.assert_array_equal(ours[k], ref[k].astype(np.float32), err_msg=k)
+
+
+def test_bf16_resume_keeps_the_deconv_bf16(tmp_path):
+    """A bf16 sharp's checkpoint holds no bf16 tensor and names its bf16
+    entries; ``load_checkpoint`` and ``read_state_dict`` give them back in
+    bf16, bit for bit, and ``Trainer.restore`` into a bf16 model keeps its
+    deconv bf16."""
+    model, _ = _bf16_sharp()
+    path = str(tmp_path / "bf16.pth")
     save_checkpoint(path, model.state_dict(), epoch=1)
-    loaded = load_torch_checkpoint(path)
-    flat = lambda tree: {"/".join(p.key for p in path): np.asarray(v) for path, v in
-                         jax.tree_util.tree_flatten_with_path(tree)[0]}
-    ours, ref = flat(loaded), flat(variables)
-    assert ours.keys() == ref.keys()
-    for k in ref:
-        np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    assert all(v.dtype != torch.bfloat16 for v in raw["state_dict"].values())
+    assert raw["dtypes"] == {"refine_model.deconv.weight": "bfloat16",
+                             "refine_model.deconv.bias": "bfloat16"}
+    for state in (load_checkpoint(path)["state_dict"], read_state_dict(path)):
+        for k, v in model.state_dict().items():
+            assert state[k].dtype == v.dtype and torch.equal(state[k], v), k
+    *_, tset, topt, tlr = settings_pair()
+    fresh = SiamMaskSharp(width=WIDTH, dtype=torch.bfloat16).init_weights(
+        torch.Generator().manual_seed(1))
+    trainer = Trainer(fresh, tset, topt, tlr, epochs=2)
+    assert trainer.restore(path) == 1
+    deconv = trainer.model.refine_model.deconv
+    assert deconv.weight.dtype == deconv.bias.dtype == torch.bfloat16
+    assert torch.equal(deconv.weight, model.refine_model.deconv.weight)
 
 
 def _jax_init(cls):

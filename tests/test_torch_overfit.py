@@ -1,7 +1,7 @@
 """The port's overfit tool (``siammask_tpu_torch/tools/overfit.py``) against
 the JAX package's ``tools/overfit.py``, loaded from its file as
 ``test_overfit_slow.py`` loads it, on the synthetic clip of
-``chip_smoke.write_overfit_clip`` at 480x480 (the smallest square the
+``overfit.write_overfit_clip`` at 480x480 (the smallest square the
 keyframe boxes fit in):
 
 - the pseudo-gt: ``interpolate_boxes`` and ``grabcut_mask`` equal (cv2's
@@ -31,13 +31,22 @@ keyframe boxes fit in):
   (mask loss ~4.1; the JAX init's is ~42) to ~2.8; the flows run at batch
   2, 8 steps an epoch;
 - ``chip_smoke.train_log_runs``, which ``[overfit]`` reads its rates and
-  its backbone gate from, on a written log.
+  its backbone gate from, on a written log;
+- ``[overfit]``'s schedule gate: its pinned schedules are the JAX tool's
+  stage configs and default epochs (and the port tool's); on the train
+  CLI's log of two stage-2 epochs at width 8 (``sharp_refine``, 16 pairs,
+  batch 2) it passes the recipe's config and fails a copy whose warmup is
+  10x.
 """
 import datetime
 import importlib.util
 import json
 import math
+import os
+import re
 import shutil
+import subprocess
+import sys
 from pathlib import Path
 
 import cv2
@@ -57,7 +66,7 @@ from siammask_tpu_torch.tools import overfit
 from siammask_tpu_torch.train.lr import build_lr_spaces
 from siammask_tpu_torch.utils.convert import state_dict_from_jax
 
-from chip_smoke import damp_box_head, train_log_runs, write_overfit_clip
+from chip_smoke import OVERFIT_SCHEDULES, damp_box_head, schedule_mismatches, train_log_runs
 from test_torch_families import calibrated
 from test_torch_tracker import one_torch_thread  # noqa: F401  (autouse)
 
@@ -97,7 +106,7 @@ def jax_tool():
 @pytest.fixture(scope="module")
 def clip(tmp_path_factory) -> str:
     root = tmp_path_factory.mktemp("clip")
-    write_overfit_clip(root, CLIP_HW)
+    overfit.write_overfit_clip(root, CLIP_HW)
     return str(root)
 
 
@@ -284,3 +293,65 @@ def test_train_log_runs_reads_the_log_clock_and_groups(tmp_path):
     np.testing.assert_allclose([second["s_it"], *second["s_it_halves"]], 0.07, atol=1e-3)
     assert first["lr_groups_halves"] == [["neck"], ["neck", "resnet"]]
     assert second["lr_groups_halves"] == [["refine"], ["refine"]]
+
+
+def test_overfit_schedules_are_the_tool_recipes(prepared):
+    """``chip_smoke.OVERFIT_SCHEDULES``: each stage's ``lr`` in the JAX
+    tool's and the port tool's prepared configs, and their default
+    ``--epochs1`` / ``--epochs2``."""
+    jax_work, work = prepared
+    source = (REPO / "tools" / "overfit.py").read_text()
+    args = overfit.parse_args([])
+    for label, config, flag in (("stage 1", "config_stage1.json", "epochs1"),
+                                ("stage 2", "config_stage2.json", "epochs2")):
+        lr_cfg, epochs = OVERFIT_SCHEDULES[label]
+        for w in (jax_work, work):
+            assert json.loads((w / config).read_text())["lr"] == lr_cfg, (w, config)
+        assert re.search(rf'"--{flag}", type=int, default={epochs}\)', source), flag
+        assert getattr(args, flag) == epochs
+
+
+@pytest.fixture(scope="module")
+def stage2_logs(prepared, tmp_path_factory) -> dict:
+    """The train CLI's logs of two ``sharp_refine`` epochs at width 8 on the
+    prepared crops (16 pairs, batch 2, a line a step), under the prepared
+    stage-2 config and under a copy whose warmup rates are 10x; both runs at
+    once, a subprocess each."""
+    root = tmp_path_factory.mktemp("gate")
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    procs = {}
+    for name, scale in (("recipe", 1), ("warmup_10x", 10)):
+        cfg = json.loads((prepared[1] / "config_stage2.json").read_text())
+        td = cfg["train_datasets"]
+        td["num"] = 16
+        for d in td["datasets"].values():
+            d["num_use"] = 16
+        cfg["lr"]["warmup"]["start_lr"] *= scale
+        cfg["lr"]["warmup"]["end_lr"] *= scale
+        (root / f"{name}.json").write_text(json.dumps(cfg))
+        log = root / f"{name}.log"
+        with open(log, "w") as err:
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", "siammask_tpu_torch.tools.train", "--config",
+                 str(root / f"{name}.json"), "--task", "sharp_refine", "--epochs", "2",
+                 "--batch", "2", "--workers", "0", "--log-interval", "1", "--width", str(WIDTH),
+                 "--device", "cpu", "--seed", "0", "--save-dir", str(root / name)],
+                stdout=subprocess.DEVNULL, stderr=err, env=env), log)
+    for name, (proc, log) in procs.items():
+        assert proc.wait(timeout=600) == 0, log.read_text()[-3000:]
+    return {name: train_log_runs(log) for name, (_, log) in procs.items()}
+
+
+@pytest.mark.parametrize("config,caught", [("recipe", False), ("warmup_10x", True)])
+def test_overfit_schedule_gate_catches_a_10x_stage2_warmup(stage2_logs, config, caught):
+    """``schedule_mismatches`` holds each logged ``lr/<group>`` to the
+    recipe's stage-2 schedule over the run's two epochs (its warmup) times
+    the group's multiplier."""
+    (run,) = stage2_logs[config]
+    assert len(run["rates"]) == 16 and [e for e, _ in run["rates"]] == [0] * 8 + [1] * 8
+    assert {g for _, rates in run["rates"] for g in rates} == {"mask", "refine"}
+    bad = schedule_mismatches(run, OVERFIT_SCHEDULES["stage 2"][0], 2)
+    assert bool(bad) == caught, bad
+    if caught:
+        assert bad[0].startswith("epoch 0 lr/")
