@@ -37,6 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from siammask_tpu_torch.utils import trace
+
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that computes in ``dtype`` (flax's ``promote_dtype``):
@@ -82,8 +84,10 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3 (stride, dilation) -> 1x1 bottleneck, BN after each."""
+    """1x1 -> 3x3 (stride, dilation) -> 1x1 bottleneck, BN after each.
+    ``span``: its trace span's name (``ResNet50Tracking`` names each block)."""
     expansion = 4
+    span = "model.backbone.block"
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, dilation: int = 1,
                  downsample: nn.Module | None = None, dtype: torch.dtype | None = None):
@@ -100,11 +104,12 @@ class Bottleneck(nn.Module):
         self.downsample = downsample
 
     def forward(self, x):
-        residual = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        return self.relu(out + residual)
+        with trace.span(self.span):
+            residual = x if self.downsample is None else self.downsample(x)
+            out = self.relu(self.bn1(self.conv1(x)))
+            out = self.relu(self.bn2(self.conv2(out)))
+            out = self.bn3(self.conv3(out))
+            return self.relu(out + residual)
 
 
 def _make_layer(inplanes: int, planes: int, blocks: int, stride: int = 1,
@@ -142,6 +147,11 @@ class ResNet50Tracking(nn.Module):
         self.layer1 = _make_layer(w, w, 3, dtype=dtype)
         self.layer2 = _make_layer(4 * w, 2 * w, 4, stride=2, dtype=dtype)
         self.layer3 = _make_layer(8 * w, 4 * w, 6, dilation=2, dtype=dtype)
+        # a span a block: a stage's span would hold too many host events for
+        # a reader of the trace that looks back a few hundred
+        for stage in ("layer1", "layer2", "layer3"):
+            for i, block in enumerate(getattr(self, stage)):
+                block.span = f"model.backbone.{stage}.{i}"
         self.unfrozen = False
 
     def _frozen_stages(self) -> list[nn.Module]:
@@ -164,7 +174,8 @@ class ResNet50Tracking(nn.Module):
         return self
 
     def forward(self, x):
-        p0 = self.relu(self.bn1(self.conv1(x)))
+        with trace.span("model.backbone.stem"):
+            p0 = self.relu(self.bn1(self.conv1(x)))
         p1 = self.layer1(self.maxpool(p0))
         p2 = self.layer2(p1)
         p3 = self.layer3(p2)

@@ -50,6 +50,7 @@ from siammask_tpu_torch.models.heads import (MaskCorr, Refine, ResDownS, UP,
                                              DeconvExpand, slice_skip_windows,
                                              unfold_skip_windows)
 from siammask_tpu_torch.models.resnet import ResNet50Tracking
+from siammask_tpu_torch.utils import trace
 
 
 class TrackOutputs(NamedTuple):
@@ -69,7 +70,8 @@ class ResDown(nn.Module):
 
     def forward(self, x):
         p0, p1, p2, p3 = self.features(x)
-        return (p0, p1, p2), self.downsample(p3)
+        with trace.span("model.neck"):
+            return (p0, p1, p2), self.downsample(p3)
 
 
 class SiamRPN(nn.Module):
@@ -95,7 +97,8 @@ class SiamRPN(nn.Module):
     def track(self, zf, x):
         """One search pass through the RPN heads: (score, loc)."""
         _, xf = self.features(x)
-        return self.rpn_model(zf, xf)
+        with trace.span("model.rpn"):
+            return self.rpn_model(zf, xf)
 
     def forward_train(self, template, search):
         """Template then search through the backbone, as two calls (each
@@ -145,8 +148,10 @@ class SiamMaskBase(_SiamMask):
         """One search pass: (score, loc, mask), the raw mask head over every
         cell, (B, 63*63, S, S)."""
         _, xf = self.features(x)
-        score, loc = self.rpn_model(zf, xf)
-        return score, loc, self.mask_model(zf, xf)
+        with trace.span("model.rpn"):
+            score, loc = self.rpn_model(zf, xf)
+        with trace.span("model.mask"):
+            return score, loc, self.mask_model(zf, xf)
 
     def forward_train(self, template, search):
         """Template then search through the backbone, as two calls, as
@@ -203,27 +208,31 @@ class SiamMaskSharp(_SiamMask):
         """One search pass: RPN heads, the skip maps and the mask corr feature
         that ``track_refine`` consumes."""
         skips, xf = self.features(x)
-        score, loc = self.rpn_model(zf, xf)
-        corr = self.mask_model.mask.forward_corr(zf, xf)
+        with trace.span("model.rpn"):
+            score, loc = self.rpn_model(zf, xf)
+        with trace.span("model.mask"):
+            corr = self.mask_model.mask.forward_corr(zf, xf)
         return TrackOutputs(score, loc, skips, corr)
 
     def track_refine(self, skips, corr, pos_yx: torch.Tensor):
         """Refined 127x127 mask logits at the (row, col) cell of each sample,
         ``pos_yx`` (B, 2), an integer device tensor: the windows and the corr
         vectors are gathered, not sliced on the host."""
-        w0, w1, w2 = slice_skip_windows(*skips, pos_yx)
-        b, c, _, s = corr.shape
-        cell = pos_yx[:, 0] * s + pos_yx[:, 1]
-        cvec = corr.flatten(2).gather(2, cell[:, None, None].expand(b, c, 1)).reshape(b, c)
-        return self.refine_model(w0, w1, w2, cvec)
+        with trace.span("model.refine"):
+            w0, w1, w2 = slice_skip_windows(*skips, pos_yx)
+            b, c, _, s = corr.shape
+            cell = pos_yx[:, 0] * s + pos_yx[:, 1]
+            cvec = corr.flatten(2).gather(2, cell[:, None, None].expand(b, c, 1)).reshape(b, c)
+            return self.refine_model(w0, w1, w2, cvec)
 
     def refine_all(self, skips, corr):
         """Training path: Refine at every score-map cell -> (B*S*S, 127*127)
         logits, batch-major, cells row-major within a sample."""
-        w0, w1, w2 = unfold_skip_windows(*skips)
-        b, c, h, w = corr.shape
-        cvec = corr.permute(0, 2, 3, 1).reshape(b * h * w, c)
-        return self.refine_model(w0, w1, w2, cvec)
+        with trace.span("model.refine"):
+            w0, w1, w2 = unfold_skip_windows(*skips)
+            b, c, h, w = corr.shape
+            cvec = corr.permute(0, 2, 3, 1).reshape(b * h * w, c)
+            return self.refine_model(w0, w1, w2, cvec)
 
     def forward_train(self, template, search, train_backbone_neck: bool = True,
                       train_rpn: bool = True):
@@ -235,9 +244,10 @@ class SiamMaskSharp(_SiamMask):
         with _frozen(self.features, not train_backbone_neck):
             zf = self.template(template)
             skips, xf = self.features(search)
-        with _frozen(self.rpn_model, not train_rpn):
+        with _frozen(self.rpn_model, not train_rpn), trace.span("model.rpn"):
             score, loc = self.rpn_model(zf, xf)
-        corr = self.mask_model.mask.forward_corr(zf, xf)
+        with trace.span("model.mask"):
+            corr = self.mask_model.mask.forward_corr(zf, xf)
         return score, loc, self.refine_all(skips, corr)
 
 

@@ -34,6 +34,8 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
+from siammask_tpu_torch.utils import trace
+
 
 def _env_int(*names: str) -> int | None:
     for name in names:
@@ -112,9 +114,11 @@ def local_rows(global_batch: int, rank: int, world: int) -> slice:
 
 
 def _all_reduce(t: torch.Tensor) -> torch.Tensor:
-    """In-place sum of ``t`` over the group; counted in ``_all_reduce.calls``."""
+    """In-place sum of ``t`` over the group; counted in ``_all_reduce.calls``,
+    its bytes in the trace counter ``all_reduce_bytes``."""
     dist.all_reduce(t)
     _all_reduce.calls += 1
+    trace.count("all_reduce_bytes", t.nbytes)
     return t
 
 
@@ -144,11 +148,12 @@ def all_reduce_tensors(tensors: list[torch.Tensor], op: str = "sum") -> None:
         raise ValueError(f"op {op!r}: 'sum' or 'mean'")
     if not tensors:
         return
-    flat = _all_reduce(torch.cat([t.reshape(-1) for t in tensors]))
-    if op == "mean":
-        flat.div_(dist.get_world_size())
-    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
-        t.copy_(part.view_as(t))
+    with trace.span("dist.all_reduce_tensors", calls=1):
+        flat = _all_reduce(torch.cat([t.reshape(-1) for t in tensors]))
+        if op == "mean":
+            flat.div_(dist.get_world_size())
+        for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+            t.copy_(part.view_as(t))
 
 
 def _free_port() -> int:

@@ -19,6 +19,14 @@ intervals, with the three longest gaps and the gaps counted by size.
 between kernels, so the idle share of a traced call is an upper bound on
 the untraced call's.
 
+When the trace holds the program's own spans (``utils/trace.py``: any
+``torch.profiler`` session records them, as ``user_annotation`` events named
+``<layer>.<what>``), two more tables: each span's calls, time and self time
+(its time less that of the program spans nested in it), and the device's
+idle by the innermost program span open on the host at each gap's middle,
+with the innermost host op inside that span that held most of it; a gap
+outside every program span is "outside the program" (the caller's code).
+
 Device events are the ``ph: "X"`` events whose ``cat`` is ``kernel``,
 ``gpu_memcpy`` or ``gpu_memset``; their pids are the device lanes (named
 ``GPU N`` by the trace's metadata). Kernel names are CUPTI's, demangled.
@@ -33,7 +41,11 @@ import json
 import os
 import re
 
+from siammask_tpu_torch.utils.trace import is_program_span
+
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_OP_CATS = ("cpu_op", "cuda_runtime", "cuda_driver")
+OUTSIDE = "outside the program"
 
 
 def load_trace_events(path: str) -> list:
@@ -138,9 +150,9 @@ def _self_times(lanes: dict) -> tuple[collections.Counter, collections.Counter]:
 GAP_BINS_US = (2.0, 10.0, 100.0, 1000.0, float("inf"))
 
 
-def _busy(lanes: dict) -> tuple[float, float, list]:
-    """(window us, busy us, every idle gap as (start us after the window's
-    start, us)) over every lane together."""
+def _busy(lanes: dict) -> tuple[float, float, float, list]:
+    """(window start us, window us, busy us, every idle gap as (start us
+    after the window's start, us)) over every lane together."""
     spans = sorted((ts, te) for lane in lanes.values() for ts, te, _ in lane)
     start, end = spans[0][0], max(te for _, te in spans)
     busy, idle = 0.0, []
@@ -153,7 +165,88 @@ def _busy(lanes: dict) -> tuple[float, float, list]:
         else:
             cur_e = max(cur_e, te)
     busy += cur_e - cur_s
-    return end - start, busy, idle
+    return start, end - start, busy, idle
+
+
+def _innermost(intervals: list, points: list) -> list:
+    """For each of ``points`` (us, ascending), ``{lane: the innermost of
+    ``intervals`` ((ts, te, lane, name), nested within a lane) open at it}``.
+    One sweep, with no limit on how far back an open interval started."""
+    intervals = sorted(intervals, key=lambda iv: (iv[0], -iv[1]))
+    stacks = collections.defaultdict(list)
+    out, i = [], 0
+    for t in points:
+        while i < len(intervals) and intervals[i][0] <= t:
+            iv = intervals[i]
+            stack = stacks[iv[2]]
+            while stack and stack[-1][1] < iv[0]:
+                stack.pop()
+            stack.append(iv)
+            i += 1
+        open_ = {}
+        for lane, stack in stacks.items():
+            while stack and stack[-1][1] < t:
+                stack.pop()
+            if stack:
+                open_[lane] = stack[-1]
+        out.append(open_)
+    return out
+
+
+def program_spans(events: list) -> dict:
+    """The program's spans in a trace: ``{name: {"calls", "ms", "self_ms"}}``,
+    largest self time first; self time is a span's time less that of the
+    program spans nested in it on its lane."""
+    lanes = collections.defaultdict(list)
+    for e in events:
+        if e.get("ph") == "X" and "dur" in e and e.get("cat") == "user_annotation" \
+                and is_program_span(e["name"]):
+            ts = float(e["ts"])
+            lanes[(e["pid"], e["tid"])].append((ts, ts + float(e["dur"]), e["name"]))
+    total, calls = collections.Counter(), collections.Counter()
+    for lane in lanes.values():
+        for ts, te, name in lane:
+            total[name] += te - ts
+            calls[name] += 1
+    self_us, _ = _self_times(lanes)
+    return {name: {"calls": calls[name], "ms": total[name] / 1e3, "self_ms": us / 1e3}
+            for name, us in self_us.most_common()}
+
+
+def idle_by_span(events: list, gaps: list) -> dict:
+    """Device idle by the program's innermost span open on the host at each
+    gap's middle: ``{span or OUTSIDE: {"ms", "gaps", "op", "op_ms"}}``,
+    largest first, where ``op`` is the innermost host op inside the span at
+    the gaps that held most of its idle (None if no op was open). ``gaps``:
+    (start us, us) on the trace's clock."""
+    spans, ops = [], []
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        ts = float(e["ts"])
+        iv = (ts, ts + float(e["dur"]), (e["pid"], e["tid"]), e["name"])
+        if e.get("cat") == "user_annotation" and is_program_span(e["name"]):
+            spans.append(iv)
+        elif e.get("cat") in HOST_OP_CATS:
+            ops.append(iv)
+    lanes = {iv[2] for iv in spans}
+    gaps = sorted(gaps)
+    mids = [g0 + d / 2 for g0, d in gaps]
+    ms, n = collections.Counter(), collections.Counter()
+    by_op = collections.defaultdict(collections.Counter)
+    open_ops = _innermost([iv for iv in ops if iv[2] in lanes], mids)
+    for (_, d), open_spans, open_op in zip(gaps, _innermost(spans, mids), open_ops):
+        span = max(open_spans.values(), default=None)        # the latest to start
+        name = span[3] if span else OUTSIDE
+        ms[name] += d / 1e3
+        n[name] += 1
+        op = open_op.get(span[2]) if span else None
+        by_op[name][op[3] if op is not None and op[0] >= span[0] else None] += d / 1e3
+    out = {}
+    for name, v in ms.most_common():
+        op, op_ms = by_op[name].most_common(1)[0]
+        out[name] = {"ms": v, "gaps": n[name], "op": op, "op_ms": op_ms}
+    return out
 
 
 def report(events: list, all_pids: bool = False) -> dict:
@@ -163,7 +256,9 @@ def report(events: list, all_pids: bool = False) -> dict:
     "gaps": [(ms after the window's start, ms)] (the three longest),
     "gap_bins": [(upper edge us, gaps, ms)] over ``GAP_BINS_US``,
     "categories": {category: {"ms", "share", "calls"}}, largest first,
-    "ops": {name: {"ms", "calls", "category", "args"}}, largest first}``.
+    "ops": {name: {"ms", "calls", "category", "args"}}, largest first,
+    "spans": ``program_spans``, "idle_by_span": ``idle_by_span`` (both empty
+    when the trace holds no program span)}``.
     ``all_pids`` takes every complete event of every lane, host ones too;
     otherwise the device events of the device lanes. A trace with no such
     event raises ``ValueError``."""
@@ -185,7 +280,8 @@ def report(events: list, all_pids: bool = False) -> dict:
                          else "no complete events in the trace")
     per_op, per_op_n = _self_times(lanes)
     total = sum(per_op.values())
-    window, busy, gaps = _busy(lanes)
+    start, window, busy, gaps = _busy(lanes)
+    spans = program_spans(events)
     longest = sorted(gaps, key=lambda g: -g[1])[:3]
     bins = [(edge, [d for _, d in gaps if lo <= d < edge])
             for lo, edge in zip((0.0, *GAP_BINS_US), GAP_BINS_US)]
@@ -203,6 +299,8 @@ def report(events: list, all_pids: bool = False) -> dict:
                              "calls": per_cat_n[cat]} for cat, us in per_cat.most_common()},
         "ops": {name: {"ms": us / 1e3, "calls": per_op_n[name], "category": categorize(name),
                        "args": meta.get(name, {})} for name, us in per_op.most_common()},
+        "spans": spans,
+        "idle_by_span": idle_by_span(events, [(start + s, d) for s, d in gaps]) if spans else {},
     }
 
 
@@ -227,6 +325,17 @@ def format_table(table: dict, top: int = 20, long: bool = False) -> str:
         lines.append(f"{label:<72}{row['ms']:>9.3f}{100 * share:>6.1f}%{row['calls']:>8}")
         if long and row["args"]:
             lines.append(f"    {json.dumps(row['args'])[:200]}")
+    if table["spans"]:
+        lines += ["", f"{'program span':<44}{'calls':>8}{'ms':>11}{'self ms':>11}"]
+        for name, row in table["spans"].items():
+            lines.append(f"{name:<44}{row['calls']:>8}{row['ms']:>11.3f}{row['self_ms']:>11.3f}")
+        idle = table["idle_ms"]
+        lines += ["", f"{'device idle by program span':<44}{'ms':>10}{'%':>7}{'gaps':>7}"
+                      "  top host op inside (ms)"]
+        for name, row in table["idle_by_span"].items():
+            share = row["ms"] / idle if idle else 0.0
+            lines.append(f"{name:<44}{row['ms']:>10.3f}{100 * share:>6.1f}%{row['gaps']:>7}"
+                         f"  {row['op'] or '-'} ({row['op_ms']:.3f})")
     return "\n".join(lines)
 
 

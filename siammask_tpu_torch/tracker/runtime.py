@@ -12,7 +12,15 @@ import torch
 
 from siammask_tpu_torch.config import TrackerConfig
 from siammask_tpu_torch.tracker.tracker import Tracker, TrackState
+from siammask_tpu_torch.utils import trace
 from siammask_tpu_torch.utils.bbox import cxy_wh_2_rect
+
+
+def _fetch(t: torch.Tensor) -> np.ndarray:
+    """A device tensor on the host: one wait on the device, counted."""
+    trace.count("host_syncs")
+    trace.count("d2h_bytes", t.nbytes)
+    return t.cpu().numpy()
 
 
 def mask_to_rotated_box(target_mask: np.ndarray, target_pos, target_sz):
@@ -55,21 +63,21 @@ class TrackerRuntime:
         fetches a uint8 binary mask ("mask_bin") instead of the float32 soft
         mask ("mask"). Without the mask the result has neither, and no
         polygon."""
-        self.state, out = self.tracker.step(self.state, im)
-        result = {
-            "target_pos": out.target_pos.cpu().numpy(),
-            "target_sz": out.target_sz.cpu().numpy(),
-            "score": float(out.score),
-        }
-        if not self.tracker.mask:
+        with trace.span("runtime.track", request=self.tracker.frame_index):
+            self.state, out = self.tracker.step(self.state, im)
+            with trace.span("runtime.fetch"):
+                result = {"target_pos": _fetch(out.target_pos), "target_sz": _fetch(out.target_sz),
+                          "score": float(_fetch(out.score))}
+                if not self.tracker.mask:
+                    return result
+                if soft_mask:
+                    mask_in_frame = _fetch(out.mask_in_frame)
+                    target_mask = (mask_in_frame > self.p.seg_thr).astype(np.uint8)
+                    result["mask"] = mask_in_frame
+                else:
+                    target_mask = _fetch((out.mask_in_frame > self.p.seg_thr).to(torch.uint8))
+                    result["mask_bin"] = target_mask
+            with trace.span("runtime.polygon"):
+                result["polygon"] = mask_to_rotated_box(target_mask, result["target_pos"],
+                                                        result["target_sz"])
             return result
-        if soft_mask:
-            mask_in_frame = out.mask_in_frame.cpu().numpy()
-            target_mask = (mask_in_frame > self.p.seg_thr).astype(np.uint8)
-            result["mask"] = mask_in_frame
-        else:
-            target_mask = (out.mask_in_frame > self.p.seg_thr).to(torch.uint8).cpu().numpy()
-            result["mask_bin"] = target_mask
-        result["polygon"] = mask_to_rotated_box(target_mask, result["target_pos"],
-                                                result["target_sz"])
-        return result

@@ -60,6 +60,7 @@ from siammask_tpu_torch.ops import _build
 from siammask_tpu_torch.ops.sample import subwindow_crop, warp_back_mask
 from siammask_tpu_torch.ops.xcorr import depthwise_xcorr
 from siammask_tpu_torch.tracker.anchors import generate_score_map_anchors
+from siammask_tpu_torch.utils import trace
 
 MAX_GRAPHS = 2      # captured step graphs a tracker keeps, most recently used
 
@@ -160,16 +161,18 @@ class StepGraph:
         fresh tensors too, so the caller never holds a static buffer. Per
         frame the host issues a frame copy, the replay and one copy per
         output."""
-        for static, value in zip(self.state, state):
-            static.copy_(value)
-        stacks = [torch.empty((frames.shape[0], *v.shape), dtype=v.dtype, device=v.device)
-                  for v in self.out]
-        for t in range(frames.shape[0]):
-            self.frame.copy_(frames[t])
-            self.graph.replay()
-            for stack, value in zip(stacks, self.out):
-                stack[t].copy_(value)
-        return TrackState(*(t.clone() for t in self.state)), type(self.out)(*stacks)
+        with trace.span("step_graph.run"):
+            for static, value in zip(self.state, state):
+                static.copy_(value)
+            stacks = [torch.empty((frames.shape[0], *v.shape), dtype=v.dtype, device=v.device)
+                      for v in self.out]
+            for t in range(frames.shape[0]):
+                with trace.span("step_graph.replay"):
+                    self.frame.copy_(frames[t])
+                    self.graph.replay()
+                    for stack, value in zip(stacks, self.out):
+                        stack[t].copy_(value)
+            return TrackState(*(t.clone() for t in self.state)), type(self.out)(*stacks)
 
 
 class Tracker:
@@ -208,9 +211,17 @@ class Tracker:
         self._bounds: dict[tuple[int, int], tuple[torch.Tensor, ...]] = {}
         self.graphs: dict[tuple, StepGraph] = {}
         self._side: torch.cuda.Stream | None = None   # every capture's stream
+        # the video frame the next step takes (the init frame is 0): the
+        # request id of the tracker's spans
+        self.frame_index = 0
 
     def _frame(self, frame) -> torch.Tensor:
-        return torch.as_tensor(frame, device=self.device)
+        host = not isinstance(frame, torch.Tensor) or (frame.device.type == "cpu"
+                                                       and self.device.type != "cpu")
+        frame = torch.as_tensor(frame, device=self.device)
+        if host:
+            trace.count("h2d_bytes", frame.nbytes)
+        return frame
 
     def _clamps(self, im_h: int, im_w: int):
         """(0, 0), (10, 10) and (W, H) for the final clamp, per frame size."""
@@ -233,19 +244,22 @@ class Tracker:
     @torch.inference_mode()
     def init_batched(self, frame, target_pos, target_sz) -> TrackState:
         """O objects on one frame: target_pos / target_sz (O, 2). One
-        template pass at batch O; every leaf of the state has the O axis."""
-        p = self.p
-        frame = self._frame(frame)
-        self._clamps(frame.shape[0], frame.shape[1])  # built here, not in a step
-        target_pos = torch.as_tensor(target_pos, dtype=torch.float32, device=self.device)
-        target_sz = torch.as_tensor(target_sz, dtype=torch.float32, device=self.device)
-        o = target_pos.shape[0]
-        avg_chans = frame.mean(dim=(0, 1), dtype=torch.float32).expand(o, -1).contiguous()
-        s_z = torch.round(_context_size(target_sz, p.context_amount))
-        z_crop = subwindow_crop(frame, target_pos, s_z, p.exemplar_size, avg_chans)
-        zf = self.model.template(z_crop.permute(0, 3, 1, 2).contiguous())
-        return TrackState(target_pos, target_sz, zf, avg_chans,
-                          torch.zeros(o, dtype=torch.float32, device=self.device))
+        template pass at batch O; every leaf of the state has the O axis.
+        The video's next frame is then frame 1."""
+        with trace.span("tracker.init_batched", request=0):
+            p = self.p
+            frame = self._frame(frame)
+            self._clamps(frame.shape[0], frame.shape[1])  # built here, not in a step
+            target_pos = torch.as_tensor(target_pos, dtype=torch.float32, device=self.device)
+            target_sz = torch.as_tensor(target_sz, dtype=torch.float32, device=self.device)
+            o = target_pos.shape[0]
+            self.frame_index = 1
+            avg_chans = frame.mean(dim=(0, 1), dtype=torch.float32).expand(o, -1).contiguous()
+            s_z = torch.round(_context_size(target_sz, p.context_amount))
+            z_crop = subwindow_crop(frame, target_pos, s_z, p.exemplar_size, avg_chans)
+            zf = self.model.template(z_crop.permute(0, 3, 1, 2).contiguous())
+            return TrackState(target_pos, target_sz, zf, avg_chans,
+                              torch.zeros(o, dtype=torch.float32, device=self.device))
 
     # ---------------- step ----------------
 
@@ -374,14 +388,18 @@ class Tracker:
     @torch.inference_mode()
     def step(self, state: TrackState, frame):
         """One frame for one object: the O=1 case of ``step_batched``."""
-        new_state, out = self._step_body(_batch(state), self._frame(frame))
-        return _unbatch(new_state), type(out)(*(v[0] for v in out))
+        with trace.span("tracker.step", request=self.frame_index):
+            self.frame_index += 1
+            new_state, out = self._step_body(_batch(state), self._frame(frame))
+            return _unbatch(new_state), type(out)(*(v[0] for v in out))
 
     @torch.inference_mode()
     def step_batched(self, states: TrackState, frame):
         """One frame for O objects at once: the crop, backbone, heads and
         Refine run at batch O; outputs have the leading O axis."""
-        return self._step_body(states, self._frame(frame))
+        with trace.span("tracker.step_batched", request=self.frame_index):
+            self.frame_index += 1
+            return self._step_body(states, self._frame(frame))
 
     # ---------------- whole video ----------------
 
@@ -394,14 +412,17 @@ class Tracker:
         the first call with that key and kept while it is among the
         ``MAX_GRAPHS`` most recently used; capture or replay errors raise.
         Elsewhere it is a loop over ``step_batched``."""
-        frames = self._frame(frames)
-        if self.device.type != "cuda":
-            outs = []
-            for frame in frames:
-                states, out = self._step_body(states, frame)
-                outs.append(out)
-            return states, type(out)(*(torch.stack(v) for v in zip(*outs)))
-        return self.step_graph(states, frames).run(states, frames)
+        with trace.span("tracker.track_video_multi", request=self.frame_index,
+                        frames=len(frames), objects=states.target_pos.shape[0]):
+            frames = self._frame(frames)
+            if self.device.type != "cuda":
+                outs = []
+                for frame in frames:
+                    states, out = self.step_batched(states, frame)
+                    outs.append(out)
+                return states, type(out)(*(torch.stack(v) for v in zip(*outs)))
+            self.frame_index += frames.shape[0]
+            return self.step_graph(states, frames).run(states, frames)
 
     @torch.inference_mode()
     def step_graph(self, states: TrackState, frames: torch.Tensor) -> StepGraph:
@@ -411,12 +432,16 @@ class Tracker:
         key = (states.target_pos.shape[0], h, w, frames.dtype)
         graph = self.graphs.pop(key, None)
         if graph is None:
-            while len(self.graphs) >= MAX_GRAPHS:   # drop the least recently used
-                self.graphs.pop(next(iter(self.graphs)))
-            self._clamps(h, w)          # a host-to-device copy: never under capture
-            if self._side is None:
-                self._side = torch.cuda.Stream(self.device)
-            graph = StepGraph(self, states, frames[0], self._side)
+            with trace.span("step_graph.capture"):
+                trace.count("step_graph.captures")
+                while len(self.graphs) >= MAX_GRAPHS:   # drop the least recently used
+                    self.graphs.pop(next(iter(self.graphs)))
+                    trace.count("step_graph.evictions")
+                self._clamps(h, w)      # a host-to-device copy: never under capture
+                if self._side is None:
+                    self._side = torch.cuda.Stream(self.device)
+                with trace.paused():
+                    graph = StepGraph(self, states, frames[0], self._side)
         self.graphs[key] = graph        # now the most recently used
         return graph
 

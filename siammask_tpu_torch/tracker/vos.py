@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from siammask_tpu_torch.tracker.tracker import TrackState
+from siammask_tpu_torch.utils import trace
 
 THRS = np.arange(0.3, 0.5, 0.05)
 
@@ -122,23 +123,29 @@ def _upload(imgs: np.ndarray, device: torch.device) -> torch.Tensor:
     """(T, H, W, 3) uint8 frames to the device. On the card the copy goes
     through pinned memory and does not block the host, so it queues behind
     the chunk the card is running."""
-    frames = torch.from_numpy(imgs)
-    if device.type != "cuda":
-        return frames
-    return frames.pin_memory().to(device, non_blocking=True)
+    with trace.span("vos.upload"):
+        frames = torch.from_numpy(imgs)
+        trace.count("h2d_bytes", frames.nbytes)
+        if device.type != "cuda":
+            return frames
+        with trace.span("vos.upload.pin"):
+            pinned = frames.pin_memory()
+        return pinned.to(device, non_blocking=True)
 
 
 def _start_copy_to_host(masks: torch.Tensor):
     """Start the copy of a chunk's (T, O, H, W) masks to the host: on the
     card a non-blocking copy into pinned memory and the event that marks its
     end; elsewhere the tensor itself and no event."""
-    if masks.device.type != "cuda":
-        return masks, None
-    host = torch.empty(masks.shape, dtype=masks.dtype, pin_memory=True)
-    host.copy_(masks, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-    return host, done
+    with trace.span("vos.copy_to_host"):
+        trace.count("d2h_bytes", masks.nbytes)
+        if masks.device.type != "cuda":
+            return masks, None
+        host = torch.empty(masks.shape, dtype=masks.dtype, pin_memory=True)
+        host.copy_(masks, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
 
 
 def track_vos_batched(runtime, video: dict, mot_enable: bool = True,
@@ -205,6 +212,7 @@ def track_vos_batched(runtime, video: dict, mot_enable: bool = True,
         valid[idx, starts[idx] + 1:ends[idx] + 1] = True
         pred_masks[idx, starts[idx]] = (annos_init[idx] == object_ids[idx]).astype(np.float32)
 
+    @trace.span("vos.materialize")
     def materialize(first, host, done):
         """Merge the masks of frames first..first+T-1 once their copy is done."""
         if done is not None:
@@ -213,9 +221,12 @@ def track_vos_batched(runtime, video: dict, mot_enable: bool = True,
         sl = slice(first, first + m.shape[1])
         pred_masks[:, sl] = np.where(valid[:, sl, None, None], m, pred_masks[:, sl])
 
+    @trace.span("vos.reinit")
     def reinit(indices, frame):
         """Re-init the given streams from their init rects on this frame."""
+        frame_index = tracker.frame_index
         sub = tracker.init_batched(frame, pos0[indices], sz0[indices])
+        tracker.frame_index = frame_index       # the video goes on
         ii = torch.as_tensor(indices, device=tracker.device)
         with torch.inference_mode():
             return TrackState(*(full.index_copy(0, ii, new) for full, new in zip(states, sub)))
@@ -230,7 +241,8 @@ def track_vos_batched(runtime, video: dict, mot_enable: bool = True,
         frames = None
         while f <= cut:
             end = min(f + scan_chunk, cut + 1)
-            imgs = np.stack([cv2.imread(image_files[i]) for i in range(f, end)])
+            with trace.span("vos.read_frames", request=f):
+                imgs = np.stack([cv2.imread(image_files[i]) for i in range(f, end)])
             tic = time.perf_counter()
             frames = _upload(imgs, tracker.device)
             if end - f == scan_chunk:               # full window

@@ -88,6 +88,7 @@ from siammask_tpu_torch.models.losses import (POS_PER_SAMPLE, select_cross_entro
 from siammask_tpu_torch.parallel.dist import all_reduce_tensors
 from siammask_tpu_torch.parallel.sync_bn import convert_sync_bn
 from siammask_tpu_torch.train.checkpoint import load_checkpoint
+from siammask_tpu_torch.utils import trace
 
 TASKS = ("siamrpn", "base", "sharp", "sharp_refine")
 GROUPS = ("resnet", "neck", "rpn", "mask", "refine")
@@ -288,62 +289,71 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, 
     variance, as flax does (``models.resnet.BatchNorm2d``; the original
     PyTorch reference's ``nn.BatchNorm2d`` takes the unbiased one)."""
     w_cls, w_loc, w_mask = settings.loss_weight
-    for g in optimizer.param_groups:
-        g["lr"] = lr * g["mult"]
-    # BN running statistics change during the forward: keep them for a skip
-    bn_before = [buf.clone() for buf in _train_bn_buffers(model)]
-    optimizer.zero_grad(set_to_none=True)
+    with trace.span("train.prepare"):
+        for g in optimizer.param_groups:
+            g["lr"] = lr * g["mult"]
+        # BN running statistics change during the forward: keep them for a skip
+        bn_before = [buf.clone() for buf in _train_bn_buffers(model)]
+        optimizer.zero_grad(set_to_none=True)
 
-    exact = distributed and not fused_allreduce
-    counts = global_counts(batch, settings.task) if exact else {}
+        exact = distributed and not fused_allreduce
+        counts = global_counts(batch, settings.task) if exact else {}
     forward = _remat_forward if remat else _forward
-    score, loc, pred_mask = forward(model, batch["template"], batch["search"], settings.task)
-    cls_loss = select_cross_entropy_loss(score, batch["label_cls"], counts.get("npos"),
-                                         counts.get("nneg"))
-    loc_loss = weight_l1_loss(loc, batch["label_loc"], batch["label_loc_weight"],
-                              counts.get("batch"))
-    metrics = {"cls_loss": cls_loss, "loc_loss": loc_loss}
-    total = w_cls * cls_loss + w_loc * loc_loss
-    if pred_mask is not None:
-        m = select_mask_logistic_loss(pred_mask, batch["label_mask"],
-                                      batch["label_mask_weight"], o_sz=settings.o_sz,
-                                      g_sz=settings.g_sz, padding=settings.mask_pad,
-                                      nval=counts.get("nval"))
-        total = total + w_mask * m.loss
-        metrics.update(mask_loss=m.loss, iou_mean=m.iou_mean, iou_at_5=m.iou_at_5,
-                       iou_at_7=m.iou_at_7, mask_pos_overflow=m.pos_overflow)
-    metrics["total_loss"] = total
-    total.backward()
-    # optax decays and carries momentum for every leaf of a group, reached
-    # by the loss or not: give such a parameter a zero gradient (which also
-    # keeps the bucket's layout fixed)
-    params = [p for g in optimizer.param_groups for p in g["params"]]
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
+    with trace.span("train.forward"):
+        score, loc, pred_mask = forward(model, batch["template"], batch["search"],
+                                        settings.task)
+    with trace.span("train.loss"):
+        cls_loss = select_cross_entropy_loss(score, batch["label_cls"], counts.get("npos"),
+                                             counts.get("nneg"))
+        loc_loss = weight_l1_loss(loc, batch["label_loc"], batch["label_loc_weight"],
+                                  counts.get("batch"))
+        metrics = {"cls_loss": cls_loss, "loc_loss": loc_loss}
+        total = w_cls * cls_loss + w_loc * loc_loss
+        if pred_mask is not None:
+            m = select_mask_logistic_loss(pred_mask, batch["label_mask"],
+                                          batch["label_mask_weight"], o_sz=settings.o_sz,
+                                          g_sz=settings.g_sz, padding=settings.mask_pad,
+                                          nval=counts.get("nval"))
+            total = total + w_mask * m.loss
+            metrics.update(mask_loss=m.loss, iou_mean=m.iou_mean, iou_at_5=m.iou_at_5,
+                           iou_at_7=m.iou_at_7, mask_pos_overflow=m.pos_overflow)
+        metrics["total_loss"] = total
+    with trace.span("train.backward"):
+        total.backward()
+        # optax decays and carries momentum for every leaf of a group, reached
+        # by the loss or not: give such a parameter a zero gradient (which also
+        # keeps the bucket's layout fixed)
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
     if distributed:
-        op = "mean" if fused_allreduce else "sum"
-        all_reduce_tensors([p.grad for p in params], op)
-        if fused_allreduce:
-            all_reduce_tensors([b for b in _train_bn_buffers(model) if b.is_floating_point()],
-                               "mean")
-        metrics = _reduce_metrics(metrics, op)
-    _clip(optimizer, opt_cfg)
+        with trace.span("train.exchange"):
+            op = "mean" if fused_allreduce else "sum"
+            all_reduce_tensors([p.grad for p in params], op)
+            if fused_allreduce:
+                all_reduce_tensors([b for b in _train_bn_buffers(model)
+                                    if b.is_floating_point()], "mean")
+            metrics = _reduce_metrics(metrics, op)
+    with trace.span("train.clip"):
+        _clip(optimizer, opt_cfg)
 
     # NaN/huge-loss guard (reference train_siammask.py): decided on the host
     # from one read of the loss a step, as the reference does (a batch-64
     # step is long next to that sync); distributed, from the reduced loss,
     # so every rank decides alike
-    loss = metrics["total_loss"].item()
+    with trace.span("train.sync"):
+        loss = metrics["total_loss"].item()
     ok = math.isfinite(loss) and abs(loss) <= 1e4
-    if ok:
-        optimizer.step()
-    else:
-        with torch.no_grad():
-            for buf, old in zip(_train_bn_buffers(model), bn_before):
-                buf.copy_(old)
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    metrics["skipped"] = torch.tensor(0.0 if ok else 1.0, device=total.device)
+    with trace.span("train.optimizer"):
+        if ok:
+            optimizer.step()
+        else:
+            with torch.no_grad():
+                for buf, old in zip(_train_bn_buffers(model), bn_before):
+                    buf.copy_(old)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["skipped"] = torch.tensor(0.0 if ok else 1.0, device=total.device)
     return metrics
 
 
@@ -382,6 +392,7 @@ class Trainer:
         self._unfrozen = None
         self.optimizer = None
         self.labels = None
+        self.steps = 0          # steps taken: the request id of the step's spans
         self._ensure_phase(0)
 
     def _ensure_phase(self, epoch: int) -> None:
@@ -423,10 +434,12 @@ class Trainer:
         return epoch
 
     def step(self, batch: dict, epoch: int) -> dict[str, torch.Tensor]:
-        self._ensure_phase(epoch)
-        lr = float(self.lr_spaces[min(epoch, len(self.lr_spaces) - 1)])
-        return train_step(self.model, self.optimizer, batch, lr, self.settings, self.opt_cfg,
-                          self.distributed, self.fused_allreduce, self.remat)
+        with trace.span("train.step", request=self.steps):
+            self.steps += 1
+            self._ensure_phase(epoch)
+            lr = float(self.lr_spaces[min(epoch, len(self.lr_spaces) - 1)])
+            return train_step(self.model, self.optimizer, batch, lr, self.settings,
+                              self.opt_cfg, self.distributed, self.fused_allreduce, self.remat)
 
 
 def _group_layout(state: dict) -> list[tuple[str, int]]:

@@ -113,3 +113,47 @@ def test_graph_cache_drops_the_least_recently_used(cuda_device):
     tracker.track_video_multi(states[2], videos[2][1:])
     assert tracker.graphs[(3, 96, 200, torch.uint8)] is kept
     assert list(tracker.graphs)[-1] == (3, 96, 200, torch.uint8)
+
+
+@pytest.mark.cuda
+def test_graph_path_spans_and_counts_on_card(cuda_device):
+    """Under a profiler, each ``track_video_multi`` call's span holds a
+    ``step_graph.capture`` at a key's first call (its own work unrecorded)
+    and a ``step_graph.run`` with a ``step_graph.replay`` a frame; three
+    keys through ``MAX_GRAPHS`` = 2 count three captures and one eviction."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from siammask_tpu_torch.utils import trace
+
+    tracker = _tracker(cuda_device)
+    videos = [torch.from_numpy(_frames(3, h, w)).to(cuda_device)
+              for h, w in ((120, 160), (160, 120), (96, 200))]
+    states = [tracker.init_batched(v[0], POS, SZ) for v in videos]
+    before = trace.counters()
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for frames, state in zip(videos + videos[-1:], states + states[-1:]):
+            tracker.track_video_multi(state, frames[1:])
+        torch.cuda.synchronize()
+    log = trace.records()
+    trace.clear()
+    roots = [r for r in log if r["parent"] is None]
+    # the request: the video frame a chunk starts at, counted since the
+    # tracker's last init (here of the third video)
+    assert [(r["name"], r["request"]) for r in roots] == \
+        [("tracker.track_video_multi", f) for f in (1, 3, 5, 7)]
+    captures = []
+    for i, r in enumerate(roots):
+        kids = [c for c in log if c["parent"] == r["id"]]
+        assert [c["name"] for c in kids] == \
+            ["step_graph.capture"] * (i < 3) + ["step_graph.run"]
+        captures += kids[:-1]
+        assert [c["name"] for c in log if c["parent"] == kids[-1]["id"]] == \
+            ["step_graph.replay"] * 2
+    assert not [c for c in log if c["parent"] in {k["id"] for k in captures}]
+    assert [c["counts"] for c in captures] == [
+        {"step_graph.captures": 1}, {"step_graph.captures": 1},
+        {"step_graph.captures": 1, "step_graph.evictions": 1}]
+    after = trace.counters()
+    for name, n in (("step_graph.captures", 3), ("step_graph.evictions", 1)):
+        assert after[name] - before.get(name, 0) == n

@@ -95,6 +95,51 @@ def test_synthetic_trace_every_lane():
     assert table["lanes"] == {}
 
 
+# the program's spans (``utils/trace.py``) and host ops on the host lane,
+# over the device events above: gaps 30-50, 58-60, 70-100 and 108-120 us
+SPAN_EVENTS = [
+    (HOST, "user_annotation", "train.step", 0, 100),
+    (HOST, "user_annotation", "train.forward", 0, 45),
+    (HOST, "user_annotation", "model.backbone.stem", 35, 10),
+    (HOST, "cpu_op", "aten::cudnn_convolution", 36, 8),
+    (HOST, "user_annotation", "bench.chunk", 50, 20),       # not the program's
+    (HOST, "user_annotation", "train.sync", 80, 10),
+    (HOST, "cuda_runtime", "cudaStreamSynchronize", 81, 8),
+]
+
+
+def test_program_spans_self_time_and_idle_by_span(capsys, tmp_path):
+    """The program's spans by self time (less the program spans nested in
+    them), and each device gap given to the innermost program span open at
+    its middle, however long before it opened, with the host op inside it;
+    a gap outside every program span is outside the program."""
+    events = synthetic_trace() + [
+        {"ph": "X", "cat": cat, "name": name, "pid": lane[0], "tid": lane[1], "ts": ts,
+         "dur": dur} for lane, cat, name, ts, dur in SPAN_EVENTS]
+    table = trace_report.report(events)
+    assert {k: (v["calls"], v["ms"], v["self_ms"]) for k, v in table["spans"].items()} == {
+        "train.step": (1, pytest.approx(0.100), pytest.approx(0.045)),
+        "train.forward": (1, pytest.approx(0.045), pytest.approx(0.035)),
+        "model.backbone.stem": (1, pytest.approx(0.010), pytest.approx(0.010)),
+        "train.sync": (1, pytest.approx(0.010), pytest.approx(0.010))}
+    got = {k: (pytest.approx(v["ms"]), v["gaps"], v["op"])
+           for k, v in table["idle_by_span"].items()}
+    assert got == {"train.sync": (0.030, 1, "cudaStreamSynchronize"),
+                   "model.backbone.stem": (0.020, 1, "aten::cudnn_convolution"),
+                   trace_report.OUTSIDE: (0.012, 1, None), "train.step": (0.002, 1, None)}
+    assert list(table["idle_by_span"])[0] == "train.sync"
+    assert sum(v["ms"] for v in table["idle_by_span"].values()) == \
+        pytest.approx(table["idle_ms"])
+    path = tmp_path / "spans.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    trace_report.main([str(path)])
+    out = capsys.readouterr().out
+    assert "program span" in out and "device idle by program span" in out
+    assert "outside the program" in out and "cudaStreamSynchronize" in out
+    # a trace with no program span has neither table
+    assert trace_report.report(synthetic_trace())["idle_by_span"] == {}
+
+
 def test_overlapping_kernels_keep_their_durations():
     """Two kernels on one lane whose stamps overlap by 1 us, then one nested
     in the second: the first keeps its 10 us, the second its 11 us less the
