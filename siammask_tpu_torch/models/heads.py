@@ -17,7 +17,9 @@ module names (``downsample.{0,1}``, ``conv_kernel``/``conv_search``/``head``,
 input and weight to it (``Conv2d``), and the xcorr takes the bf16 maps (its
 kernels accumulate in float32 and write bf16). ``DeconvExpand`` is the one
 layer whose parameters are created in ``dtype``, as the JAX package declares
-them; loaded weights keep their own dtype (see its docstring).
+them; loaded weights keep their own dtype (see its docstring). The maps keep
+their input's memory layout (``ops/layout.py``), NHWC from a card's crops
+and batches, through the xcorr, the window gathers and Refine.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 from torch import nn
 
 from siammask_tpu_torch.models.resnet import BatchNorm2d, Conv2d
+from siammask_tpu_torch.ops.layout import memory_format
 from siammask_tpu_torch.ops.resize import upsample_nearest
 from siammask_tpu_torch.ops.unfold import unfold_windows
 from siammask_tpu_torch.ops.xcorr import depthwise_xcorr
@@ -67,10 +70,14 @@ class DepthCorr(nn.Module):
                                   Conv2d(hidden, out_channels, 1, dtype=dtype))
 
     def forward_corr(self, kernel, search):
-        """NCHW in and out; the xcorr itself runs on NHWC copies."""
+        """NCHW in and out, in the search map's memory layout. The xcorr
+        runs on NHWC: a channels_last map is that already (no copy), and
+        its NHWC output goes back as a channels_last view; NCHW maps are
+        copied to NHWC and the output back."""
         k = self.conv_kernel(kernel).permute(0, 2, 3, 1).contiguous()
-        s = self.conv_search(search).permute(0, 2, 3, 1).contiguous()
-        return depthwise_xcorr(s, k).permute(0, 3, 1, 2)
+        s = self.conv_search(search)
+        corr = depthwise_xcorr(s.permute(0, 2, 3, 1).contiguous(), k)
+        return corr.permute(0, 3, 1, 2).contiguous(memory_format=memory_format(s))
 
     def forward(self, kernel, search):
         return self.head(self.forward_corr(kernel, search))
@@ -181,7 +188,8 @@ class Refine(nn.Module):
         self.post2 = Conv3x3(4, 1, d)
 
     def forward(self, p0, p1, p2, corr):
-        out = self.deconv(corr)                                   # (B,32,15,15)
+        # the deconv's product is NCHW: it takes the skip windows' layout
+        out = self.deconv(corr).contiguous(memory_format=memory_format(p2))  # (B,32,15,15)
         out = self.post0(_up(self.h2(out) + self.v2(p2), 31))
         out = self.post1(_up(self.h1(out) + self.v1(p1), 61))
         out = self.post2(_up(self.h0(out) + self.v0(p0), 127))
@@ -195,20 +203,23 @@ def slice_skip_windows(p0, p1, p2, pos_yx: torch.Tensor):
     is the (row, col) cell of each sample, an integer device tensor, so
     nothing syncs. The reference pads by
     (16, 8, 4) and slices windows of (61, 31, 15) at strides (4, 2, 1) from
-    the cell; clamped gathers, columns first, with an out-of-bounds zero mask
-    give the same windows without padded copies. The windows and their zero
-    fill are in the maps' dtype."""
+    the cell; a clamped gather over the maps' NHWC view, with an
+    out-of-bounds zero mask, gives the same windows without padded copies.
+    The windows and their zero fill are in the maps' dtype and memory
+    layout (channels_last maps give channels_last windows, no copy)."""
     y, x = pos_yx[:, :1], pos_yx[:, 1:]
+    batch = torch.arange(pos_yx.shape[0], device=pos_yx.device)[:, None, None]
 
     def win_gather(f, pad, scale, win):
-        b, ch, n, _ = f.shape
+        n = f.shape[2]
         ar = torch.arange(win, device=f.device)
         r = scale * y - pad + ar                      # (B, win)
         c = scale * x - pad + ar
-        g = f.gather(3, c.clamp(0, n - 1)[:, None, None, :].expand(b, ch, n, win))
-        g = g.gather(2, r.clamp(0, n - 1)[:, None, :, None].expand(b, ch, win, win))
+        g = f.permute(0, 2, 3, 1)[batch, r.clamp(0, n - 1)[:, :, None],
+                                  c.clamp(0, n - 1)[:, None, :]]      # (B, win, win, C)
         valid = ((r >= 0) & (r < n))[:, :, None] & ((c >= 0) & (c < n))[:, None, :]
-        return g * valid[:, None].to(g.dtype)
+        g = g * valid[..., None].to(g.dtype)
+        return g.permute(0, 3, 1, 2).contiguous(memory_format=memory_format(f))
 
     return (win_gather(p0, 16, 4, 61),
             win_gather(p1, 8, 2, 31),

@@ -30,6 +30,10 @@ running variance takes the biased batch variance, as flax's does
 (``BatchNorm2d``).
 ``None`` (the default) casts nothing: the model computes in its
 parameters' dtype, float32, or float64 after ``model.double()``.
+
+The maps keep their input's memory layout (``ops/layout.py``): NHWC memory
+(channels_last) where the tracker's crops and the trainer's batches come
+from a card, NCHW on the CPU.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from siammask_tpu_torch.ops.layout import memory_format
 from siammask_tpu_torch.utils import trace
 
 
@@ -45,17 +50,27 @@ class Conv2d(nn.Conv2d):
     the input, weight and bias are cast to it and the output is in it; the
     parameters keep their own dtype. ``dtype=None`` casts nothing. Unlike
     ``nn.Conv2d``'s factory argument, ``dtype`` never sets the parameters'
-    dtype."""
+    dtype.
+
+    The weight the conv sees takes its input's memory layout
+    (``ops/layout.py``) in the same ``.to`` that casts it, so a
+    channels_last input meets a channels_last weight and gives a
+    channels_last output: cuDNN transposes neither. The parameters stay as
+    they are stored (NCHW-contiguous). Each call counts its input's layout
+    in the trace counter ``conv.channels_last`` or ``conv.contiguous``."""
 
     def __init__(self, *args, dtype: torch.dtype | None = None, **kwargs):
         super().__init__(*args, **kwargs)
         self.dtype = dtype
 
     def forward(self, x):
+        fmt = memory_format(x)
+        trace.count("conv.channels_last" if fmt is torch.channels_last else "conv.contiguous")
         if self.dtype is None:
-            return super().forward(x)
+            return self._conv_forward(x, self.weight.to(memory_format=fmt), self.bias)
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        return self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        return self._conv_forward(x.to(self.dtype),
+                                  self.weight.to(self.dtype, memory_format=fmt), bias)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -135,7 +150,8 @@ def _make_layer(inplanes: int, planes: int, blocks: int, stride: int = 1,
 class ResNet50Tracking(nn.Module):
     """ResNet-50 layers 1-3. Input NCHW float32 raw 0..255 pixels (no
     normalisation, as the reference); returns (p0, p1, p2, p3), in ``dtype``
-    when it is set (the stem casts the pixels)."""
+    when it is set (the stem casts the pixels), in the input's memory
+    layout."""
 
     def __init__(self, width: int = 64, dtype: torch.dtype | None = None):
         super().__init__()

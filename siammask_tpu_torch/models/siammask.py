@@ -217,13 +217,11 @@ class SiamMaskSharp(_SiamMask):
     def track_refine(self, skips, corr, pos_yx: torch.Tensor):
         """Refined 127x127 mask logits at the (row, col) cell of each sample,
         ``pos_yx`` (B, 2), an integer device tensor: the windows and the corr
-        vectors are gathered, not sliced on the host."""
+        vectors are gathered, not sliced on the host, in any memory layout
+        with no copy of the maps."""
         with trace.span("model.refine"):
             w0, w1, w2 = slice_skip_windows(*skips, pos_yx)
-            b, c, _, s = corr.shape
-            cell = pos_yx[:, 0] * s + pos_yx[:, 1]
-            cvec = corr.flatten(2).gather(2, cell[:, None, None].expand(b, c, 1)).reshape(b, c)
-            return self.refine_model(w0, w1, w2, cvec)
+            return self.refine_model(w0, w1, w2, at_cells(corr, pos_yx))
 
     def refine_all(self, skips, corr):
         """Training path: Refine at every score-map cell -> (B*S*S, 127*127)
@@ -249,6 +247,13 @@ class SiamMaskSharp(_SiamMask):
         with trace.span("model.mask"):
             corr = self.mask_model.mask.forward_corr(zf, xf)
         return score, loc, self.refine_all(skips, corr)
+
+
+def at_cells(m: torch.Tensor, pos_yx: torch.Tensor) -> torch.Tensor:
+    """The channel vector (B, C) of an NCHW map (B, C, S, S) at each sample's
+    (row, col) cell ``pos_yx`` (B, 2): one gather, in any memory layout."""
+    batch = torch.arange(m.shape[0], device=m.device)
+    return m[batch, :, pos_yx[:, 0], pos_yx[:, 1]]
 
 
 def log_softmax_cls(score: torch.Tensor, anchor_num: int) -> torch.Tensor:

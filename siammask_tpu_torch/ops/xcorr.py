@@ -207,7 +207,8 @@ class DepthwiseXcorr(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         x, k = ctx.saved_tensors
-        # the heads' NHWC -> NCHW permute hands back a strided grad
+        # NHWC already where the heads' maps are channels_last; an NCHW
+        # map's permute hands back a strided grad
         g = g.contiguous()
         dx = dk = None
         if ctx.needs_input_grad[0]:

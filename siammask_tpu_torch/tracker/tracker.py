@@ -34,6 +34,10 @@ the single-object and the batched paths run the same kernels.
   the most recently used kept on the tracker; on the CPU they are a plain
   loop over the step.
 
+The crops are NHWC; on a card they go to the model as channels_last views
+(``ops/layout.py`` ``model_input``), so its maps stay NHWC through every
+conv; on the CPU they are copied to NCHW.
+
 The numerics are the reference's: context-scaled crop sizes rounded half to
 even, the decode/penalty formulas, the EMA size update, the sub-box/back-box
 warp geometry and the final clamp.
@@ -55,8 +59,10 @@ import numpy as np
 import torch
 
 from siammask_tpu_torch.config import TrackerConfig
-from siammask_tpu_torch.models.siammask import SiamMaskBase, SiamMaskSharp, TrackOutputs
+from siammask_tpu_torch.models.siammask import (SiamMaskBase, SiamMaskSharp, TrackOutputs,
+                                                at_cells)
 from siammask_tpu_torch.ops import _build
+from siammask_tpu_torch.ops.layout import model_input
 from siammask_tpu_torch.ops.sample import subwindow_crop, warp_back_mask
 from siammask_tpu_torch.ops.xcorr import depthwise_xcorr
 from siammask_tpu_torch.tracker.anchors import generate_score_map_anchors
@@ -257,7 +263,7 @@ class Tracker:
             avg_chans = frame.mean(dim=(0, 1), dtype=torch.float32).expand(o, -1).contiguous()
             s_z = torch.round(_context_size(target_sz, p.context_amount))
             z_crop = subwindow_crop(frame, target_pos, s_z, p.exemplar_size, avg_chans)
-            zf = self.model.template(z_crop.permute(0, 3, 1, 2).contiguous())
+            zf = self.model.template(model_input(z_crop.permute(0, 3, 1, 2)))
             return TrackState(target_pos, target_sz, zf, avg_chans,
                               torch.zeros(o, dtype=torch.float32, device=self.device))
 
@@ -340,24 +346,18 @@ class Tracker:
     def _cell_mask(self, out, cells: torch.Tensor) -> torch.Tensor:
         """The sigmoid mask (O, out_size, out_size) at each stream's best
         cell: Refine's, or the raw 63*63 head's vector there. Base's head
-        map (O, 63*63, S, S) is read by a gather along its flattened S*S
-        axis on the device; sharp computes no head map, so its 1x1 head runs
-        on the corr vector gathered at the cell."""
+        map (O, 63*63, S, S) is read by a gather at the cell on the device
+        (``at_cells``, no copy of the map in either layout); sharp computes
+        no head map, so its 1x1 head runs on the corr vector gathered at the
+        cell."""
         p = self.p
         o = cells.shape[0]
         if self.refine:
             logits = self.model.track_refine(out.skips, out.corr, cells)
+        elif isinstance(out, TrackOutputs):
+            logits = self.model.mask_model.mask.head(at_cells(out.corr, cells)[..., None, None])
         else:
-            cell = cells[:, 0] * p.score_size + cells[:, 1]
-
-            def at_cell(m):                                       # (O, C, S, S) -> (O, C, 1)
-                m = m.flatten(2)
-                return m.gather(2, cell[:, None, None].expand(o, m.shape[1], 1))
-
-            if isinstance(out, TrackOutputs):
-                logits = self.model.mask_model.mask.head(at_cell(out.corr)[..., None])
-            else:
-                logits = at_cell(out[2])
+            logits = at_cells(out[2], cells)
         return torch.sigmoid(logits.reshape(o, p.out_size, p.out_size))
 
     def _step_body(self, state: TrackState, frame: torch.Tensor):
@@ -365,8 +365,9 @@ class Tracker:
         p = self.p
         im_h, im_w = frame.shape[0], frame.shape[1]
         s_x_full, scale_x = self._search_window(state)
-        x_crop = subwindow_crop(frame, state.target_pos, s_x_full, p.instance_size,
-                                state.avg_chans).permute(0, 3, 1, 2).contiguous()
+        # the NHWC crop goes to the model as a channels_last view on a card
+        x_crop = model_input(subwindow_crop(frame, state.target_pos, s_x_full,
+                                            p.instance_size, state.avg_chans).permute(0, 3, 1, 2))
         if self.mask:
             out = self.model.track_mask(state.zf, x_crop)
             score_map, loc = out[0], out[1]

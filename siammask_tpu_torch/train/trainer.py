@@ -85,6 +85,7 @@ from torch.utils.checkpoint import checkpoint
 
 from siammask_tpu_torch.models.losses import (POS_PER_SAMPLE, select_cross_entropy_loss,
                                               select_mask_logistic_loss, weight_l1_loss)
+from siammask_tpu_torch.ops.layout import model_input
 from siammask_tpu_torch.parallel.dist import all_reduce_tensors
 from siammask_tpu_torch.parallel.sync_bn import convert_sync_bn
 from siammask_tpu_torch.train.checkpoint import load_checkpoint
@@ -300,8 +301,9 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, 
         counts = global_counts(batch, settings.task) if exact else {}
     forward = _remat_forward if remat else _forward
     with trace.span("train.forward"):
-        score, loc, pred_mask = forward(model, batch["template"], batch["search"],
-                                        settings.task)
+        # NHWC memory on a card (one copy of each image batch), NCHW elsewhere
+        score, loc, pred_mask = forward(model, model_input(batch["template"]),
+                                        model_input(batch["search"]), settings.task)
     with trace.span("train.loss"):
         cls_loss = select_cross_entropy_loss(score, batch["label_cls"], counts.get("npos"),
                                              counts.get("nneg"))

@@ -35,7 +35,10 @@ score and mask, a VOS chunk's masks), counted where the program issues the
 transfer, on the CPU too, where nothing is copied; ``host_syncs`` (the
 runtime's waits on the device a frame); ``step_graph.captures`` and
 ``step_graph.evictions`` (``Tracker.step_graph`` under ``MAX_GRAPHS``);
-``all_reduce_bytes`` (every collective's payload).
+``all_reduce_bytes`` (every collective's payload); ``conv.channels_last``
+and ``conv.contiguous`` (the model's conv calls by the memory layout of
+their input, ``models/resnet.py`` ``Conv2d``; a captured graph counts its
+convs at capture).
 
 A span's name is ``<layer>.<what>``, its layer one of ``LAYERS``: that is
 how ``tools/trace_report.py`` tells the program's spans from others.
