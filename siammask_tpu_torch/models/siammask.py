@@ -80,6 +80,8 @@ class SiamRPN(nn.Module):
     module tree and the spatial geometry. ``dtype``: the compute dtype (the
     module docstring)."""
 
+    family = "siamese"      # the tracker that ``TrackerRuntime`` builds for it
+
     def __init__(self, anchor_num: int = 5, width: int = 64, dtype: torch.dtype | None = None):
         super().__init__()
         if dtype in (None, torch.float32):   # the float32 reference mode
@@ -265,11 +267,18 @@ def log_softmax_cls(score: torch.Tensor, anchor_num: int) -> torch.Tensor:
 
 
 def build_model(arch: str, anchor_num: int = 5, width: int = 64,
-                dtype: torch.dtype | None = None) -> SiamRPN:
+                dtype: torch.dtype | None = None, sam2: dict | None = None):
     """The model of a reference ``--arch`` name (``tools/test.py``):
     ``Custom``/``SiamMaskSharp``, ``SiamMaskBase`` or ``SiamRPN``, computing
-    in ``dtype``. A float32 model switches the process's TF32 flags off
-    (the module docstring)."""
+    in ``dtype``; or ``SAM2``, SAM 2.1 at the widths of ``Sam2Config``
+    updated by ``sam2`` (an experiment config's ``network.sam2``; none: the
+    published Hiera-B+). A float32 SiamMask model switches the process's
+    TF32 flags off (the module docstring)."""
+    if arch == "SAM2":
+        from siammask_tpu_torch.models.sam2 import Sam2, Sam2Config
+
+        sizes = {k: tuple(v) if isinstance(v, list) else v for k, v in (sam2 or {}).items()}
+        return Sam2(Sam2Config(**sizes), None if dtype == torch.float32 else dtype)
     families = {"Custom": SiamMaskSharp, "SiamMaskSharp": SiamMaskSharp,
                 "SiamMaskBase": SiamMaskBase, "SiamRPN": SiamRPN}
     if arch not in families:

@@ -53,6 +53,7 @@ signature, and so a ``StepGraph``'s key, does not depend on the dtype.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -138,22 +139,23 @@ class StepGraph:
     The warm-up and the capture run on ``side``, one stream kept by the
     tracker: a library workspace is kept per stream, so a new stream for
     every capture would hold one more workspace each time (32 MiB each on an
-    H100)."""
+    H100). Both run inside the tracker's ``_capture_context()``. The state is
+    any tuple of tensors whose ``_step_body`` returns it, new or updated in
+    place, with the step's outputs."""
 
-    def __init__(self, tracker: Tracker, state: TrackState, frame: torch.Tensor,
+    def __init__(self, tracker: StepGraphs, state: tuple, frame: torch.Tensor,
                  side: torch.cuda.Stream):
         device = frame.device
-        _build.load_library()           # nvcc runs at first use, never under capture
         self.frame = frame.clone()
-        self.state = TrackState(*(t.clone() for t in state))
+        self.state = type(state)(*(t.clone() for t in state))
         side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):     # warm-up, as torch.cuda.graph asks
-            for _ in range(2):
+        with torch.cuda.stream(side), tracker._capture_context():
+            for _ in range(2):            # warm-up, as torch.cuda.graph asks
                 tracker._step_body(self.state, self.frame)
         torch.cuda.current_stream(device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         before = depthwise_xcorr.launches, depthwise_xcorr.packed_launches
-        with torch.cuda.graph(self.graph, stream=side):
+        with torch.cuda.graph(self.graph, stream=side), tracker._capture_context():
             new_state, self.out = tracker._step_body(self.state, self.frame)
             for static, new in zip(self.state, new_state):
                 if new is not static:
@@ -178,23 +180,66 @@ class StepGraph:
                     self.graph.replay()
                     for stack, value in zip(stacks, self.out):
                         stack[t].copy_(value)
-            return TrackState(*(t.clone() for t in self.state)), type(self.out)(*stacks)
+            return (type(self.state)(*(t.clone() for t in self.state)),
+                    type(self.out)(*stacks))
 
 
-class Tracker:
+class StepGraphs:
+    """A tracker's captured ``StepGraph``s. ``graphs`` holds those of the
+    ``MAX_GRAPHS`` most recently used (O, H, W, frame dtype) keys. Each graph
+    keeps a private memory pool of one step's intermediates, which grows with
+    O and the frame size, so a run over videos of many object counts and
+    sizes drops the least recently used graph, and with it its pool, before
+    it captures another. Every capture runs on one kept side stream.
+
+    A tracker gives its ``_step_body(state, frame)``, the context its
+    warm-up and capture run in (``_capture_context``), and what it builds
+    before a capture (``_before_capture``), where it may copy to the device
+    or compile, which a capture may not."""
+
+    def __init__(self):
+        self.graphs: dict[tuple, StepGraph] = {}
+        self._side: torch.cuda.Stream | None = None   # every capture's stream
+
+    def _capture_context(self):
+        return contextlib.nullcontext()
+
+    def _before_capture(self, im_h: int, im_w: int) -> None:
+        pass
+
+    @torch.no_grad()        # inside ``inference_mode`` that mode stays on
+    def step_graph(self, states: tuple, frames: torch.Tensor) -> StepGraph:
+        """The ``StepGraph`` for these states (every leaf with the O axis
+        first) and device frames (T, H, W, 3), captured now if it is not
+        kept, and now the most recently used."""
+        _, h, w, _ = frames.shape
+        key = (states[0].shape[0], h, w, frames.dtype)
+        graph = self.graphs.pop(key, None)
+        if graph is None:
+            with trace.span("step_graph.capture"):
+                trace.count("step_graph.captures")
+                while len(self.graphs) >= MAX_GRAPHS:   # drop the least recently used
+                    self.graphs.pop(next(iter(self.graphs)))
+                    trace.count("step_graph.evictions")
+                self._before_capture(h, w)
+                if self._side is None:
+                    self._side = torch.cuda.Stream(self.device)
+                with trace.paused():
+                    graph = StepGraph(self, states, frames[0], self._side)
+        self.graphs[key] = graph        # now the most recently used
+        return graph
+
+
+class Tracker(StepGraphs):
     """Tracker for one model (already on ``device``, in eval mode) and one
     config. Frames are (H, W, 3) uint8 or float arrays or tensors; a tensor
     already on the device is used as it is. ``mask=True`` needs a mask
     family: with ``refine=True`` a ``SiamMaskSharp``, with ``refine=False``
     either (the 63x63 head, so ``p.out_size`` must be 63). Steps return a
-    ``StepOutput``, or a ``BoxStepOutput`` with ``mask=False``.
+    ``StepOutput``, or a ``BoxStepOutput`` with ``mask=False``. Its
+    captured graphs are kept as ``StepGraphs`` keeps them."""
 
-    ``graphs`` holds the captured ``StepGraph`` of the ``MAX_GRAPHS`` most
-    recently used (O, H, W, frame dtype) keys. Each graph keeps a private
-    memory pool of one step's intermediates, which grows with O and the frame
-    size, so a run over videos of many object counts and sizes drops the
-    least recently used graph, and with it its pool, before it captures
-    another."""
+    late_starts = True      # ``track_vos_batched`` may re-init streams mid-video
 
     def __init__(self, model, p: TrackerConfig, device: torch.device | str,
                  mask: bool = True, refine: bool = True):
@@ -215,8 +260,7 @@ class Tracker:
             generate_score_map_anchors(p.anchor_config(), p.score_size), device=self.device)
         self.window = torch.as_tensor(make_window(p), device=self.device)
         self._bounds: dict[tuple[int, int], tuple[torch.Tensor, ...]] = {}
-        self.graphs: dict[tuple, StepGraph] = {}
-        self._side: torch.cuda.Stream | None = None   # every capture's stream
+        super().__init__()
         # the video frame the next step takes (the init frame is 0): the
         # request id of the tracker's spans
         self.frame_index = 0
@@ -237,6 +281,10 @@ class Tracker:
             self._bounds[key] = (torch.zeros(2, **f32), torch.full((2,), 10.0, **f32),
                                  torch.tensor([im_w, im_h], **f32))
         return self._bounds[key]
+
+    def _before_capture(self, im_h: int, im_w: int) -> None:
+        self._clamps(im_h, im_w)        # a host-to-device copy: never under capture
+        _build.load_library()           # nvcc runs at first use, never under capture
 
     # ---------------- init ----------------
 
@@ -424,27 +472,6 @@ class Tracker:
                 return states, type(out)(*(torch.stack(v) for v in zip(*outs)))
             self.frame_index += frames.shape[0]
             return self.step_graph(states, frames).run(states, frames)
-
-    @torch.inference_mode()
-    def step_graph(self, states: TrackState, frames: torch.Tensor) -> StepGraph:
-        """The ``StepGraph`` for these states and device frames (T, H, W, 3),
-        captured now if it is not kept, and now the most recently used."""
-        _, h, w, _ = frames.shape
-        key = (states.target_pos.shape[0], h, w, frames.dtype)
-        graph = self.graphs.pop(key, None)
-        if graph is None:
-            with trace.span("step_graph.capture"):
-                trace.count("step_graph.captures")
-                while len(self.graphs) >= MAX_GRAPHS:   # drop the least recently used
-                    self.graphs.pop(next(iter(self.graphs)))
-                    trace.count("step_graph.evictions")
-                self._clamps(h, w)      # a host-to-device copy: never under capture
-                if self._side is None:
-                    self._side = torch.cuda.Stream(self.device)
-                with trace.paused():
-                    graph = StepGraph(self, states, frames[0], self._side)
-        self.graphs[key] = graph        # now the most recently used
-        return graph
 
     @torch.inference_mode()
     def track_video(self, state: TrackState, frames):

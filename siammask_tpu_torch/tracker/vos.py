@@ -186,6 +186,11 @@ def track_vos_batched(runtime, video: dict, mot_enable: bool = True,
         starts = [0] * len(object_ids)
         ends = [n - 1] * len(object_ids)
     object_num = len(object_ids)
+    tracker = runtime.tracker
+    if not tracker.late_starts and any(s > 0 for s in starts):
+        raise NotImplementedError(
+            f"{type(tracker).__name__} tracks objects that start on frame 0 only; video "
+            f"{video['name']!r} starts objects on frames {sorted(set(starts) - {0})}")
 
     pos0, sz0 = [], []
     for idx, o_id in enumerate(object_ids):
@@ -194,7 +199,6 @@ def track_vos_batched(runtime, video: dict, mot_enable: bool = True,
         sz0.append([bw, bh])
     pos0, sz0 = np.array(pos0, np.float32), np.array(sz0, np.float32)
 
-    tracker = runtime.tracker
     toc = 0.0
     tic = time.perf_counter()
     # uint8 upload; the crop casts after its first gather. ALL streams

@@ -23,6 +23,8 @@ the model's stages) open named spans, and count what crosses them:
   first ``record_function`` sets itself up for ~1 ms in between).
 - ``count(name, n)``: adds to the cumulative counters, whether or not a
   session runs, and, while recording, to the innermost open span's counts.
+- ``count_device(name, n)``: adds a device tensor's value to a counter on
+  its device, with no wait; ``counters()`` reads the sum.
 - ``counters()``: a snapshot of the cumulative counters, with the counts
   the program keeps elsewhere read from where their readers read them: the
   xcorr wrappers' ``launches`` and ``packed_launches``
@@ -38,7 +40,12 @@ runtime's waits on the device a frame); ``step_graph.captures`` and
 ``all_reduce_bytes`` (every collective's payload); ``conv.channels_last``
 and ``conv.contiguous`` (the model's conv calls by the memory layout of
 their input, ``models/resnet.py`` ``Conv2d``; a captured graph counts its
-convs at capture).
+convs at capture); ``sam2.memory_keys`` (the keys SAM 2's memory attention
+attends, summed over object-frames), and on the device ``sam2.no_object``
+and ``sam2.multimask_switch`` (``tracker/sam2.py``). SAM 2's spans are
+``sam2.image_encoder``, ``sam2.memory_attention``, ``sam2.mask_decoder``,
+``sam2.memory_encoder`` and ``sam2.bank_update`` (eager frames); its
+full-bank frames replay a ``StepGraph`` under the ``step_graph`` spans.
 
 A span's name is ``<layer>.<what>``, its layer one of ``LAYERS``: that is
 how ``tools/trace_report.py`` tells the program's spans from others.
@@ -54,10 +61,11 @@ import time
 import torch
 from torch.autograd import profiler as _profiler
 
-LAYERS = ("vos", "tracker", "step_graph", "runtime", "train", "dist", "model")
+LAYERS = ("vos", "tracker", "step_graph", "runtime", "train", "dist", "model", "sam2")
 LOG_LIMIT = 200_000
 
 _counters: collections.Counter = collections.Counter()
+_device_counts: dict = {}             # name -> a device tensor, summed there
 _counters_lock = threading.Lock()     # sync-BN's backward counts on autograd's thread
 _log: collections.deque = collections.deque(maxlen=LOG_LIMIT)
 _ids = itertools.count()
@@ -187,6 +195,21 @@ def count(name: str, n: int = 1) -> None:
             counts[name] = counts.get(name, 0) + n
 
 
+def count_device(name: str, n: torch.Tensor) -> None:
+    """Add the device value ``n`` to the counter ``name`` on its device, in
+    place and with no wait: ``counters()`` reads the sum (one wait there).
+    A CUDA-graph capture records the addition, so each replay counts; while
+    ``paused`` outside a capture (a graph's warm-up) nothing is counted."""
+    if _paused and not (n.is_cuda and torch.cuda.is_current_stream_capturing()):
+        return
+    with _counters_lock:
+        total = _device_counts.get(name)
+        if total is None:
+            _device_counts[name] = n.detach().long().clone()
+        else:
+            total.add_(n.detach())
+
+
 def counters() -> dict:
     """The cumulative counters, and the xcorr wrappers' launch counts and
     ``_all_reduce.calls`` as their attributes hold them."""
@@ -195,6 +218,9 @@ def counters() -> dict:
 
     with _counters_lock:
         out = dict(_counters)
+        device = dict(_device_counts)
+    for name, n in device.items():
+        out[name] = out.get(name, 0) + int(n)
     for fn in (xcorr.depthwise_xcorr, xcorr.depthwise_xcorr_grad_input,
                xcorr.depthwise_xcorr_grad_kernel):
         out[f"{fn.__name__}.launches"] = fn.launches
