@@ -165,12 +165,21 @@ def _dense_conv_flop(x_shape, w_shape, _bias, _stride, _padding, _dilation, tran
     return conv_flop_count(x_shape, w_shape, out_shape, transposed=transposed)
 
 
+def _fused_conv_flop(x_shape, w_shape, *_args, out_shape=None, **_kwargs) -> int:
+    """cuDNN's fused conv + bias (+ add) + ReLU of a folded conv -> BN pair
+    (``ops/bn_fold.py``): its conv's FLOPs, as an unfolded pair's."""
+    from torch.utils.flop_counter import conv_flop_count
+    return conv_flop_count(x_shape, w_shape, out_shape, transposed=False)
+
+
 def count_flops(fn):
     """(dense conv and matmul FLOPs of one call of ``fn``, its result), as
     ``torch.utils.flop_counter`` counts them with grouped convs left out."""
     from torch.utils.flop_counter import FlopCounterMode
     aten = torch.ops.aten
-    mapping = {aten.convolution: _dense_conv_flop, aten._convolution: _dense_conv_flop}
+    mapping = {aten.convolution: _dense_conv_flop, aten._convolution: _dense_conv_flop,
+               aten.cudnn_convolution_relu: _fused_conv_flop,
+               aten.cudnn_convolution_add_relu: _fused_conv_flop}
     with FlopCounterMode(display=False, custom_mapping=mapping) as counter:
         result = fn()
     return counter.get_total_flops(), result

@@ -6,6 +6,8 @@ module names (``downsample.{0,1}``, ``conv_kernel``/``conv_search``/``head``,
 
 - ``ResDownS``: 1x1 conv + BN, cropping a 4 px border when the map is
   narrower than 20 px (template 15x15 -> 7x7).
+- Every conv -> BN (-> ReLU) runs through ``resnet.conv_bn``: on a card
+  with eval-mode BN, one call of the folded conv (``ops/bn_fold.py``).
 - ``DepthCorr``: 3x3 conv+BN+ReLU on each side, the depthwise
   cross-correlation (``ops/xcorr.py``, NHWC), then a 1x1 head.
 - ``UP``: the cls (2k channels) and loc (4k channels) DepthCorrs.
@@ -26,7 +28,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from siammask_tpu_torch.models.resnet import BatchNorm2d, Conv2d
+from siammask_tpu_torch.models.resnet import BatchNorm2d, Conv2d, conv_bn
 from siammask_tpu_torch.ops.layout import memory_format
 from siammask_tpu_torch.ops.resize import upsample_nearest
 from siammask_tpu_torch.ops.unfold import unfold_windows
@@ -42,19 +44,35 @@ class ResDownS(nn.Module):
             BatchNorm2d(out_channels))
 
     def forward(self, x):
-        x = self.downsample(x)
+        x = conv_bn(*self.downsample, x, relu=False)
         if x.shape[3] < 20:
             x = x[:, :, 4:-4, 4:-4]
         return x
 
 
 class ConvBNRelu(nn.Sequential):
-    """Unpadded conv (no bias) + BN + ReLU."""
+    """Unpadded conv (no bias) + BN + ReLU (``resnet.conv_bn``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
                  dtype: torch.dtype | None = None):
         super().__init__(Conv2d(in_channels, out_channels, kernel, bias=False, dtype=dtype),
                          BatchNorm2d(out_channels), nn.ReLU(inplace=True))
+
+    def forward(self, x):
+        return conv_bn(self[0], self[1], x)
+
+
+class CorrHead(nn.Sequential):
+    """DepthCorr's head: 1x1 conv (no bias) + BN + ReLU (``resnet.conv_bn``),
+    then the 1x1 output conv with its bias."""
+
+    def __init__(self, hidden: int, out_channels: int, dtype: torch.dtype | None = None):
+        super().__init__(Conv2d(hidden, hidden, 1, bias=False, dtype=dtype),
+                         BatchNorm2d(hidden), nn.ReLU(inplace=True),
+                         Conv2d(hidden, out_channels, 1, dtype=dtype))
+
+    def forward(self, x):
+        return self[3](conv_bn(self[0], self[1], x))
 
 
 class DepthCorr(nn.Module):
@@ -65,9 +83,7 @@ class DepthCorr(nn.Module):
         super().__init__()
         self.conv_kernel = ConvBNRelu(in_channels, hidden, kernel_size, dtype)
         self.conv_search = ConvBNRelu(in_channels, hidden, kernel_size, dtype)
-        self.head = nn.Sequential(Conv2d(hidden, hidden, 1, bias=False, dtype=dtype),
-                                  BatchNorm2d(hidden), nn.ReLU(inplace=True),
-                                  Conv2d(hidden, out_channels, 1, dtype=dtype))
+        self.head = CorrHead(hidden, out_channels, dtype)
 
     def forward_corr(self, kernel, search):
         """NCHW in and out, in the search map's memory layout. The xcorr

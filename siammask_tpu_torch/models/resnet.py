@@ -34,6 +34,16 @@ parameters' dtype, float32, or float64 after ``model.double()``.
 The maps keep their input's memory layout (``ops/layout.py``): NHWC memory
 (channels_last) where the tracker's crops and the trainer's batches come
 from a card, NCHW on the CPU.
+
+Each conv -> BN (-> + residual) (-> ReLU) runs through ``conv_bn``: where
+the pair folds (``folds``: BN in eval mode, no gradient through the pair,
+no hook on either module, a CUDA input) it is one cuDNN call of the folded
+weight and bias (``ops/bn_fold.py``), kept beside the conv
+(``Conv2d.bn_folds``), and counted in ``conv.bn_folded``; otherwise the two
+modules run as they are. Training (train-mode BN, gradients) and the CPU
+take the second path; the tracker on a card, and the trainer's frozen
+stages there, the first. A block with a downsample runs it bias-free when
+both its pairs fold, its folded bias added into conv3's.
 """
 from __future__ import annotations
 
@@ -41,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from siammask_tpu_torch.ops import bn_fold
 from siammask_tpu_torch.ops.layout import memory_format
 from siammask_tpu_torch.utils import trace
 
@@ -57,20 +68,85 @@ class Conv2d(nn.Conv2d):
     channels_last input meets a channels_last weight and gives a
     channels_last output: cuDNN transposes neither. The parameters stay as
     they are stored (NCHW-contiguous). Each call counts its input's layout
-    in the trace counter ``conv.channels_last`` or ``conv.contiguous``."""
+    in the trace counter ``conv.channels_last`` or ``conv.contiguous``.
+
+    ``folded`` runs it with a BatchNorm folded in; ``bn_folds`` keeps the
+    folded weights (``ops/bn_fold.py``)."""
 
     def __init__(self, *args, dtype: torch.dtype | None = None, **kwargs):
         super().__init__(*args, **kwargs)
         self.dtype = dtype
+        self.bn_folds = bn_fold.FoldCache()
 
-    def forward(self, x):
+    def _input(self, x):
+        """``x`` in the compute dtype, and its memory layout, counted."""
         fmt = memory_format(x)
         trace.count("conv.channels_last" if fmt is torch.channels_last else "conv.contiguous")
+        return (x if self.dtype is None else x.to(self.dtype)), fmt
+
+    def forward(self, x):
+        x, fmt = self._input(x)
         if self.dtype is None:
             return self._conv_forward(x, self.weight.to(memory_format=fmt), self.bias)
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        return self._conv_forward(x.to(self.dtype),
-                                  self.weight.to(self.dtype, memory_format=fmt), bias)
+        return self._conv_forward(x, self.weight.to(self.dtype, memory_format=fmt), bias)
+
+    def folded(self, bn: nn.BatchNorm2d, x, relu: bool = True, z=None, bias: bool = True,
+               merge: nn.Module | None = None):
+        """This bias-free conv with the eval-mode ``bn`` folded into it, one
+        call (``ops/bn_fold.py`` ``conv_bias_relu``): ``relu`` and ``z`` as
+        ``conv_bn``. ``bias=False`` leaves the folded bias out (a downsample
+        whose bias the block's conv3 adds); ``merge``, such a downsample's
+        (conv, BN) pair, whose folded bias is added to this pair's. The
+        folded weight is in the compute dtype and the input's layout."""
+        x, fmt = self._input(x)
+        dtype = x.dtype
+        pairs = ((self, bn),) if merge is None else ((self, bn), tuple(merge))
+
+        def sources():
+            return tuple(t for c, n in pairs
+                         for t in (c.weight, n.weight, n.bias, n.running_mean, n.running_var))
+
+        def make(*src):
+            weight, b = bn_fold.fold(*src[:5], bn.eps)
+            if merge is not None:
+                b = b + bn_fold.fold(*src[5:], merge[1].eps)[1]
+            return weight.to(dtype, memory_format=fmt), b.to(dtype)
+
+        weight, b = self.bn_folds.get((x.device, dtype, fmt, merge is not None), sources, make)
+        trace.count("conv.bn_folded")
+        return bn_fold.conv_bias_relu(x, weight, b if bias else None, self.stride, self.padding,
+                                      self.dilation, z, relu)
+
+
+def folds(conv: Conv2d, bn: nn.BatchNorm2d, x) -> bool:
+    """Whether the pair ``conv`` -> ``bn`` on the input ``x`` runs folded:
+    its BN normalises with its running statistics (eval mode); no gradient
+    flows through it (autograd is off, or neither its parameters nor ``x``
+    ask for one); no forward hook or pre-hook watches either module (a
+    hook sees the module's own input and output, which a fused call has
+    not); and ``x`` lies where cuDNN runs the fused call (``bn_fold.
+    DEVICES``: a card). Otherwise the two modules run as they are."""
+    if bn.training or x.device.type not in bn_fold.DEVICES:
+        return False
+    if conv._forward_hooks or conv._forward_pre_hooks or bn._forward_hooks \
+            or bn._forward_pre_hooks:
+        return False
+    return not (torch.is_grad_enabled() and (
+        x.requires_grad or conv.weight.requires_grad or bn.weight.requires_grad
+        or bn.bias.requires_grad))
+
+
+def conv_bn(conv: Conv2d, bn: nn.BatchNorm2d, x, relu: bool = True, z=None):
+    """``conv`` then ``bn``, then ``+ z`` where given, then ReLU where
+    ``relu``: one fused call where the pair folds (``folds``), else the two
+    modules, the add and the ReLU in turn."""
+    if folds(conv, bn, x):
+        return conv.folded(bn, x, relu, z)
+    out = bn(conv(x))
+    if z is not None:
+        out = out + z
+    return F.relu(out, inplace=True) if relu else out
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -115,16 +191,24 @@ class Bottleneck(nn.Module):
         self.bn2 = BatchNorm2d(planes)
         self.conv3 = Conv2d(planes, planes * 4, 1, bias=False, dtype=dtype)
         self.bn3 = BatchNorm2d(planes * 4)
-        self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
     def forward(self, x):
         with trace.span(self.span):
-            residual = x if self.downsample is None else self.downsample(x)
-            out = self.relu(self.bn1(self.conv1(x)))
-            out = self.relu(self.bn2(self.conv2(out)))
-            out = self.bn3(self.conv3(out))
-            return self.relu(out + residual)
+            ds = self.downsample
+            fold_ds = ds is not None and folds(*ds, x)
+            # an unfolded downsample runs first, as it always has: hooks on
+            # the BNs see them in that order
+            residual = ds(x) if ds is not None and not fold_ds else x
+            out = conv_bn(self.conv1, self.bn1, x)
+            out = conv_bn(self.conv2, self.bn2, out)
+            if not fold_ds:
+                return conv_bn(self.conv3, self.bn3, out, z=residual)
+            if folds(self.conv3, self.bn3, out):
+                # the residual's bias rides in conv3's epilogue: no pass of its own
+                residual = ds[0].folded(ds[1], x, relu=False, bias=False)
+                return self.conv3.folded(self.bn3, out, z=residual, merge=ds)
+            return conv_bn(self.conv3, self.bn3, out, z=ds[0].folded(ds[1], x, relu=False))
 
 
 def _make_layer(inplanes: int, planes: int, blocks: int, stride: int = 1,
@@ -158,7 +242,6 @@ class ResNet50Tracking(nn.Module):
         w = width
         self.conv1 = Conv2d(3, w, 7, stride=2, padding=0, bias=False, dtype=dtype)
         self.bn1 = BatchNorm2d(w)
-        self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         self.layer1 = _make_layer(w, w, 3, dtype=dtype)
         self.layer2 = _make_layer(4 * w, 2 * w, 4, stride=2, dtype=dtype)
@@ -191,7 +274,7 @@ class ResNet50Tracking(nn.Module):
 
     def forward(self, x):
         with trace.span("model.backbone.stem"):
-            p0 = self.relu(self.bn1(self.conv1(x)))
+            p0 = conv_bn(self.conv1, self.bn1, x)
         p1 = self.layer1(self.maxpool(p0))
         p2 = self.layer2(p1)
         p3 = self.layer3(p2)

@@ -62,7 +62,7 @@ import torch
 from siammask_tpu_torch.config import TrackerConfig
 from siammask_tpu_torch.models.siammask import (SiamMaskBase, SiamMaskSharp, TrackOutputs,
                                                 at_cells)
-from siammask_tpu_torch.ops import _build
+from siammask_tpu_torch.ops import _build, bn_fold
 from siammask_tpu_torch.ops.layout import model_input
 from siammask_tpu_torch.ops.sample import subwindow_crop, warp_back_mask
 from siammask_tpu_torch.ops.xcorr import depthwise_xcorr
@@ -285,6 +285,15 @@ class Tracker(StepGraphs):
     def _before_capture(self, im_h: int, im_w: int) -> None:
         self._clamps(im_h, im_w)        # a host-to-device copy: never under capture
         _build.load_library()           # nvcc runs at first use, never under capture
+
+    def step_graph(self, states: tuple, frames: torch.Tensor) -> StepGraph:
+        """``StepGraphs.step_graph``, after the model's folded BatchNorm
+        weights (``ops/bn_fold.py``) are brought up to its parameters and
+        statistics, in place: a replay reads them and runs no Python, so a
+        change since the last call (a calibration, ``load_state_dict``)
+        is taken here, before the capture and before every run."""
+        bn_fold.refresh(self.model)
+        return super().step_graph(states, frames)
 
     # ---------------- init ----------------
 

@@ -40,7 +40,9 @@ runtime's waits on the device a frame); ``step_graph.captures`` and
 ``all_reduce_bytes`` (every collective's payload); ``conv.channels_last``
 and ``conv.contiguous`` (the model's conv calls by the memory layout of
 their input, ``models/resnet.py`` ``Conv2d``; a captured graph counts its
-convs at capture); ``sam2.memory_keys`` (the keys SAM 2's memory attention
+convs at capture); ``conv.bn_folded`` (the conv -> BN pairs that ran as one
+call of the folded conv, ``models/resnet.py`` ``conv_bn``; the same at
+capture); ``sam2.memory_keys`` (the keys SAM 2's memory attention
 attends, summed over object-frames), and on the device ``sam2.no_object``
 and ``sam2.multimask_switch`` (``tracker/sam2.py``). SAM 2's spans are
 ``sam2.image_encoder``, ``sam2.memory_attention``, ``sam2.mask_decoder``,
