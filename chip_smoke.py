@@ -1,10 +1,17 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA card: ``python3 chip_smoke.py``.
+"""Card checks of the PyTorch port on one NVIDIA card: ``python3 chip_smoke.py``.
 
 Drives the port's main paths at the published width (64; 127x127
 template, 255x255 search, 25x25x5 anchors) in fp32 with TF32 off, and then
 in the bf16 compute mode (bf16 activations over float32 weights), on
-synthetic uint8 frames made from a numpy seed, with seeded random weights:
+synthetic uint8 frames made from a numpy seed, with seeded random weights
+(``tests/_torch_weights.py``), and checks each against a reference: its
+plain version, the eager loop, the CPU, the fp32 run or the JAX recipe's
+numbers. It measures no speed of the port: ``perfbench/run.py`` does. Its
+only times are the hand-written kernels' own (phases 3 and 4) beside their
+bounds and the one library call that computes the same function.
+
+The paths:
 
 - the SiamMask-sharp track step (``Tracker.init`` / ``Tracker.step``,
   127x127 masks) on 480x854 frames;
@@ -82,126 +89,106 @@ Phases, each of which raises on failure:
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
 6. the same track step on the card and on the CPU from the same state, open
    loop;
-7. per-step track latency and frames/s on the card;
-8. the video: ``track_video`` over 64 frames on the card against the eager
+7. the video: ``track_video`` over 64 frames on the card against the eager
    ``step`` loop from the same state (the same ``best_id`` at every frame,
    every output bit-identical), one call under ``sync_debug_mode("error")``,
-   3 xcorr kernels a frame, frames/s (median of 5 calls by CUDA events), and
-   device ms a frame, idle share and host calls a frame from one profiled
-   call; peak memory;
-9. 16 streams: ``init_batched`` (centres U(100, 400), sizes U(60, 200)),
+   3 xcorr kernels a frame by name in a profiled call;
+8. 16 streams: ``init_batched`` (centres U(100, 400), sizes U(60, 200)),
    ``step_batched`` with 3 xcorr launches at B=16 and each stream against
    the single-stream ``step`` from the same state, ``track_video_multi``
    over 32 frames against the eager ``step_batched`` loop (bit-identical),
-   aggregate frames/s, the profile of one batched step (top 10 device ops,
-   busy share) and of one graph call; peak memory;
-10. ``step_batched`` at O=2 on the card and on the CPU from the same state,
-    open loop; then the device time of each layer of the step (crop,
-    backbone and heads, decode tail, skip windows, Refine, warp-back, the
-    rest) at O=1 and O=16, on the step's own intermediates;
-11. the VOS drivers: ``track_vos_batched`` (ragged stretches through
+   3 xcorr kernels a frame by name in a profiled graph call;
+9. ``step_batched`` at O=2 on the card and on the CPU from the same state,
+   open loop;
+10. the VOS drivers: ``track_vos_batched`` (ragged stretches through
     ``step_batched``, one full window through the graph, a re-init at the
     late start; 3 xcorr launches a frame) against ``track_vos``, the late
-    object absent before its start, object-frames/s; skipped, with a line
-    that says so, where cv2 or PIL is not installed; then ``[bf16-vos]``:
-    the batched driver with a bf16 twin of the weights, its per-object mean
-    IoU beside the fp32 run's and the two runs' fused masks' IoU;
-12. ``[rpn]``: SiamRPN (``experiments/siamrpn_resnet/config.json``, BN
-    calibrated as for sharp) as phases 5, 6 and 8 run sharp: init + steps
+    object absent before its start; skipped, with a line that says so,
+    where cv2 or PIL is not installed; then ``[bf16-vos]``: the batched
+    driver with a bf16 twin of the weights, its per-object mean IoU beside
+    the fp32 run's and the two runs' fused masks' IoU;
+11. ``[rpn]``: SiamRPN (``experiments/siamrpn_resnet/config.json``, BN
+    calibrated as for sharp) as phases 5, 6 and 7 run sharp: init + steps
     with 2 xcorr launches a step, one under ``sync_debug_mode("error")``;
     one step card vs CPU; ``track_video`` over 64 frames through the graph,
-    bit-identical to the eager loop, frames/s, profile (2 xcorr kernels a
-    frame by name), peak memory;
-13. ``[base]``: SiamMask-base with ``refine=False``
+    bit-identical to the eager loop, 2 xcorr kernels a frame by name;
+12. ``[base]``: SiamMask-base with ``refine=False``
     (``experiments/siammask_base/config.json``, out_size 63), the same with 3
     launches a step, and ``step_batched`` at O=2 card vs CPU;
-14. ``[vot]``: ``track_vot`` for sharp (mask + Refine), base (mask) and
+13. ``[vot]``: ``track_vot`` for sharp (mask + Refine), base (mask) and
     SiamRPN (box) on two 40-frame 480x854 VOT2018-layout videos; in one the
     target and its gt jump far outside the search region at frame 20, which
     forces a lost frame (2), four skipped (0) and a re-init (1) whatever the
     weights (the box heads damped by ``damp_box_head``, so that the target is
     still held when the jump comes and the forced sequence shows; other
     losses may occur and are counted); the region library built before the
-    drivers' clocks start, its build time printed; the result files checked
-    line by line, the xcorr launches against the stepped frames, the region
-    overlap's host us a call; then the CLI's ``main`` with the sharp weights as a ``.pth``, its
-    results against the driver's; cv2 is required; the data, the result
-    trees and the sharp ``.pth`` stay for phases 15-16; then ``[bf16-vot]``:
-    the three drivers with bf16 twins of the same weights, each video's
-    lost count equal to the fp32 run's, the largest drift in px between the
-    bf16 and fp32 regions' centres; then ``[bf16]``: SiamMask-sharp in bf16
-    (the calibrated weights, their cls head sharpened: ``sharpen_cls_head``)
-    as phases 5, 6, 8 and 9 run it in fp32, card vs CPU at bf16 tolerances
-    (``BF16_*``; ``[bf16-parity]``, which also prints the size difference
-    as a share of the size over the first six steps from init:
-    ``bf16_size_shares``), the graph videos
-    bit-identical to their eager loops and every traced xcorr kernel the
-    packed bf16 kernel, and SiamRPN and base graph videos in bf16, each
-    timing beside its fp32 phase's;
-15. ``[tune]``: ``tools.tune.main`` with that ``.pth`` (SiamMask-sharp at
+    drivers run; the result files checked line by line, the xcorr launches
+    against the stepped frames; then the CLI's ``main`` with the sharp
+    weights as a ``.pth``, its results against the driver's; cv2 is
+    required; the data, the result trees and the sharp ``.pth`` stay for
+    phases 14-15; then ``[bf16-vot]``: the three drivers with bf16 twins of
+    the same weights, each video's lost count equal to the fp32 run's, the
+    largest drift in px between the bf16 and fp32 regions' centres; then
+    ``[bf16]``: SiamMask-sharp in bf16 (the calibrated weights, their cls
+    head sharpened: ``sharpen_cls_head``) as phases 5, 6, 7 and 8 run it in
+    fp32, card vs CPU at bf16 tolerances (``BF16_*``; ``[bf16-parity]``,
+    which also prints the size difference as a share of the size over the
+    first six steps from init: ``bf16_size_shares``), the graph videos
+    bit-identical to their eager loops and every xcorr kernel in their
+    traces the packed bf16 kernel, and SiamRPN and base graph videos in
+    bf16;
+14. ``[tune]``: ``tools.tune.main`` with that ``.pth`` (SiamMask-sharp at
     width 64): a VOT grid over the two videos (penalty_k 0.04 / 0.12 x lr
     0.30 / 0.45 at instance_size 255, then one cell at 271; EAO over frames
     1-40, since the standard 100-356 window is empty on 40 frames) and a VOS
-    grid over phase 11's video (seg_thr 0.30 / 0.40, ``track_vos_batched``);
-    each cell's score, wall s and frames/s on the drivers' clocks, the chosen
-    cells, the xcorr launches against the frames stepped, peak and allocated
-    memory after the first and the last cell (no runtime outlives its cell);
-    the VOT grid run again over the same out-dir scores 0 cells (the claim
-    protocol);
-16. ``[eval]``: ``tools.eval.main`` (a spawned process pool; no card) over
-    phase 15's VOT tree (each cell's EAO equal to the score ``tune``
-    recorded), phase 14's trees (each family's lost number equal to its
-    driver's, the CLI's too) and phase 11's fused PNGs beside a copy of the
-    annotations (J and F in [0, 1]; the copy J = F = 1); the CLI's wall s a
-    tree;
-17. the training slice: per step finite losses, no skip, 3 + 3 + 3 kernel
+    grid over phase 10's video (seg_thr 0.30 / 0.40, ``track_vos_batched``);
+    each cell's score, the chosen cells, the xcorr launches against the
+    frames stepped, the memory allocated after the first and the last cell
+    (no runtime outlives its cell); the VOT grid run again over the same
+    out-dir scores 0 cells (the claim protocol);
+15. ``[eval]``: ``tools.eval.main`` (a spawned process pool; no card) over
+    phase 14's VOT tree (each cell's EAO equal to the score ``tune``
+    recorded), phase 13's trees (each family's lost number equal to its
+    driver's, the CLI's too) and phase 10's fused PNGs beside a copy of the
+    annotations (J and F in [0, 1]; the copy J = F = 1);
+16. the training slice: per step finite losses, no skip, 3 + 3 + 3 kernel
     launches, the frozen stages bit-identical and the trainable ones moved;
-    then the loss falling over 8 steps on the repeated batch; peak memory;
-18. one training step on the card and on the CPU from the same weights and
+    then the loss falling over 8 steps on the repeated batch;
+17. one training step on the card and on the CPU from the same weights and
     batch (B=2), open loop;
-19. the profile of one frozen and one unfrozen step (no backbone backward
-    while frozen), and train ms/step and samples/s; then ``[bf16-train]``:
-    the same step computing in bf16 from the same weights, its first step
-    against the fp32 one (loss, update cosine), 2 frozen and 2 unfrozen
-    steps with 3 / 3 / 3 bf16 launches, ms/step and peak memory beside the
-    fp32 ones; then ``[trace]``: the Chrome traces of the fp32 and bf16 sharp
-    videos' and the bf16 16-stream call's profiles (phases 8 and 14) and of
-    a frozen fp32 and bf16 step read by ``tools.trace_report``: device ms
-    and share by category (cuDNN conv passes, GEMM, BN, dtype casts,
-    NCHW<->NHWC transposes, copies and memsets, reduce/pool, elementwise,
-    each xcorr kernel, collectives), the idle time in the trace's window
-    with its three longest gaps and its gaps by size, the busy time against
-    the untraced call's; the xcorr rows must count the kernels the profiles
-    found and the device time be within 2% of the profile's;
-20. ``[data]``: 8 batches of 64 from ``PairDataset(seed)`` through
+18. the profile of one frozen and one unfrozen step (no backbone backward
+    while frozen); then ``[bf16-train]``: the same step computing in bf16
+    from the same weights, its first step against the fp32 one (loss,
+    update cosine), 2 frozen and 2 unfrozen steps with 3 / 3 / 3 bf16
+    launches, and a profiled step whose xcorr kernels are all packed;
+19. ``[data]``: 8 batches of 64 from ``PairDataset(seed)`` through
     ``DataLoader`` for the stage-2 and the SiamRPN config, with thread and
-    with process workers (min(16, cores)): samples/s of each, the host's
-    cores, the two modes' batches bit-identical;
-21. ``[train-refine]``: stage 2 warm-started from the stage-1 trainer's
+    with process workers (min(16, cores)): the two modes' batches
+    bit-identical;
+20. ``[train-refine]``: stage 2 warm-started from the stage-1 trainer's
     checkpoint (``merge_state_dict`` reports exactly the ``refine_model.*``
     entries missing), 4 steps on loader batches through ``to_device`` with
     3 / 1 / 1 launches each, backbone, neck and RPN bit-identical
     (parameters and BN buffers), the unused mask head moved by weight decay
     alone; the loss over 8 repeated steps; card vs CPU at B=2, both held to
-    the CPU's float64 step; a profile (idle share, top 10) and ms/step,
-    samples/s and peak memory; then ``[bf16-train-refine]``: the same task
-    in bf16 from the same warm start and loader batch, its first step
-    against the fp32 one (loss, update cosine; ``bf16_first_step``), two
-    more steps with 3 / 1 / 1 launches, all of them the packed bf16 kernels,
-    ms/step and peak memory beside the fp32 ones;
-22. ``[train-rpn]``: SiamRPN, 2 frozen and 2 unfrozen steps on loader
-    batches with 2 / 2 / 2 launches each, card vs CPU at B=2, a profile and
-    the timings of each phase; then ``[bf16-train-rpn]`` as
-    ``[bf16-train-refine]`` (a frozen first step, a frozen and an unfrozen
-    one after it, 2 / 2 / 2 launches, both phases timed);
-23. ``[train-resume]``: 2 SiamRPN steps, a checkpoint, ``Trainer.restore``
+    the CPU's float64 step; the xcorr kernels by name in a profile; then
+    ``[bf16-train-refine]``: the same task in bf16 from the same warm start
+    and loader batch, its first step against the fp32 one (loss, update
+    cosine; ``bf16_first_step``), two more steps with 3 / 1 / 1 launches,
+    all of them the packed bf16 kernels;
+21. ``[train-rpn]``: SiamRPN, 2 frozen and 2 unfrozen steps on loader
+    batches with 2 / 2 / 2 launches each, card vs CPU at B=2, the xcorr
+    kernels by name in a profile of each phase; then ``[bf16-train-rpn]``
+    as ``[bf16-train-refine]`` (a frozen first step, a frozen and an
+    unfrozen one after it, 2 / 2 / 2 launches);
+22. ``[train-resume]``: 2 SiamRPN steps, a checkpoint, ``Trainer.restore``
     into a fresh trainer, then step 3 bit-identical (weights, BN statistics,
     momentum) to the uninterrupted run, in phase and across the unfreeze
     boundary (where the restore warns and momentum restarts);
-24. ``[train-cli]``: ``tools.train.main`` for SiamMask-base (one epoch of 2
+23. ``[train-cli]``: ``tools.train.main`` for SiamMask-base (one epoch of 2
     steps), then ``sharp_refine --pretrained`` its checkpoint, then
     ``--resume``: finite losses and a checkpoint from each;
-25. ``[dp]`` (run after phase 19): SiamMask-base stage 1 from phase 17's
+24. ``[dp]`` (run after phase 18): SiamMask-base stage 1 from phase 16's
     weights at global batch 64: the default mode over a world-1 NCCL group
     bit-identical to the no-group step (deterministic cuDNN), frozen and
     unfrozen; two spawned ranks sharing card 0 over gloo, 32 rows each, in
@@ -212,23 +199,22 @@ Phases, each of which raises on failure:
     PyTorch's native convs, its float32 rounding), the fused modes' update
     direction against the default mode's (cos > 0.98 where the JAX tests
     hold it), the ranks' states bit-identical, 3 / 3 / 3 launches a step a
-    rank, collectives a step and ms a step per mode; with two cards or more,
-    NCCL over up to four at global batch 64 and 256 against one card
-    (samples/s, scaling), then ``tools.train --num-devices`` over all; then
+    rank, collectives a step; with two cards or more, NCCL over up to four
+    and over one at global batch 64 and 256 (the ranks' states
+    bit-identical), then ``tools.train --num-devices`` over all; then
     ``[bf16-dp]``: the two ranks, three modes and two steps again on the
     bf16 twin of the weights, every launch packed, the default mode held to
     the single-process bf16 step within this run's bf16 noise (its updates
     and BN statistics no further from it than it is from the float32 step,
-    the loss within 1e-3), the fused modes by direction, ms a step beside
-    ``[dp]``'s; with two cards or more, NCCL bf16 scaling beside float32's;
-26. ``[overfit]`` (run after phase 24): ``siammask_tpu_torch.tools.overfit
+    the loss within 1e-3), the fused modes by direction; with two cards or
+    more, NCCL in bf16 as in float32;
+25. ``[overfit]`` (run after phase 23): ``siammask_tpu_torch.tools.overfit
     --prepare --train --evaluate --task mask`` at width 64 with the tool's
     schedule (stage 1: 16 epochs of 64 steps of 8 across the unfreeze;
     stage 2: 24 epochs) on a 70-frame 480x854 clip written under
     ``build/`` (``write_overfit_clip``: a textured ellipse along the
     tool's keyframe boxes), the train CLI's logs in a file there: the
-    wall s of each stage, each train run's samples/s on its own clock,
-    the report's fit and held-out numbers, which must clear
+    report's fit and held-out numbers, which must clear
     ``tests/test_overfit_artifact.py``'s thresholds (mask and total loss
     under init's / 10; held-out mean IoU over init's + 0.2 and over 0.5;
     no more lost frames than init's), and stage 1's log must show the
@@ -241,7 +227,7 @@ Phases, each of which raises on failure:
     the xcorr launches of the tool's
     own process (its lr-0 train steps and tracking), every kernel at
     least once;
-27. ``[sharded]``: SiamMask-sharp, 16 streams on 480x854 frames over 32,
+26. ``[sharded]``: SiamMask-sharp, 16 streams on 480x854 frames over 32,
     through ``ShardedStreamServer`` over [cuda:0, cuda:0]: bit-identical to
     each replica's tracker on its 8 streams; against the unsharded
     ``track_video_multi`` at O=16 the same best_id at every frame and
@@ -250,20 +236,10 @@ Phases, each of which raises on failure:
     frame within them once the unsharded cell masks are warped at the
     sharded run's positions (the warp at the unsharded positions is printed
     beside: a position within its tolerance moves the pixels on a mask's
-    edge); 3 xcorr
-    kernels a frame a replica by name in a profile, aggregate frames/s of
-    both; with two cards or more, 16 streams a card over all of them
-    against one card.
-28. ``[bench]``: ``python3 -m siammask_tpu_torch.bench --summary --iters
-    BENCH_ITERS`` (its five rows in bf16, each in its own process) and its
-    scan row with ``--fp32``: every row a value above 0 from at least 5
-    windows, with the card's name and power limit; every xcorr launch of
-    its timed windows a kernel's (3 forward a frame; a training step's
-    forward and gradient launches), all packed in bf16 and none in fp32,
-    where TF32 must be off; each row's ms beside this run's ``[bf16]``,
-    ``[bf16-streams]``, ``[bf16-train]``, ``[bf16-train-refine]`` or
-    ``[video]`` ms of the same work.
-29. ``[metric-parity]`` (run after phase 16):
+    edge); 3 xcorr kernels a frame a replica by name in a profile; with
+    two cards or more, 16 streams a card over all of them, card 0's
+    against one card;
+27. ``[metric-parity]`` (run after phase 15):
     ``siammask_tpu_torch.tools.metric_parity`` on SiamMask-sharp at width
     64, seeded weights tempered on the card (LSUV): the card in float32
     makes the pseudo-benchmark (two 105-frame videos that reorder the
@@ -278,21 +254,19 @@ Phases, each of which raises on failure:
     frames are printed; then the mask-polygon protocol and VOS fusion in
     float32 and bf16 on the card, EAO/A/lost and J/F printed with their
     deltas, not held; xcorr launches 2 a tracked frame in box mode and 3
-    with the mask, packed in bf16; the phase's wall time.
+    with the mask, packed in bf16.
 
 Before the card's line, ``[time]`` gives the seconds the script held the
 card. The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel with its launches on the main paths, error, times, bound and
 the time of the one library call (cuDNN's grouped conv) that computes the
 same function, with ``launches_by_path`` (track, video, streams16, vos,
-rpn, base, vot, tune, train, train_refine, train_rpn, dp: rank 0's of the
-two-rank run, overfit: the overfit tool's scoring, not its train CLI
-subprocesses, sharded, and the bf16 paths bf16_track, bf16_video,
-bf16_streams16, bf16_rpn, bf16_base, bf16_vos, bf16_vot, bf16_train,
-bf16_train_refine, bf16_train_rpn, bf16_dp: rank 0's of the two-rank
-run, and the bench's rows' timed windows: bf16_bench_scan,
-bf16_bench_serving_16streams, bf16_bench_train_frozen,
-bf16_bench_train_unfrozen, bf16_bench_train_refine and bench_scan_fp32).
+rpn, base, vot, tune, metric_parity, train, train_refine, train_rpn, dp:
+rank 0's of the two-rank run, overfit: the overfit tool's scoring, not its
+train CLI subprocesses, sharded, and the bf16 paths bf16_track,
+bf16_video, bf16_streams16, bf16_rpn, bf16_base, bf16_vos, bf16_vot,
+bf16_metric_parity, bf16_train, bf16_train_refine, bf16_train_rpn,
+bf16_dp: rank 0's of the two-rank run).
 The kernels are the fp32 forward,
 grad-input and grad-kernel (``bf16_scalar``: their bf16
 instantiation's times at B=1, 16, 64 and stage 2's shape, on inputs at a
@@ -306,8 +280,9 @@ kernels on the fp32 ones, which the wrappers' ``packed_launches`` counts
 and the graphs' ``xcorr_packed_launches`` confirm (``check_route``). A kernel captured in a
 CUDA graph passes through its wrapper (and its count) once, at capture; on
 the graph paths its launches are the captured launches times the replays,
-which phases 8, 9, 12 and 13 confirm by kernel name in a profiler trace.
+which phases 7, 8, 11, 12 and 26 confirm by kernel name in a profiler trace.
 """
+
 from __future__ import annotations
 
 import contextlib
@@ -333,7 +308,6 @@ from siammask_tpu_torch.data.anchor_target import AnchorTarget
 from siammask_tpu_torch.data.dataset import DataLoader, PairDataset, to_device
 from siammask_tpu_torch.eval.datasets import load_dataset
 from siammask_tpu_torch.eval.region import vot_overlap
-from siammask_tpu_torch.models.heads import slice_skip_windows
 from siammask_tpu_torch.models.siammask import SiamMaskBase, SiamMaskSharp, SiamRPN
 from siammask_tpu_torch.ops import _build
 from siammask_tpu_torch.parallel.dist import (_all_reduce, _free_port, init_distributed,
@@ -351,7 +325,7 @@ from siammask_tpu_torch.tracker.runtime import TrackerRuntime
 from siammask_tpu_torch.tracker.tracker import BoxStepOutput, StepOutput, Tracker, TrackState
 from siammask_tpu_torch.tracker.vos import track_vos, track_vos_batched
 from siammask_tpu_torch.tracker.vot import SKIP, track_vot
-from siammask_tpu_torch.tools import overfit, trace_report
+from siammask_tpu_torch.tools import overfit
 from siammask_tpu_torch.tools.overfit import write_overfit_clip
 from siammask_tpu_torch.tools import train as train_cli
 from siammask_tpu_torch.train.checkpoint import merge_state_dict, read_state_dict, save_checkpoint
@@ -359,17 +333,19 @@ from siammask_tpu_torch.train.lr import build_lr_spaces
 from siammask_tpu_torch.train.trainer import OptimizerConfig, Trainer, TrainSettings
 
 REPO = Path(__file__).resolve().parent
+# the seeded weights the CPU and card tests share: tests/ is no package, so
+# its helpers import as top-level modules, as under pytest
+sys.path.insert(0, str(REPO / "tests"))
+from _torch_weights import (BF16, BF16_MAP_TOL, FRAME_HW, FRAMES, SEED, TARGET_POS,  # noqa: E402
+                            TARGET_SZ, bf16_twin, bn_calibration, build_model,
+                            check_step_close, damp_box_head, head_maps)
 CONFIG = REPO / "experiments" / "siammask_sharp" / "config_davis.json"
 TRAIN_CONFIG = REPO / "experiments" / "siammask_base" / "config.json"
 RPN_CONFIG = REPO / "experiments" / "siamrpn_resnet" / "config.json"
 BASE_CONFIG = TRAIN_CONFIG
 VOT_CONFIG = REPO / "experiments" / "siammask_sharp" / "config_vot.json"
-FRAME_HW = (480, 854)
-TARGET_POS, TARGET_SZ = (300.0, 200.0), (120.0, 90.0)
-SEED = 0
 STEPS = 20
-TIMED_STEPS = 50
-VIDEO_T = 64              # bench.py's siammask_sharp_scan_fps_T64
+VIDEO_T = FRAMES - 1
 STREAMS, STREAMS_T = 16, 32
 # the VOS phase: a YouTube-VOS-style video, three objects, the third from
 # frame VOS_LATE; frames 1-10 and 27-40 step through step_batched, 11-26 are
@@ -392,7 +368,6 @@ TUNE_VOT = ["--penalty-k", "0.04,0.13,0.08", "--window-influence", "0.42,0.425,0
 TUNE_WIDE = [*_ONE_CELL, "--search-region", "271,272,16"]
 TUNE_VOS = [*_ONE_CELL, "--seg-thr", "0.30,0.41,0.10"]
 TUNE_MEMORY_SLACK = 2**20   # bytes: no cell's runtime may outlive it
-TIMED_CALLS = 5
 TRAIN_BATCH = 64          # tools/train.py's default
 TRAIN_EPOCHS = 2          # epoch 0 frozen, epoch 1 unfrozen (unfreeze_at 0.5)
 TRAIN_FRAME_HW = (360, 480)
@@ -416,46 +391,10 @@ KERNELS = (depthwise_xcorr, depthwise_xcorr_grad_input, depthwise_xcorr_grad_ker
 # an H100 SXM's published peaks at 700 W: HBM3 and fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
-BF16 = torch.bfloat16
-# the bf16 phases' tolerances, card against the CPU (both bf16 activations
-# over float32 weights; cuDNN and the CPU's convs round at other points, and
-# a bf16 rounding moves a value by up to 2^-9 of it)
-BF16_MAP_TOL = 3e-2        # head maps, relative L2 norm
-BF16_POS_TOL = 1.0         # px, positions and sizes, plus BF16_SIZE_REL of the size
-BF16_SIZE_REL = 1e-2       # the size delta passes a bf16 exp: 2^-8 of the size a rounding
-BF16_SCORE_TOL = 2.0 ** -7  # the carried score, two bf16 steps near 1
-BF16_MASK_TOL = 3e-2       # sigmoid cell masks, absolute
 # the bf16 train step against the float32 one from the same weights and batch
 # (2.7e-4 and 0.9935 on an H100; a wrong gradient gives a cosine near 0)
 BF16_TRAIN_LOSS_RTOL = 1e-2
 BF16_TRAIN_MIN_COS = 0.9   # cosine of the two steps' parameter updates
-# numbers a phase keeps for a later phase to print beside its own, by tag
-MEASURED: dict = {}
-# [trace]: the graph calls whose profile is exported as a Chrome trace (the
-# train phases export a frozen step's), and per tag the trace's path, the
-# profile's device-busy ms and the xcorr kernels expected in each of
-# trace_report's xcorr rows
-TRACED = ("video", "bf16", "bf16-streams")
-# [bench]: --iters for at least 5 windows of every row (5 x 64 frames, and
-# max(5, 320 // 128) windows of 8 training steps)
-BENCH_ITERS = 320
-# the bench's rows by summary name -> this run's ms ([bf16], [bf16-streams],
-# [bf16-train], [bf16-train-refine]) and the per-what of a row's ms
-BENCH_BESIDE = {
-    "scan": (lambda: MEASURED["bf16"]["ms_frame"], "frame", "[bf16] video"),
-    "serving_16streams": (lambda: MEASURED["bf16-streams"]["ms_frame"] / STREAMS,
-                          "stream-frame", "[bf16-streams]"),
-    "train_frozen": (lambda: MEASURED["bf16-train-timing"]["frozen"][0], "step",
-                     "[bf16-train] frozen"),
-    "train_unfrozen": (lambda: MEASURED["bf16-train-timing"]["unfrozen"][0], "step",
-                       "[bf16-train] unfrozen"),
-    "train_refine": (lambda: MEASURED["bf16-train-refine-timing"]["stage-2"][0], "step",
-                     "[bf16-train-refine]"),
-    "scan_fp32": (lambda: MEASURED["video"]["ms_frame"], "frame", "[video]"),
-}
-TRACE_DIR = REPO / "build" / "traces"
-TRACES: dict = {}
-XCORR_ROWS = tuple(cat for cat, _ in trace_report.CATEGORIES if cat.startswith("xcorr"))
 # [overfit]: the tool's work tree, its default batch, a train CLI step line
 # (its timestamp, epoch and step), an optimizer group's LR on it,
 # a stage's wall-time line of the tool
@@ -481,88 +420,6 @@ OVERFIT_LR_ATOL = 6e-7
 MP_ROOT = REPO / "build" / "metric_parity_smoke"
 MP_FRAMES = 36
 MP_MIN_IOU = 0.99
-
-
-def synthetic_frames(n: int, hw=FRAME_HW, seed: int = SEED) -> np.ndarray:
-    """(n, H, W, 3) uint8: smoothed noise with a textured rectangle that starts
-    at TARGET_POS/TARGET_SZ and drifts a few pixels a frame."""
-    rng = np.random.RandomState(seed)
-    h, w = hw
-    coarse = rng.randint(0, 256, size=(h // 8 + 1, w // 8 + 1, 3)).astype(np.uint8)
-    background = np.repeat(np.repeat(coarse, 8, axis=0), 8, axis=1)[:h, :w]
-    tw, th = int(TARGET_SZ[0]), int(TARGET_SZ[1])
-    patch = rng.randint(0, 256, size=(th, tw, 3)).astype(np.uint8)
-    frames = np.empty((n, h, w, 3), np.uint8)
-    for i in range(n):
-        frames[i] = background
-        x0 = int(TARGET_POS[0] - tw / 2) + 3 * i
-        y0 = int(TARGET_POS[1] - th / 2) + 2 * i
-        frames[i, y0:y0 + th, x0:x0 + tw] = patch
-    return frames
-
-
-@contextlib.contextmanager
-def bn_calibration(model: torch.nn.Module):
-    """While open, every BatchNorm that runs first sets running_mean 0 and
-    one running_var per layer, the mean square of its input."""
-    def hook(bn, inputs):
-        bn.running_mean.zero_()
-        bn.running_var.fill_(inputs[0].pow(2).mean())
-
-    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
-               if isinstance(m, torch.nn.BatchNorm2d)]
-    try:
-        yield
-    finally:
-        for h in handles:
-            h.remove()
-
-
-@torch.inference_mode()
-def calibrate_bn(model: SiamRPN, z: torch.Tensor, x: torch.Tensor) -> None:
-    """Scale every BatchNorm by the overall standard deviation of its input on
-    one template/search pair (running_mean 0, one running_var per layer), so
-    random-weight activations stay O(1) like a trained model's and the scores
-    do not saturate. One scalar per layer, not per channel, so that nearly dead
-    channels are not amplified. Any of the three families: the search pass is
-    ``track_mask`` where the model has one, else ``track``."""
-    with bn_calibration(model):
-        zf = model.template(z)
-        getattr(model, "track_mask", model.track)(zf, x)
-
-
-@torch.no_grad()
-def sharpen_cls_head(model: SiamRPN, z: torch.Tensor, x: torch.Tensor,
-                     spread: float = 0.5) -> None:
-    """Set the cls head's last 1x1 conv so that each anchor's fg-minus-bg
-    logit has mean 0 and standard deviation ``spread`` over the score map of
-    one template/search pair. A calibrated random model scores every cell
-    near one value (a sigmoid of ~0.69 +- 0.01), which bf16 rounds to a few
-    values 2^-8 apart: two bf16 runs that round differently then tie or swap
-    their best cells. At 0.5 the map has a peak, as a trained model's does,
-    whose margin bf16 rounding does not close, and the sigmoid does not
-    saturate."""
-    head = model.rpn_model.cls.head[3]
-    k = head.out_channels // 2
-    score = model.rpn_model.cls(model.template(z), model.features(x)[1]).float()
-    logit = score[:, k:] - score[:, :k] - (head.bias[k:] - head.bias[:k])[None, :, None, None]
-    scale = spread / logit.std(dim=(0, 2, 3))
-    head.weight.mul_(scale.repeat(2)[:, None, None, None])
-    head.bias[:k] = 0.0
-    head.bias[k:] = -scale * logit.mean(dim=(0, 2, 3))
-
-
-@torch.no_grad()
-def damp_box_head(model: SiamRPN, factor: float = 0.1) -> None:
-    """Scale the loc head's last 1x1 conv by ``factor``. Seeded random
-    weights, even BN-calibrated, regress box deltas of O(1), a box's width a
-    frame, so the box leaves a slow target at once; at 0.1 the box mostly
-    holds a target that moves a few pixels a frame, so that the VOT data's
-    forced loss is not preempted by an earlier one. It does not rule out
-    other losses: random weights still lose the target now and then."""
-    head = model.rpn_model.loc.head[3]
-    head.weight.mul_(factor)
-    head.bias.mul_(factor)
 
 
 def smi_line() -> str:
@@ -709,10 +566,9 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    t0 = time.perf_counter()
     path = _build.build()
     _build.load_library()
-    print(f"[build] {path.relative_to(REPO)} ready in {time.perf_counter() - t0:.2f} s")
+    print(f"[build] {path.relative_to(REPO)} ready")
     spills = []
     for name, r in _build.kernel_resources(path.with_suffix(".log").read_text()).items():
         print(f"[build] ptxas: {name}: {r['registers']} registers, {r['spill_stores']} / "
@@ -971,36 +827,6 @@ def phase_grad_kernels() -> list[dict]:
               for which in ("input", "kernel")), packed["input"], packed["kernel"]]
 
 
-def bf16_twin(model: SiamRPN) -> SiamRPN:
-    """The same weights, on the same device, in a model of the same family
-    that computes in bf16 (its parameters stay float32)."""
-    twin = type(model)(width=model.width, dtype=BF16)
-    twin.load_state_dict(model.state_dict())
-    return twin.to(next(model.parameters()).device).eval()
-
-
-def build_model(p, cls=SiamMaskSharp, mask: bool = True, refine: bool = True,
-                dtype: torch.dtype | None = None) -> tuple[SiamRPN, Tracker, np.ndarray]:
-    """A seeded model of ``cls`` at width 64 on the card, its BN calibrated
-    on a crop pair of the first frame, its tracker and the frames. With
-    ``dtype`` bf16 the calibrated weights' cls head is sharpened on the same
-    pair (``sharpen_cls_head``) and the model is their bf16 twin."""
-    model = cls(width=64).init_weights(torch.Generator().manual_seed(SEED))
-    model = model.to("cuda").eval()
-    frames = synthetic_frames(STEPS + TIMED_STEPS + 12)
-    f0 = torch.from_numpy(frames[0]).cuda()
-    avg = f0.mean(dim=(0, 1), dtype=torch.float32)
-    pos = torch.tensor([TARGET_POS], device="cuda")
-    z = subwindow_crop(f0, pos, torch.tensor([180.0], device="cuda"), 127, avg[None])
-    x = subwindow_crop(f0, pos, torch.tensor([360.0], device="cuda"), 255, avg[None])
-    z, x = z.permute(0, 3, 1, 2).contiguous(), x.permute(0, 3, 1, 2).contiguous()
-    calibrate_bn(model, z, x)
-    if dtype is not None:
-        sharpen_cls_head(model, z, x)
-        model = bf16_twin(model)
-    return model, Tracker(model, p, "cuda", mask=mask, refine=refine), frames
-
-
 def xcorr_per_step(tracker: Tracker) -> int:
     """cls and loc, and the mask branch's corr with the mask."""
     return 3 if tracker.mask else 2
@@ -1091,52 +917,6 @@ def cpu_tracker_of(tracker: Tracker) -> Tracker:
     return Tracker(cpu_model.eval(), tracker.p, "cpu", mask=tracker.mask, refine=tracker.refine)
 
 
-def check_step_close(what: str, out, ref, bf16: bool = False) -> float:
-    """A step's outputs against a reference step of other kernels (cuDNN's
-    summation order against the CPU's, or another batch size): the same
-    best_id, positions and sizes within 1e-2 px, the mask (Refine's or the
-    63x63 head's) within 1e-3 of its largest magnitude. With ``bf16``: the
-    same best_id, positions and sizes within BF16_POS_TOL plus BF16_SIZE_REL
-    of the reference's larger side, the score within BF16_SCORE_TOL and the
-    mask within BF16_MASK_TOL. Returns the mask's max abs error (0 for a
-    box-only step)."""
-    ref = type(ref)(*(v.to(out.best_id.device) for v in ref))
-    if not torch.equal(out.best_id, ref.best_id):
-        raise AssertionError(f"{what}: best_id {out.best_id.tolist()} vs {ref.best_id.tolist()}")
-    pos_tol = 1e-2
-    if bf16:
-        pos_tol = BF16_POS_TOL + BF16_SIZE_REL * ref.target_sz.abs().max().item()
-        # the size difference as a share of the size: BF16_SIZE_REL's scale
-        diff = (out.target_sz - ref.target_sz).abs()
-        share = (diff / ref.target_sz.abs()).max().item()
-        print(f"{what}: size {[round(v, 2) for v in ref.target_sz.tolist()]} px, difference "
-              f"{[round(v, 3) for v in diff.tolist()]} px, at most {100 * share:.3f}% of its "
-              f"side (tolerance {pos_tol:.3f} px)")
-    torch.testing.assert_close(out.target_pos, ref.target_pos, rtol=0, atol=pos_tol)
-    torch.testing.assert_close(out.target_sz, ref.target_sz, rtol=0, atol=pos_tol)
-    if bf16:
-        torch.testing.assert_close(out.score, ref.score, rtol=0, atol=BF16_SCORE_TOL)
-    if isinstance(ref, BoxStepOutput):
-        return 0.0
-    a, b = out.mask_logits.float(), ref.mask_logits.float()
-    atol = BF16_MASK_TOL if bf16 else 1e-3 * b.abs().max().item()
-    torch.testing.assert_close(a, b, rtol=0, atol=atol)
-    return (a - b).abs().max().item()
-
-
-def head_maps(model, zf: torch.Tensor, x: torch.Tensor) -> dict:
-    """The model's raw maps on one search crop: score and loc, the 63x63
-    mask head's map (base) or Refine's logits at the centre cell (sharp)."""
-    if isinstance(model, SiamMaskSharp):
-        out = model.track_mask(zf, x)
-        cell = torch.tensor([[12, 12]], device=x.device)
-        return {"score": out.score, "loc": out.loc,
-                "refine logits": model.track_refine(out.skips, out.corr, cell)}
-    if isinstance(model, SiamMaskBase):
-        return dict(zip(("score", "loc", "mask head"), model.track_mask(zf, x)))
-    return dict(zip(("score", "loc"), model.track(zf, x)))
-
-
 def phase_cpu_parity(tracker, cpu_tracker, state: TrackState, frame: np.ndarray,
                      tag: str = "parity", bf16: bool = False) -> None:
     """The same step on the card and on the CPU, from the same state, open
@@ -1197,30 +977,6 @@ def bf16_size_shares(tracker, cpu_tracker, frames: np.ndarray, tag: str) -> None
         state = new_state
 
 
-def phase_timing(tracker: Tracker, state: TrackState, frames: np.ndarray, smi: str) -> None:
-    dev_frames = [torch.from_numpy(f).cuda() for f in frames]
-    for f in dev_frames[:10]:
-        state, _ = tracker.step(state, f)
-    torch.cuda.synchronize()
-    event_ms, wall_ms = [], []
-    for f in dev_frames[10:10 + TIMED_STEPS]:
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0 = time.perf_counter()
-        start.record()
-        state, _ = tracker.step(state, f)
-        end.record()
-        end.synchronize()
-        wall_ms.append((time.perf_counter() - t0) * 1e3)
-        event_ms.append(start.elapsed_time(end))
-    med = statistics.median(event_ms)
-    # p80: the highest percentile with ten of the fifty samples beyond it
-    p80 = statistics.quantiles(event_ms, n=5)[-1]
-    print(f"[timing] fp32 step, width 64, TF32 off, frame on the card, host-driven: "
-          f"median {med:.3f} ms, p80 {p80:.3f} ms (CUDA events), "
-          f"{statistics.median(wall_ms):.3f} ms median (host clock to sync) over "
-          f"{TIMED_STEPS} steps; {1e3 / med:.1f} frames/s | {smi}")
-
-
 def stacked(outs: list):
     return type(outs[0])(*(torch.stack(v) for v in zip(*outs)))
 
@@ -1241,108 +997,54 @@ def check_bit_identical(what: str, outs, ref, final: TrackState,
             raise AssertionError(f"{what}: {name} is not bit-identical (max abs diff {err:.3e})")
 
 
-def time_calls(fn) -> tuple[list[float], list[float]]:
-    """(CUDA-event ms, host ms to the end of the work) of TIMED_CALLS calls;
-    the caller has run ``fn`` before (a graph's capture and first replays)."""
-    torch.cuda.synchronize()
-    event_ms, wall_ms = [], []
-    for _ in range(TIMED_CALLS):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0 = time.perf_counter()
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        wall_ms.append((time.perf_counter() - t0) * 1e3)
-        event_ms.append(start.elapsed_time(end))
-    return event_ms, wall_ms
-
-
-def profile_call(fn, trace: str | None = None) -> tuple[list, float, float]:
-    """One call under torch.profiler: (the averaged events, the device-busy
-    ms summed over kernels and copies, the call's ms by CUDA events). With
-    ``trace``, the profile is also exported as a Chrome trace for
-    ``[trace]`` (``export_trace``)."""
+def profiled(call):
+    """The averaged events of one call under torch.profiler (host and card)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-    events = prof.key_averages()
-    busy = device_busy_ms(events)
-    if trace is not None:
-        export_trace(trace, prof, busy)
-    return events, busy, start.elapsed_time(end)
+        call()
+        torch.cuda.synchronize()
+    return prof.key_averages()
 
 
-def device_busy_ms(events) -> float:
-    """The device time of a profile's kernels, copies and memsets. A
-    ``record_function`` span (the optimizer's ``Optimizer.step#SGD.step``)
-    also shows as device time, over the kernels it encloses: left out."""
-    return sum(e.self_device_time_total for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation) / 1e3
-
-
-def export_trace(tag: str, prof, busy: float, xcorr: dict | None = None) -> None:
-    """``prof``'s Chrome trace under TRACE_DIR for ``[trace]``, with the
-    profile's device-busy ms and the xcorr kernels expected by row (set
-    later by the caller when None)."""
-    TRACE_DIR.mkdir(parents=True, exist_ok=True)
-    path = TRACE_DIR / f"{tag}.json"
-    prof.export_chrome_trace(str(path))
-    TRACES[tag] = {"path": path, "busy": busy, "xcorr": xcorr}
-
-
-def check_graph_profile(what: str, call, frames: int, streams: int,
-                        per_frame: int = 3) -> None:
-    """Profiles one graph call, confirms ``per_frame`` xcorr kernels a
-    frame by kernel name in its trace and prints device ms a frame, the idle
-    share and the host's CUDA calls a frame. A trace has come back short of
-    a few kernels (189 of 192 once on an H100, the replays all
-    bit-identical to the eager loop): a short trace is taken once more
-    before the check fails."""
-    expected = per_frame * frames
+def xcorr_kernels(what: str, call, expected: int) -> dict:
+    """The xcorr kernels by name in the trace of one call, ``expected`` in
+    all. A trace has come back short of a few kernels (189 of 192 once on
+    an H100, the replays all bit-identical to the eager loop): a short
+    trace is taken once more before the check fails."""
     for attempt in (1, 2):
-        events, busy, call_ms = profile_call(call, what if what in TRACED else None)
-        xcorr = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                    and "depthwise_xcorr" in e.key)
-        if xcorr == expected:
-            break
-        if attempt == 2 or xcorr > expected:
-            raise AssertionError(f"{what}: {xcorr} xcorr kernels in the trace of {frames} "
-                                 f"frames, expected {expected}")
-        print(f"[{what}] the profiler's trace held {xcorr} of {expected} xcorr kernels; "
+        names = {e.key: e.count for e in profiled(call)
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "depthwise_xcorr" in e.key}
+        got = sum(names.values())
+        if got == expected:
+            return names
+        if attempt == 2 or got > expected:
+            raise AssertionError(f"[{what}] {got} xcorr kernels in the trace, expected "
+                                 f"{expected}: {names}")
+        print(f"[{what}] the profiler's trace held {got} of {expected} xcorr kernels; "
               "profiling the call once more")
-    host = {k: sum(e.count for e in events if e.key == k)
-            for k in ("cudaGraphLaunch", "cudaMemcpyAsync", "cudaLaunchKernel")}
-    idle = 100 * (1 - busy / call_ms)
-    packed = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "depthwise_xcorr_strip_bf16x2_kernel" in e.key)
-    MEASURED.setdefault(what, {}).update(
-        device_ms_frame=busy / frames, idle=idle, xcorr=xcorr, xcorr_packed=packed)
-    if what in TRACED:
-        TRACES[what]["xcorr"] = {XCORR_ROWS[3]: packed, XCORR_ROWS[0]: xcorr - packed}
-    print(f"[{what}] profiled call: {xcorr} xcorr kernels by name ({xcorr // frames} a frame); "
-          f"device busy {busy:.3f} ms of {call_ms:.3f} ms, {busy / frames:.3f} ms a frame "
-          f"({busy / (frames * streams):.3f} ms a stream-frame), idle share "
-          f"{idle:.1f}%; host calls a frame: "
-          + ", ".join(f"{k} {v / frames:.1f}" for k, v in host.items()))
-    kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.self_device_time_total, reverse=True)
-    print(f"[{what}] profiled call, top 10 by self device time: " + "; ".join(
-        f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in kernels[:10]))
 
 
-def phase_video(tracker: Tracker, frames: np.ndarray, smi: str,
-                tag: str = "video") -> tuple[int, TrackState]:
+def check_graph_profile(what: str, call, frames: int, per_frame: int = 3,
+                        bf16: bool = False) -> None:
+    """Confirms ``per_frame`` xcorr kernels a frame by kernel name in the
+    trace of one graph call (the wrappers count a graph's kernels only at
+    capture), with ``bf16`` every one of them the packed bf16 kernel."""
+    names = xcorr_kernels(what, call, per_frame * frames)
+    packed = sum(n for k, n in names.items() if "depthwise_xcorr_strip_bf16x2_kernel" in k)
+    if bf16 and packed != per_frame * frames:
+        raise AssertionError(f"[{what}] {packed} of {per_frame * frames} xcorr kernels in the "
+                             "trace are the packed bf16 kernel")
+    print(f"[{what}] profiled call: {per_frame * frames} xcorr kernels by name "
+          f"({per_frame} a frame), {packed} of them the packed bf16 kernel")
+
+
+def phase_video(tracker: Tracker, frames: np.ndarray, tag: str = "video") -> int:
     """track_video over VIDEO_T frames on the card: a CUDA-graph replay per
     frame, against the eager step loop; returns the xcorr launches of the
-    graph path (captured launches times replays) and the final state."""
+    graph path (captured launches times replays)."""
     t = VIDEO_T
     per_frame = xcorr_per_step(tracker)
     dev = torch.from_numpy(frames[:t + 1]).cuda()
@@ -1353,8 +1055,6 @@ def phase_video(tracker: Tracker, frames: np.ndarray, smi: str,
         eager.append(out)
     eager = stacked(eager)
     torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     final, outs = tracker.track_video(state, dev[1:])    # captures, then T replays
     torch.cuda.synchronize()
@@ -1365,7 +1065,6 @@ def phase_video(tracker: Tracker, frames: np.ndarray, smi: str,
         raise AssertionError(f"{tag}: {counted} launches through the wrappers, "
                              f"{graph.xcorr_launches} xcorr kernels captured "
                              f"(expected {per_frame})")
-    peak = torch.cuda.max_memory_allocated()
     check_bit_identical(tag, outs, eager, final, st)
     for i in range(t):
         check_output(type(outs)(*(v[i] for v in outs)), FRAME_HW, tracker.p.out_size)
@@ -1379,19 +1078,10 @@ def phase_video(tracker: Tracker, frames: np.ndarray, smi: str,
           f"({graph.xcorr_launches} xcorr kernels captured; {counted[0]} xcorr launches "
           f"through the wrapper, warm-up and capture), {graph.xcorr_launches * t} xcorr "
           f"launches by replay; best_id and every output bit-identical to the eager step "
-          f"loop; the second call ran under sync_debug_mode=error; peak memory "
-          f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held before the call)")
-    event_ms, wall_ms = time_calls(lambda: tracker.track_video(state, dev[1:]))
-    med = statistics.median(event_ms)
-    MEASURED.setdefault(tag, {}).update(ms_frame=med / t, fps=t * 1e3 / med,
-                                        peak_gib=peak / 2**30)
-    print(f"[{tag}] {TIMED_CALLS} calls of T={t}: median {med:.3f} ms (CUDA events; min "
-          f"{min(event_ms):.3f}, max {max(event_ms):.3f}), {med / t:.3f} ms a frame, "
-          f"{t * 1e3 / med:.1f} frames/s; host clock to the end "
-          f"{statistics.median(wall_ms):.3f} ms | {smi}")
-    check_graph_profile(tag, lambda: tracker.track_video(state, dev[1:]),
-                        t, 1, per_frame)
-    return graph.xcorr_launches * t, final
+          f"loop; the second call ran under sync_debug_mode=error")
+    check_graph_profile(tag, lambda: tracker.track_video(state, dev[1:]), t, per_frame,
+                        tracker.model.dtype == BF16)
+    return graph.xcorr_launches * t
 
 
 def stream_state(states: TrackState, i: int) -> TrackState:
@@ -1399,7 +1089,7 @@ def stream_state(states: TrackState, i: int) -> TrackState:
                       states.avg_chans[i], states.score[i])
 
 
-def phase_streams(tracker: Tracker, frames: np.ndarray, smi: str, tag: str = "streams",
+def phase_streams(tracker: Tracker, frames: np.ndarray, tag: str = "streams",
                   single: bool = True) -> tuple[int, TrackState]:
     """STREAMS objects on one video: init_batched, step_batched against the
     single-stream step of each stream (with ``single``), track_video_multi
@@ -1410,9 +1100,6 @@ def phase_streams(tracker: Tracker, frames: np.ndarray, smi: str, tag: str = "st
     pos = rng.uniform(100, 400, (o, 2)).astype(np.float32)
     sz = rng.uniform(60, 200, (o, 2)).astype(np.float32)
     dev = torch.from_numpy(frames[:t + 1]).cuda()
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
     states = tracker.init_batched(dev[0], pos, sz)
     reset_launches()
     stepped, out = tracker.step_batched(states, dev[1])
@@ -1435,14 +1122,6 @@ def phase_streams(tracker: Tracker, frames: np.ndarray, smi: str, tag: str = "st
             check_output(StepOutput(*(v[i] for v in out)), FRAME_HW)
         print(f"[{tag}] init_batched + step_batched at O={o}: 3 xcorr launches at B={o}; "
               f"outputs finite and in bounds; best_id {out.best_id.tolist()}")
-    events, busy, call_ms = profile_call(lambda: tracker.step_batched(states, dev[1]))
-    kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.self_device_time_total, reverse=True)
-    print(f"[{tag}] profiled eager step_batched at O={o}: device busy {busy:.3f} ms of "
-          f"{call_ms:.3f} ms ({100 * busy / call_ms:.1f}% busy), {len(kernels)} kernel names; "
-          "top 10 by self device time: " + "; ".join(
-              f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
-              for e in kernels[:10]))
 
     st, eager = states, []
     for f in dev[1:]:
@@ -1461,66 +1140,12 @@ def phase_streams(tracker: Tracker, frames: np.ndarray, smi: str, tag: str = "st
     check_bit_identical(tag, outs, eager, final, st)
     if outs.mask_in_frame.shape != (t, o, *FRAME_HW) or not torch.isfinite(outs.mask_in_frame).all():
         raise AssertionError(f"{tag}: masks {tuple(outs.mask_in_frame.shape)}")
-    peak = torch.cuda.max_memory_allocated()
     print(f"[{tag}] track_video_multi, O={o}, T={t}: {graph.xcorr_launches * t} xcorr "
           f"launches by replay at B={o}; best_id and every output bit-identical to the eager "
-          f"step_batched loop; peak memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB "
-          "held before the phase)")
-    event_ms, wall_ms = time_calls(lambda: tracker.track_video_multi(states, dev[1:]))
-    med = statistics.median(event_ms)
-    MEASURED.setdefault(tag, {}).update(ms_frame=med / t, fps=o * t * 1e3 / med,
-                                        peak_gib=peak / 2**30)
-    print(f"[{tag}] {TIMED_CALLS} calls of O={o}, T={t}: median {med:.3f} ms (CUDA events; "
-          f"min {min(event_ms):.3f}, max {max(event_ms):.3f}), {med / t:.3f} ms a frame, "
-          f"{o * t * 1e3 / med:.1f} aggregate frames/s; host clock to the end "
-          f"{statistics.median(wall_ms):.3f} ms | {smi}")
-    check_graph_profile(tag, lambda: tracker.track_video_multi(states, dev[1:]), t, o)
+          "step_batched loop")
+    check_graph_profile(tag, lambda: tracker.track_video_multi(states, dev[1:]), t,
+                        bf16=tracker.model.dtype == BF16)
     return step_launches[0] + graph.xcorr_launches * t, stepped
-
-
-@torch.inference_mode()
-def phase_layers(tracker: Tracker, frame: torch.Tensor, *batches: TrackState) -> None:
-    """Device time of each layer of the step for each batched state (one
-    stream's tracked state, O=1, and the 16 streams' after a step), each a
-    CUDA graph of repeated calls on the step's own intermediates: the crop at
-    the step's crop sizes, the backbone and heads (``track_mask``), the
-    decode tail (decode, penalty, argmax, state update, clamp), the
-    skip-window gather and Refine at the step's best cells, the warp-back of
-    the step's masks with its back-boxes, and the whole step. The rest is the
-    step less the timed layers: the NCHW copy of the crop, the sigmoid, the
-    geometry."""
-    p = tracker.p
-    h, w = frame.shape[:2]
-    for st in batches:
-        o = st.target_pos.shape[0]
-        s_x_full, scale_x = tracker._search_window(st)
-
-        def crop():
-            return subwindow_crop(frame, st.target_pos, s_x_full, p.instance_size, st.avg_chans)
-
-        x = crop().permute(0, 3, 1, 2).contiguous()
-        out = tracker.model.track_mask(st.zf, x)
-        best = tracker._decode(st, out.score, out.loc, scale_x, h, w)[0]
-        cells = tracker._cells(best)
-        masks = torch.sigmoid(tracker.model.track_refine(out.skips, out.corr, cells))
-        masks = masks.reshape(o, p.out_size, p.out_size)
-        boxes = tracker._back_box(st.target_pos, s_x_full, cells, h, w)
-        _, step_out = tracker._step_body(st, frame)
-        if not (torch.equal(step_out.best_id, best) and torch.equal(step_out.mask_logits, masks)):
-            raise AssertionError(f"layers, O={o}: the intermediates are not the step's")
-        us = {"crop": graph_us(crop, n=20),
-              "track_mask": graph_us(tracker.model.track_mask, st.zf, x, n=5),
-              "decode tail": graph_us(tracker._decode, st, out.score, out.loc, scale_x, h, w,
-                                      n=20),
-              "skip windows": graph_us(slice_skip_windows, *out.skips, cells, n=20),
-              "Refine": graph_us(tracker.model.track_refine, out.skips, out.corr, cells, n=10),
-              "warp-back": graph_us(warp_back_mask, masks, boxes, (h, w), n=20),
-              "step": graph_us(tracker._step_body, st, frame, n=5)}
-        rest = us["step"] - sum(v for k, v in us.items() if k not in ("step", "skip windows"))
-        print(f"[layers] O={o}, device us a step on the step's own intermediates (CUDA graphs "
-              "of repeated calls; Refine includes the skip windows): "
-              + ", ".join(f"{k} {v:.1f}" for k, v in us.items())
-              + f"; the rest of the step {rest:.1f}")
 
 
 def phase_streams_cpu_parity(tracker: Tracker, cpu_tracker: Tracker, states: TrackState,
@@ -1570,21 +1195,21 @@ def write_vos_video(root: Path) -> None:
     (valid / "meta.json").write_text(json.dumps(meta))
 
 
-def phase_vos(model: SiamMaskSharp, p, smi: str) -> int:
+def phase_vos(model: SiamMaskSharp, p) -> tuple[int, np.ndarray | None]:
     """The VOS drivers on the card, through ``load_dataset`` as a user calls
     them: ``track_vos_batched`` (scan_chunk VOS_CHUNK: ragged stretches
     through ``step_batched``, a full window through the CUDA graph, a re-init
-    of the late object) against the sequential ``track_vos``; the batched
-    driver's object-frames/s. The video and the batched driver's fused PNGs
-    stay under VOS_ROOT for ``[tune]`` and ``[eval]``. Returns its xcorr
-    launches (through the wrapper and by replay). Needs cv2 and PIL, the
+    of the late object) against the sequential ``track_vos``. The video and
+    the batched driver's fused PNGs stay under VOS_ROOT for ``[tune]`` and
+    ``[eval]``. Returns its xcorr launches (through the wrapper and by
+    replay) and its IoU, None where it is skipped. Needs cv2 and PIL, the
     drivers' image I/O."""
     try:
         import cv2  # noqa: F401
         import PIL  # noqa: F401
     except ImportError as e:
         print(f"[vos] skipped: the VOS drivers' image I/O is not installed ({e})")
-        return 0
+        return 0, None
     root = VOS_ROOT
     shutil.rmtree(root, ignore_errors=True)
     write_vos_video(root)
@@ -1595,12 +1220,9 @@ def phase_vos(model: SiamMaskSharp, p, smi: str) -> int:
     track_vos_batched(runtime, video, scan_chunk=VOS_CHUNK, log=lambda *_: None)  # captures
     torch.cuda.synchronize()
     reset_launches()
-    lines = []
-    t0 = time.perf_counter()
-    iou_b, fps_b = track_vos_batched(runtime, video, scan_chunk=VOS_CHUNK,
-                                     result_dir=str(root / "results"), dataset="ytb_vos",
-                                     save_mask=True, log=lines.append)
-    wall_b = time.perf_counter() - t0
+    iou_b, _ = track_vos_batched(runtime, video, scan_chunk=VOS_CHUNK,
+                                 result_dir=str(root / "results"), dataset="ytb_vos",
+                                 save_mask=True, log=lambda *_: None)
     launches = read_launches()
     graph = runtime.tracker.graphs[(3, *FRAME_HW, torch.uint8)]
     check_route("vos", False, graph)
@@ -1610,7 +1232,6 @@ def phase_vos(model: SiamMaskSharp, p, smi: str) -> int:
     iou_b = np.asarray(iou_b)
     if iou_b.shape != (3, 4) or not np.all((iou_b >= 0) & (iou_b <= 1)):
         raise AssertionError(f"vos: IoU {iou_b}")
-    MEASURED["vos"] = {"iou": iou_b}
     fused = [cv2.imread(str(f), cv2.IMREAD_UNCHANGED) for f in
              sorted((root / "results" / "ytb_vos" / "SiamMask" / "vid").glob("*.png"))]
     gt3 = cv2.imread(video["anno_init_files"][2], cv2.IMREAD_UNCHANGED) == 3
@@ -1618,9 +1239,7 @@ def phase_vos(model: SiamMaskSharp, p, smi: str) -> int:
             or not (fused[VOS_LATE][gt3] == 3).all()):
         raise AssertionError("vos: object 3 is not absent before its start frame and its "
                              "annotation at it")
-    t0 = time.perf_counter()
-    iou_s, fps_s = track_vos(runtime, video, log=lambda *_: None)
-    wall_s = time.perf_counter() - t0
+    iou_s, _ = track_vos(runtime, video, log=lambda *_: None)
     # the batched and the sequential steps run other conv batch sizes, so the
     # masks differ in cuDNN's summation order: a pixel may cross a threshold
     diff = np.abs(iou_b - np.asarray(iou_s)).max()
@@ -1632,19 +1251,16 @@ def phase_vos(model: SiamMaskSharp, p, smi: str) -> int:
           f"launches through step_batched, {graph.xcorr_launches * VOS_FULL} by replay; "
           f"IoU at 0.3 {iou_b[:, 0].round(4).tolist()}, within {diff:.2e} of track_vos; object "
           "3 absent before its start and its annotation at it")
-    print(f"[vos] {fps_b:.1f} object-frames/s batched (driver's clock, file reads excluded; "
-          f"{wall_b:.3f} s for the call), {fps_s:.1f} sequential ({wall_s:.3f} s); "
-          f"{lines[-1].strip()} | {smi}")
-    return 3 * VOS_RAGGED + graph.xcorr_launches * VOS_FULL
+    return 3 * VOS_RAGGED + graph.xcorr_launches * VOS_FULL, iou_b
 
 
-def phase_family(tag: str, cls, config: Path, mask: bool, refine: bool, smi: str):
+def phase_family(tag: str, cls, config: Path, mask: bool, refine: bool):
     """Another model family through the port's tracker on the card, as the
-    sharp phases 5, 6 and 8 drive SiamMask-sharp: init and STEPS steps (one
+    sharp phases 5, 6 and 7 drive SiamMask-sharp: init and STEPS steps (one
     under sync_debug_mode("error")), one step on the card against the CPU
     from the same state, ``track_video`` over VIDEO_T frames through the
-    CUDA graph against the eager step loop, its frames/s, profile and peak
-    memory; with the mask, ``step_batched`` at O=2 on the card against the
+    CUDA graph against the eager step loop and its xcorr kernels by name in
+    a profile; with the mask, ``step_batched`` at O=2 on the card against the
     CPU. Returns the model and the xcorr launches of the init-and-steps run
     and the graph's replays."""
     p = Config.load(str(config)).tracker_config()
@@ -1652,7 +1268,7 @@ def phase_family(tag: str, cls, config: Path, mask: bool, refine: bool, smi: str
     cpu_tracker = cpu_tracker_of(tracker)
     state, launches = phase_slice(tracker, frames, tag)
     phase_cpu_parity(tracker, cpu_tracker, state, frames[STEPS + 2], tag)
-    video_launches, _ = phase_video(tracker, frames, smi, tag)
+    video_launches = phase_video(tracker, frames, tag)
     if mask:
         rng = np.random.RandomState(SEED)
         states = tracker.init_batched(frames[0], rng.uniform(100, 400, (2, 2)).astype(np.float32),
@@ -1714,7 +1330,7 @@ def check_vot_lines(what: str, lines: list[str], numbers: int, jumps: bool) -> i
     return sum(line not in ("0", "1") for line in lines)
 
 
-def phase_vot(models: dict, smi: str) -> tuple[int, dict]:
+def phase_vot(models: dict) -> tuple[int, dict]:
     """The VOT driver on the card, through ``load_dataset`` as a user calls
     it: ``track_vot`` for sharp (mask and Refine, ``config_vot.json``), base
     (mask) and SiamRPN (box) on two videos written under ``build/``, the
@@ -1722,7 +1338,7 @@ def phase_vot(models: dict, smi: str) -> tuple[int, dict]:
     same data with the sharp weights saved as a ``.pth``. The box heads are
     damped first (``damp_box_head``), so that the target is still held when
     the forced jump comes; other losses can occur and are printed. The
-    region library is built and loaded before the drivers' clocks start.
+    region library is built and loaded before the drivers run.
     The data, the result trees and the sharp ``.pth`` stay under VOT_ROOT for
     ``[tune]`` and ``[eval]``. Returns the xcorr launches, which the result
     files account for, and each tracker's lost count as its driver returned
@@ -1735,10 +1351,7 @@ def phase_vot(models: dict, smi: str) -> tuple[int, dict]:
     shutil.rmtree(root, ignore_errors=True)
     write_vot_dataset(root / "VOT2018")
     dataset = load_dataset("VOT2018", str(root))
-    t0 = time.perf_counter()
     vot_overlap([0, 0, 4, 4], [1, 1, 4, 4])         # g++ builds the library at first use
-    print(f"[vot] region library built and loaded in {time.perf_counter() - t0:.3f} s "
-          f"(g++ -O2, host clock), before the drivers' clocks start")
     families = {"sharp": (VOT_CONFIG, True, True), "base": (BASE_CONFIG, True, False),
                 "rpn": (RPN_CONFIG, False, False)}
     torch.cuda.synchronize()
@@ -1748,31 +1361,22 @@ def phase_vot(models: dict, smi: str) -> tuple[int, dict]:
         damp_box_head(models[name])
         runtime = TrackerRuntime(models[name], Config.load(str(config)).tracker_config(),
                                  "cuda", mask=mask, refine=refine)
-        lines, lost, speeds, stepped[name] = [], [], [], 0
+        lost, stepped[name] = [], 0
         for video in dataset.values():
-            n, fps = track_vot(runtime, video, mask_enable=mask,
-                               result_dir=str(root / "results"), tracker_name=name,
-                               log=lines.append)
+            n, _ = track_vot(runtime, video, mask_enable=mask,
+                             result_dir=str(root / "results"), tracker_name=name,
+                             log=lambda *_: None)
             result = (root / "results" / "VOT2018" / name / "baseline" / video["name"]
                       / f"{video['name']}_001.txt").read_text().splitlines()
             stepped[name] += check_vot_lines(f"vot {name} {video['name']}", result,
                                              8 if mask else 4, video["name"] == "vid1")
             lost.append(n)
-            speeds.append(fps)
         lost_by_tracker[name] = sum(lost)
         print(f"[vot] {name} ({'mask' if mask else 'box'}{', Refine' if refine else ''}): "
               f"lost {lost} in {list(dataset)}, the jump's 2 / {SKIP - 1} x 0 / 1 at frames "
-              f"{VOT_JUMP}-{VOT_JUMP + SKIP}; driver's fps (file reads excluded) "
-              + ", ".join(f"{v:.1f}" for v in speeds) + f" | {smi}")
+              f"{VOT_JUMP}-{VOT_JUMP + SKIP}")
     launches = read_launches()
     check_route("vot", False)
-    gt = dataset["vid1"]["gt"][VOT_JUMP - 1]
-    pred = gt + np.tile([7.5, -4.25], 4)
-    t0 = time.perf_counter()
-    for _ in range(2000):
-        vot_overlap(gt, pred, FRAME_HW[::-1])
-    print(f"[vot] region overlap (host C++, 8-point polygons, frame bounds): "
-          f"{(time.perf_counter() - t0) / 2000 * 1e6:.2f} us a call, host clock over 2000 calls")
     expected = sum(k * stepped[n] for n, k in (("sharp", 3), ("base", 3), ("rpn", 2)))
     if launches != [expected, 0, 0]:
         raise AssertionError(f"vot: {launches} launches, expected {[expected, 0, 0]} from "
@@ -1781,11 +1385,9 @@ def phase_vot(models: dict, smi: str) -> tuple[int, dict]:
     ckpt = root / SHARP_PTH
     torch.save({"state_dict": {f"module.{k}": v.cpu()
                                for k, v in models["sharp"].state_dict().items()}}, ckpt)
-    t0 = time.perf_counter()
     totals = cli.main(["--config", str(VOT_CONFIG), "--resume", str(ckpt), "--mask", "--refine",
                        "--dataset", "VOT2018", "--data-dir", str(root),
                        "--result-dir", str(root / "cli"), "--tracker-name", "cli"])
-    wall = time.perf_counter() - t0
     cli_launches = read_launches()[0] - expected
     worst = 0.0
     for name in dataset:
@@ -1806,19 +1408,17 @@ def phase_vot(models: dict, smi: str) -> tuple[int, dict]:
     if totals["videos"] != 2 or cli_launches != 3 * stepped["sharp"]:
         raise AssertionError(f"vot: CLI totals {totals}, {cli_launches} launches")
     print(f"[vot] CLI main --mask --refine --resume sharp.pth: totals {totals}; the driver's "
-          f"markers, regions within {worst:.4f} px; {cli_launches} xcorr launches; "
-          f"{wall:.2f} s for the call")
+          f"markers, regions within {worst:.4f} px; {cli_launches} xcorr launches")
     lost_by_tracker["cli"] = totals["lost"]
     return expected + cli_launches, lost_by_tracker
 
 
 def tune_cells(out: dict, what: str) -> str:
     """One line per scored cell of a ``tune.main`` return."""
-    return "; ".join(f"{c['tag']} {what} {c['score']:.6f} ({c['seconds']:.2f} s, "
-                     f"{c['fps']:.1f} fps)" for c in out["cells"])
+    return "; ".join(f"{c['tag']} {what} {c['score']:.6f}" for c in out["cells"])
 
 
-def phase_tune(smi: str) -> tuple[int, dict]:
+def phase_tune() -> tuple[int, dict]:
     """``tools.tune.main`` on the card with [vot]'s sharp weights: the VOT
     grid over [vot]'s two videos (TUNE_VOT at 255, then one cell at 271,
     EAO over frames 1..VOT_FRAMES), the VOS grid over [vos]'s video
@@ -1839,10 +1439,8 @@ def phase_tune(smi: str) -> tuple[int, dict]:
     shutil.rmtree(TUNE_ROOT, ignore_errors=True)
     torch.cuda.synchronize()
     reset_launches()
-    t0 = time.perf_counter()
     runs = {"vot": tune.main([*vot, *TUNE_VOT]), "vot271": tune.main([*vot, *TUNE_WIDE]),
             "vos": tune.main(vos)}
-    wall = time.perf_counter() - t0
     launches = read_launches()
     check_route("tune", False)
     again = tune.main([*vot, *TUNE_VOT])
@@ -1878,15 +1476,13 @@ def phase_tune(smi: str) -> tuple[int, dict]:
     print("[tune] chosen: " + "; ".join(f"{k} {c['tag']} ({c['score']:.6f})"
                                        for k, c in best.items())
           + f"; the VOT grid again over the same out-dir: {again['scored']} cells scored "
-          f"(all claimed); {wall:.2f} s for the three calls (model loads included)")
+          "(all claimed)")
     print(f"[tune] xcorr launches: depthwise_xcorr {launches[0]} (3 x {stepped} VOT frames "
           f"stepped + 3 x {VOS_FRAMES - 1} x {scored[2]} VOS steps), "
           f"depthwise_xcorr_grad_input {launches[1]}, depthwise_xcorr_grad_kernel "
           f"{launches[2]}")
-    print(f"[tune] memory: peak {first['peak_bytes'] / 2**20:.1f} MiB in the first cell, "
-          f"{last['peak_bytes'] / 2**20:.1f} MiB in the last; allocated after them "
-          f"{first['allocated_bytes'] / 2**20:.1f} / {last['allocated_bytes'] / 2**20:.1f} MiB "
-          f"(growth {growth} bytes) | {smi}")
+    print(f"[tune] memory allocated after the last cell {growth} bytes beyond the first's "
+          f"(at most {TUNE_MEMORY_SLACK}): no cell's runtime outlives it")
     return launches[0], {c["tag"]: c["score"] for c in runs["vot"]["cells"] + runs["vot271"]["cells"]}
 
 
@@ -1909,11 +1505,7 @@ def phase_eval(tune_scores: dict, lost_by_tracker: dict) -> None:
                      "--result-dir", str(VOS_ROOT / "results")]}
     gt = VOS_ROOT / "results" / "ytb_vos" / "gt" / "vid"
     shutil.copytree(VOS_ROOT / "ytb_vos" / "valid" / "Annotations" / "vid", gt)
-    summaries, walls = {}, {}
-    for name, args in trees.items():
-        t0 = time.perf_counter()
-        summaries[name] = eval_cli.main(args)
-        walls[name] = time.perf_counter() - t0
+    summaries = {name: eval_cli.main(args) for name, args in trees.items()}
     eaos = {tag: s["eao"] for tag, s in summaries["tune"].items()}
     if eaos != tune_scores:
         raise AssertionError(f"eval: EAO {eaos} against tune's {tune_scores}")
@@ -1928,8 +1520,6 @@ def phase_eval(tune_scores: dict, lost_by_tracker: dict) -> None:
           f"(best {max(eaos.values()):.6f}); [vot]'s trees: lost numbers {lost} equal to the "
           f"drivers'; ytb_vos: SiamMask J {jf[0]:.4f} F {jf[1]:.4f}, the annotations against "
           "themselves J = F = 1")
-    print("[eval] CLI wall s a tree (host clock, spawned pool included): "
-          + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()))
     for root in (TUNE_ROOT, VOT_ROOT, VOS_ROOT):
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1973,7 +1563,7 @@ def temper_launches(model, iters: int) -> tuple[int, int]:
     return iters * sweep + 2 * whole, whole
 
 
-def phase_metric_parity(smi: str) -> tuple[int, int]:
+def phase_metric_parity() -> tuple[int, int]:
     """``[metric-parity]``: ``siammask_tpu_torch.tools.metric_parity`` (its
     ``run`` on its own arguments) on SiamMask-sharp at width 64, seeded
     weights tempered on the card. The card in float32 makes the benchmark
@@ -1993,10 +1583,9 @@ def phase_metric_parity(smi: str) -> tuple[int, int]:
     bf16 runs."""
     from siammask_tpu_torch.tools import metric_parity as mp
 
-    t_phase = time.perf_counter()
     shutil.rmtree(MP_ROOT, ignore_errors=True)
     bench, trees = MP_ROOT / "benchmark", MP_ROOT / "results"
-    video_len, launches, runs = 3 * MP_FRAMES - 3, {False: 0, True: 0}, {}
+    video_len, launches = 3 * MP_FRAMES - 3, {False: 0, True: 0}
     tempering: dict = {}
     real_temper = mp.temper
 
@@ -2015,11 +1604,9 @@ def phase_metric_parity(smi: str) -> tuple[int, int]:
         if card:
             sync_all()
             reset_launches()
-        t0 = time.perf_counter()
         out = mp.run(mp.parse_args(["--work-dir", str(MP_ROOT), "--frames", str(MP_FRAMES),
                                     "--tracker-name", tag, *argv]),
                      log=lambda msg: print(f"[metric-parity] {tag}: {msg}"))
-        out["wall"] = time.perf_counter() - t0
         if card:
             sync_all()
             check_route(f"metric-parity {tag}", bf16)
@@ -2039,7 +1626,6 @@ def phase_metric_parity(smi: str) -> tuple[int, int]:
                 raise AssertionError(f"[metric-parity] {tag}: xcorr launches {got}, expected "
                                      f"{[want, 0, 0]}")
             launches[bf16] += read_launches()[0]
-        runs[tag] = out
         return out
 
     def scores(out: dict, keys=("eao", "accuracy", "robustness", "lost")) -> str:
@@ -2061,13 +1647,11 @@ def phase_metric_parity(smi: str) -> tuple[int, int]:
     settings = json.loads((bench / "benchmark.json").read_text())
     print(f"[metric-parity] benchmark: 2 videos of {video_len} frames from a {MP_FRAMES}-frame "
           f"480x854 clip, gt displaced over 5 frames from {settings['fail_windows']}, VOS "
-          f"{MP_FRAMES} frames; made on the card in float32 in {fp32['seconds']['benchmark']:.1f} "
-          "s (tempering included)")
+          f"{MP_FRAMES} frames; made on the card in float32")
     print(f"[metric-parity] box, card float32 against the CPU's: same decisions "
           f"{cmp['same_decisions']}, box overlap mean {cmp['iou_mean']:.6f} min "
           f"{cmp['iou_min']:.6f} over {cmp['frames_compared']} frames; card {scores(fp32)}; CPU "
-          f"{scores(cpu)}; {resets(fp32)}; wall card {fp32['seconds']['protocol']:.1f} s, CPU "
-          f"{cpu['seconds']['protocol']:.1f} s ({2 * (video_len - 1)} frames) | {smi}")
+          f"{scores(cpu)}; {resets(fp32)}")
     if (not cmp["same_decisions"] or cmp["iou_mean"] < MP_MIN_IOU
             or cpu["scores"]["videos"] != fp32["scores"]["videos"]
             or cpu["scores"]["lost"] != fp32["scores"]["lost"]):
@@ -2079,7 +1663,7 @@ def phase_metric_parity(smi: str) -> tuple[int, int]:
           f"{scores(bf16)}; deltas "
           + ", ".join(f"{k} {v:.4f}" for k, v in bf16["compare"]["deltas"].items())
           + f"; same decisions {bf16['compare']['same_decisions']}, box overlap mean "
-          f"{bf16['compare']['iou_mean']:.4f}; bf16 {resets(bf16)}; float32 {resets(fp32)} | {smi}")
+          f"{bf16['compare']['iou_mean']:.4f}; bf16 {resets(bf16)}; float32 {resets(fp32)}")
     mask = run("card_fp32_mask", ["--benchmark", str(bench)])
     bf16_mask = run("card_bf16_mask", ["--benchmark", str(bench), "--dtype", "bfloat16",
                                        "--compare", str(trees / "VOT2018" / "card_fp32_mask")],
@@ -2088,11 +1672,9 @@ def phase_metric_parity(smi: str) -> tuple[int, int]:
     print(f"[metric-parity] mask-polygon and VOS, card float32: {scores(mask, keys)}; bf16: "
           f"{scores(bf16_mask, keys)}; deltas "
           + ", ".join(f"{k} {v:.4f}" for k, v in bf16_mask["compare"]["deltas"].items())
-          + f"; float32 {resets(mask)}; bf16 {resets(bf16_mask)} (recorded, not held) | {smi}")
-    print("[metric-parity] wall s: " + ", ".join(f"{k} {v['wall']:.1f}" for k, v in runs.items())
-          + f"; the phase {time.perf_counter() - t_phase:.1f} s; xcorr launches float32 "
-          f"{launches[False]}, bf16 {launches[True]} (packed) | {smi}")
-    MEASURED["metric-parity"] = {k: v["scores"] for k, v in runs.items()}
+          + f"; float32 {resets(mask)}; bf16 {resets(bf16_mask)} (recorded, not held)")
+    print(f"[metric-parity] xcorr launches float32 {launches[False]}, bf16 {launches[True]} "
+          "(packed)")
     shutil.rmtree(MP_ROOT)
     return launches[False], launches[True]
 
@@ -2188,7 +1770,6 @@ def phase_train(trainer: Trainer, batch: dict) -> list[int]:
     model = trainer.model
     stem0, layer2_0 = _state(model, FROZEN_ALWAYS), _state(model, LAYER2)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     for step, epoch in enumerate((0, 0, 1, 1)):
         counts = read_launches()
@@ -2228,8 +1809,6 @@ def phase_train(trainer: Trainer, batch: dict) -> list[int]:
         raise AssertionError(f"the loss did not fall on a repeated batch: {losses}")
     print("[train] repeated batch, 8 steps: total loss "
           + " ".join(f"{v:.4f}" for v in losses))
-    print(f"[train] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-          "(torch.cuda.max_memory_allocated)")
     return launches
 
 
@@ -2347,58 +1926,16 @@ def phase_train_profile(trainer: Trainer, batch: dict) -> None:
     """One profiled step in each phase: the backward runs through the
     backbone only once it is unfrozen (neck + heads: 14 conv backwards a
     step; with layer2/3: 78)."""
-    from torch.profiler import ProfilerActivity, profile
-
     for epoch, label, expected in ((0, "frozen", 14), (1, "unfrozen", 78)):
         trainer.step(batch, epoch)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            trainer.step(batch, epoch)
-            torch.cuda.synchronize()
-        events = prof.key_averages()
+        events = profiled(lambda: trainer.step(batch, epoch))
         conv_bwd = sum(e.count for e in events if e.key == "aten::convolution_backward")
-        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        device_ms = device_busy_ms(events)
-        if epoch == 0:
-            export_trace("train-frozen", prof, device_ms, dict.fromkeys(XCORR_ROWS[:3], 3))
-        top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+        xcorr = {e.key.split("::")[-1].split("(")[0]: e.count for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA and "depthwise_xcorr" in e.key}
         print(f"[profile] {label} step: {conv_bwd} aten::convolution_backward calls "
-              f"(expected {expected}); {len(kernels)} kernel names, {device_ms:.2f} ms "
-              "device time; top: " + "; ".join(
-                  f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
-                  for e in top))
-        xcorr = [e for e in kernels if "depthwise_xcorr" in e.key]
-        print(f"[profile] {label} step, xcorr kernels: " + "; ".join(
-            f"{e.key.split('::')[-1].split('(')[0]} {e.self_device_time_total:.2f} us x{e.count}"
-            for e in xcorr))
+              f"(expected {expected}); xcorr kernels by name {xcorr}")
         if conv_bwd != expected:
             raise AssertionError(f"{label}: {conv_bwd} conv backwards, expected {expected}")
-
-
-def phase_train_timing(trainer: Trainer, batch: dict, smi: str, tag: str = "train-timing",
-                       phases=((0, "frozen"), (1, "unfrozen")), mode: str = "fp32") -> None:
-    """ms/step and samples/s of each phase (median of 10 warm steps by CUDA
-    events), and the peak memory of those steps."""
-    for epoch, label in phases:
-        for _ in range(3):
-            trainer.step(batch, epoch)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for _ in range(10):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            trainer.step(batch, epoch)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        med = statistics.median(times)
-        b = batch["template"].shape[0]
-        MEASURED.setdefault(tag, {})[label] = (med, torch.cuda.max_memory_allocated() / 2**30)
-        print(f"[{tag}] {label} step, B={b}, width {TRAIN_WIDTH}, {mode}, TF32 off: "
-              f"median {med:.2f} ms (CUDA events, 10 warm steps; min {min(times):.2f}, "
-              f"max {max(times):.2f}); {b * 1e3 / med:.1f} samples/s; peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}")
 
 
 HEAD = "mask_model.mask.head."
@@ -2450,10 +1987,9 @@ def train_data_config(config: Path, root: str, anno: str, num: int) -> dict:
 
 def phase_data(configs: dict) -> dict:
     """``PairDataset(seed)`` through ``DataLoader``, 8 batches of
-    TRAIN_BATCH for each config, with thread and with process workers:
-    samples/s of each and the host's cores; the two modes give the same
-    batches bit for bit. Returns the thread run's first 4 batches of each
-    config."""
+    TRAIN_BATCH for each config, with thread and with process workers: the
+    two modes give the same batches bit for bit. Returns the thread run's
+    first 4 batches of each config."""
     workers = min(16, os.cpu_count() or 1)
     kept = {}
     for name, raw in configs.items():
@@ -2462,13 +1998,7 @@ def phase_data(configs: dict) -> dict:
         for mode in ("thread", "process"):
             dataset = PairDataset(cfg.train_datasets, cfg.anchors, seed=SEED)
             loader = DataLoader(dataset, TRAIN_BATCH, num_workers=workers, workers_mode=mode)
-            t0 = time.perf_counter()
             runs[mode] = list(loader)
-            dt = time.perf_counter() - t0
-            n = sum(len(b["template"]) for b in runs[mode])
-            print(f"[data] {name} ({cfg.train_datasets['search_size']}^2 search): {len(runs[mode])} "
-                  f"batches of {TRAIN_BATCH} through DataLoader, {workers} {mode} workers: "
-                  f"{dt:.2f} s, {n / dt:.1f} samples/s")
         search = cfg.train_datasets["search_size"]
         for a, b in zip(runs["thread"], runs["process"]):
             if a.keys() != b.keys() or not all(np.array_equal(a[k], b[k]) for k in a):
@@ -2477,10 +2007,11 @@ def phase_data(configs: dict) -> dict:
                 raise AssertionError(f"[data] {name}: search {a['search'].shape}")
         positives = sum(int((b["label_mask_weight"].reshape(TRAIN_BATCH, -1).max(1) > 0).sum())
                         for b in runs["thread"])
-        print(f"[data] {name}: thread and process batches bit-identical; "
-              f"{positives} of {len(runs['thread']) * TRAIN_BATCH} pairs with mask positives")
+        print(f"[data] {name} ({search}^2 search): {len(runs['thread'])} batches of "
+              f"{TRAIN_BATCH} through DataLoader, {workers} thread and {workers} process "
+              f"workers, bit-identical; {positives} of {len(runs['thread']) * TRAIN_BATCH} "
+              "pairs with mask positives")
         kept[name] = runs["thread"][:4]
-    print(f"[data] host: {os.cpu_count()} cores (os.cpu_count)")
     return kept
 
 
@@ -2571,36 +2102,23 @@ def loss_falls(tag: str, trainer: Trainer, batch: dict, epoch: int) -> None:
     print(f"[{tag}] repeated batch, 8 steps: total loss " + " ".join(f"{v:.4f}" for v in losses))
 
 
-def train_profile(tag: str, trainer: Trainer, batch: dict, epoch: int, label: str,
-                  launches: int) -> None:
-    """One profiled step: device busy against the step's CUDA-event time
-    (the idle share), the xcorr kernels by name (``launches`` of them) and
-    the top 10 device ops."""
+def check_train_kernels(tag: str, trainer: Trainer, batch: dict, epoch: int, label: str,
+                        launches: int) -> None:
+    """The xcorr kernels by name, ``launches`` of them, in the trace of one
+    warm step."""
     trainer.step(batch, epoch)
-    for attempt in (1, 2):   # a short trace is taken once more (check_graph_profile)
-        events, busy, call_ms = profile_call(lambda: trainer.step(batch, epoch))
-        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        xcorr = {e.key.split("::")[-1].split("(")[0]: e.count for e in kernels
-                 if "depthwise_xcorr" in e.key}
-        if sum(xcorr.values()) == launches:
-            break
-        if attempt == 2 or sum(xcorr.values()) > launches:
-            raise AssertionError(f"[{tag}] {xcorr} xcorr kernels in the trace, "
-                                 f"expected {launches}")
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
-    print(f"[{tag}] profiled {label} step: device busy {busy:.2f} ms of {call_ms:.2f} ms, idle "
-          f"share {100 * (1 - busy / call_ms):.1f}%; xcorr kernels by name {xcorr}; top 10: "
-          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
-                      for e in top))
+    xcorr = {k.split("::")[-1].split("(")[0]: n for k, n in
+             xcorr_kernels(tag, lambda: trainer.step(batch, epoch), launches).items()}
+    print(f"[{tag}] profiled {label} step: xcorr kernels by name {xcorr}")
 
 
-def phase_train_refine(base_trainer: Trainer, raw: dict, batches: list,
-                       smi: str) -> tuple[list[int], dict, dict]:
+def phase_train_refine(base_trainer: Trainer, raw: dict,
+                       batches: list) -> tuple[list[int], dict, dict]:
     """Stage 2 of the two-stage recipe at TRAIN_BATCH, warm-started from a
     stage-1 checkpoint of ``base_trainer``: 4 steps on loader batches
     through ``to_device`` (3 / 1 / 1 launches a step, backbone, neck and RPN
     bit-identical, the unused head decaying), the loss over 8 repeated
-    steps, card vs CPU at B=2, a profile, ms/step and peak memory. Returns
+    steps, card vs CPU at B=2, the xcorr kernels by name in a profile. Returns
     the launches, the warm-started weights and the first loader batch on
     the card."""
     path = str(SMOKE_TRAIN / "stage1.pth")
@@ -2616,29 +2134,25 @@ def phase_train_refine(base_trainer: Trainer, raw: dict, batches: list,
           f"init, all refine_model.*; none unused")
     init_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     trainer = task_trainer(raw, "sharp_refine", model.to(DEV))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     launches = run_train_steps(
         "train-refine", trainer, to_device(iter(batches), DEV), (0, 0, 1, 1), [3, 1, 1],
         lambda epoch: {"mask", "refine"}, lambda epoch: REFINE_FROZEN,
         on_step=lambda before, bufs: check_head_decay(trainer, before, bufs))
     print(f"[train-refine] 4 steps at B={TRAIN_BATCH}, 143^2 search, 3x3 grid: launches "
-          f"{launches}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the "
-          "mask head decayed by weight decay alone at every step")
+          f"{launches}; the mask head decayed by weight decay alone at every step")
     batch = next(to_device(iter(batches[:1]), DEV))
     loss_falls("train-refine", trainer, batch, 1)
     phase_refine_parity(lambda device: task_trainer(
         raw, "sharp_refine", loaded_model(SiamMaskSharp, init_state, device)),
         init_state, batch, "train-refine-parity")
-    train_profile("train-refine", trainer, batch, 1, "stage-2", 5)
-    phase_train_timing(trainer, batch, smi, "train-refine-timing", ((1, "stage-2"),))
+    check_train_kernels("train-refine", trainer, batch, 1, "stage-2", 5)
     return launches, init_state, batch
 
 
-def phase_train_rpn(raw: dict, batches: list, smi: str) -> tuple[list[int], dict, dict]:
+def phase_train_rpn(raw: dict, batches: list) -> tuple[list[int], dict, dict]:
     """SiamRPN at TRAIN_BATCH, 255^2 search: two frozen and two unfrozen
     steps on loader batches (2 / 2 / 2 launches a step), card vs CPU at
-    B=2, a profile and ms/step per phase. Returns the launches, the
+    B=2, the xcorr kernels by name in a profile of each phase. Returns the launches, the
     initial weights and the first loader batch on the card."""
     model = SiamRPN(width=TRAIN_WIDTH).init_weights(torch.Generator().manual_seed(SEED + 2))
     dev_batches = list(to_device(iter(batches), DEV))
@@ -2656,8 +2170,7 @@ def phase_train_rpn(raw: dict, batches: list, smi: str) -> tuple[list[int], dict
         raw, "siamrpn", loaded_model(SiamRPN, init_state, device)),
         init_state, dev_batches[0], "train-rpn-parity")
     for epoch, label in ((0, "frozen"), (1, "unfrozen")):
-        train_profile("train-rpn", trainer, dev_batches[0], epoch, label, 6)
-    phase_train_timing(trainer, dev_batches[0], smi, "train-rpn-timing")
+        check_train_kernels("train-rpn", trainer, dev_batches[0], epoch, label, 6)
     return launches, init_state, dev_batches[0]
 
 
@@ -2770,16 +2283,13 @@ def phase_train_cli(configs: dict) -> None:
               "--save-dir", str(out / "sharp"), "--resume",
               str(out / "sharp" / "checkpoint_e1.pth")], out / "sharp" / "checkpoint_e2.pth")]
     for label, argv, written in runs:
-        t0 = time.perf_counter()
         metrics = train_cli.main([*argv, *common])
-        dt = time.perf_counter() - t0
         if not metrics or not all(math.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"[train-cli] {label}: {metrics}")
         if not written.exists():
             raise AssertionError(f"[train-cli] {label}: no {written.name}")
-        print(f"[train-cli] {label}: {dt:.2f} s for 2 steps of {TRAIN_BATCH} (model build, "
-              f"loader, steps, checkpoint); total loss {metrics['total_loss']:.4f}; wrote "
-              f"{written.relative_to(SMOKE_TRAIN)}")
+        print(f"[train-cli] {label}: 2 steps of {TRAIN_BATCH}; total loss "
+              f"{metrics['total_loss']:.4f}; wrote {written.relative_to(SMOKE_TRAIN)}")
 
 
 # [dp]: the data-parallel modes, each from the stage-1 weights; the two
@@ -2792,7 +2302,6 @@ DP_DIRECTION = ("rpn_model.loc.head.3.weight", "features.features.layer2.0.conv1
 # trains with synced BN (local BN moves the unfrozen backbone's gradients)
 DP_GATED = {("fused", 0): DP_DIRECTION[:1], ("fused+sync_bn", 0): DP_DIRECTION[:1],
             ("fused+sync_bn", 1): DP_DIRECTION}
-DP_TIMED = 2
 # the default mode's updates against the single-process step's, over the
 # step, frozen / unfrozen: about three times the distance measured on an
 # H100 (1.97e-3 / 8.8e-3-9.5e-3), which is float32 rounding: the same
@@ -2812,13 +2321,12 @@ def _state_digest(model) -> str:
 
 
 def dp_rank(rank: int, world: int, device, init_state: dict, batch: dict, modes, keep,
-            timed: int, dtype: torch.dtype | None = None) -> dict:
+            dtype: torch.dtype | None = None) -> dict:
     """One rank of a data-parallel run (``parallel.dist.spawn``): for each
     mode of ``modes`` a frozen and an unfrozen step, each on a fresh trainer
     over a model computing in ``dtype`` (None: float32) from
-    ``init_state``, on this rank's rows of ``batch``; then ``timed``
-    unfrozen steps after a warm one, by the host clock to a synchronize.
-    Per step: metrics, kernel launches (and those of the packed bf16
+    ``init_state``, on this rank's rows of ``batch``. Per step (a list
+    by mode): metrics, kernel launches (and those of the packed bf16
     kernels), collectives, a digest of the state, and the state's tensors
     (all with ``keep`` None, else those named)."""
     torch.backends.cudnn.allow_tf32 = False
@@ -2845,16 +2353,7 @@ def dp_rank(rank: int, world: int, device, init_state: dict, batch: dict, modes,
                           "state": {k: v.detach().cpu().clone()
                                     for k, v in model.state_dict().items()
                                     if keep is None or k in keep}})
-        ms = []
-        torch.cuda.reset_peak_memory_stats()
-        for i in range(timed + 1):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            trainer.step(local, 1)
-            torch.cuda.synchronize()
-            if i:
-                ms.append((time.perf_counter() - t0) * 1e3)
-        out[name] = {"steps": steps, "ms": ms, "peak": torch.cuda.max_memory_allocated()}
+        out[name] = steps
     return out
 
 
@@ -2949,15 +2448,15 @@ def check_dp_ranks(tag: str, name: str, phase: str, runs: list, step: int,
     bit-identical, 3 launches of each kernel a rank, all of the packed bf16
     kernels' with ``bf16`` and none else, the metrics finite with no skip.
     Returns rank 0's step."""
-    if len({r["steps"][step]["digest"] for r in runs}) != 1:
+    if len({r[step]["digest"] for r in runs}) != 1:
         raise AssertionError(f"[{tag}] {name} {phase}: the ranks' states differ")
     for r in runs:
-        got = r["steps"][step]
+        got = r[step]
         if got["launches"] != [3, 3, 3] or got["packed"] != ([3, 3, 3] if bf16 else [0, 0, 0]):
             raise AssertionError(f"[{tag}] {name} {phase}: launches {got['launches']}, packed "
                                  f"{got['packed']}, expected [3, 3, 3] "
                                  f"({'all' if bf16 else 'none'} packed)")
-    ours = runs[0]["steps"][step]
+    ours = runs[0][step]
     if not all(math.isfinite(v) for v in ours["metrics"].values()) \
             or ours["metrics"]["skipped"] != 0:
         raise AssertionError(f"[{tag}] {name} {phase}: {ours['metrics']}")
@@ -2970,7 +2469,7 @@ def check_dp_direction(tag: str, name: str, epoch: int, ours: dict, default: dic
     mode's (``default``: rank 0's run of it) where ``DP_GATED`` says, cos >
     0.98; returns the line that reports it, with its updates' distance from
     the single process's (``ref_state``)."""
-    other = default["steps"][epoch]["state"]
+    other = default[epoch]["state"]
     coss = {k: _cos(ours["state"][k] - init_state[k], other[k] - init_state[k])
             for k in DP_DIRECTION if epoch or not k.startswith("features.")}
     gated = DP_GATED.get((name, epoch), ())
@@ -2986,7 +2485,7 @@ def check_dp_direction(tag: str, name: str, epoch: int, ours: dict, default: dic
                         for k, c in coss.items()))
 
 
-def phase_dp(init_state: dict, batch: dict, smi: str) -> list[int]:
+def phase_dp(init_state: dict, batch: dict) -> tuple[list[int], dict]:
     """[dp]: SiamMask-base stage 1 at width 64, global batch TRAIN_BATCH,
     data parallel. World 1 over NCCL against the no-group step; then two
     ranks sharing card 0 over gloo (NCCL refuses two ranks on one card),
@@ -2995,21 +2494,19 @@ def phase_dp(init_state: dict, batch: dict, smi: str) -> list[int]:
     mode against the single-process step, the fused modes' update direction
     against the default mode's, the ranks' states bit-identical, 3 launches
     of each kernel a step on each rank. With two cards or more, NCCL over
-    up to four of them at global batch 64 and 256 against one card, and the
+    up to four of them at global batch 64 and 256 and on one card, and the
     train CLI over all of them. Returns rank 0's launches in the two-rank
-    run (forward, grad-input, grad-kernel)."""
+    run (forward, grad-input, grad-kernel) and the single-process steps'
+    (metrics, state, labels) by epoch."""
     refs = dp_world_one(init_state, batch)
     noise = dp_float32_noise(init_state, batch, refs)
     cpu_batch = {k: v.cpu() for k, v in batch.items()}
-    t0 = time.perf_counter()
-    ranks = spawn(dp_rank, 2, "cuda", init_state, cpu_batch, DP_MODES, None, DP_TIMED,
+    ranks = spawn(dp_rank, 2, "cuda", init_state, cpu_batch, DP_MODES, None,
                   backend="gloo", local_ranks=[0, 0], timeout=600)
     print(f"[dp] two ranks on {torch.cuda.get_device_name(0)} over gloo (the collectives "
-          f"staged through the host by gloo), {TRAIN_BATCH // 2} rows each: spawned and "
-          f"run in {time.perf_counter() - t0:.2f} s")
+          f"staged through the host by gloo), {TRAIN_BATCH // 2} rows each")
     labels = {e: refs[e][2] for e in (0, 1)}
     launches = [0, 0, 0]
-    MEASURED["dp"] = {"refs": refs, "ms": {}}
     for name, _ in DP_MODES:
         runs = [r[name] for r in ranks]
         for step, epoch in enumerate((0, 1)):
@@ -3036,57 +2533,38 @@ def phase_dp(init_state: dict, batch: dict, smi: str) -> list[int]:
                                             init_state, ref_state, labels[epoch])
             print(f"[dp] {name}, {phase} step: {detail}; ranks bit-identical; launches "
                   f"{ours['launches']} a rank; {ours['collectives']} collectives a rank")
-        ms = runs[0]["ms"]
-        MEASURED["dp"]["ms"][name] = statistics.median(ms)
-        print(f"[dp] {name}: {statistics.median(ms):.2f} ms an unfrozen step (median of "
-              f"{len(ms)}, host clock to a synchronize; min {min(ms):.2f}), global batch "
-              f"{TRAIN_BATCH}, two ranks sharing one card over gloo: a check of the "
-              f"semantics, not a speed record; peak {runs[0]['peak'] / 2**30:.2f} GiB a "
-              f"rank | {smi}")
     if torch.cuda.device_count() >= 2:
-        phase_dp_cards(init_state, smi)
+        phase_dp_cards(init_state)
     else:
         print("[dp] one card visible: NCCL over several cards and the train CLI's "
               "--num-devices not run")
-    return launches
+    return launches, refs
 
 
-def phase_dp_cards(init_state: dict, smi: str, dtype: torch.dtype | None = None) -> None:
-    """NCCL over min(4, cards) cards at global batch 64 and 256 against one
-    card (a world-1 group), default and fused modes, on a model computing in
-    ``dtype`` (None: float32): samples/s of an unfrozen step and the
-    scaling (bf16's beside float32's of this run); then, in float32,
+def phase_dp_cards(init_state: dict, dtype: torch.dtype | None = None) -> None:
+    """NCCL over min(4, cards) cards and over one card (a world-1 group) at
+    global batch 64 and 256, default and fused modes, on a model computing
+    in ``dtype`` (None: float32): the ranks' states bit-identical after an
+    unfrozen step, all launches packed in bf16; then, in float32,
     ``tools.train --num-devices`` over every card for two steps."""
     cfg = Config.load(str(TRAIN_CONFIG), clip=10.0)
     n = min(4, torch.cuda.device_count())
     modes = DP_MODES[:2]
     tag = "dp" if dtype is None else "bf16-dp"
-    scaling = MEASURED.setdefault(tag, {}).setdefault("scaling", {})
     for gb in (TRAIN_BATCH, 4 * TRAIN_BATCH):
         batch = {k: v.cpu() for k, v in synthetic_train_batch(cfg, gb, DEV).items()}
-        rates = {}
         for world in (1, n):
-            runs = spawn(dp_rank, world, "cuda", init_state, batch, modes, (), DP_TIMED, dtype,
+            runs = spawn(dp_rank, world, "cuda", init_state, batch, modes, (), dtype,
                          timeout=600)
             for name, _ in modes:
-                if len({r[name]["steps"][1]["digest"] for r in runs}) != 1:
+                if len({r[name][1]["digest"] for r in runs}) != 1:
                     raise AssertionError(f"[{tag}] {name} over {world} cards: ranks differ")
-                if dtype is not None and runs[0][name]["steps"][1]["packed"] != [3, 3, 3]:
+                if dtype is not None and runs[0][name][1]["packed"] != [3, 3, 3]:
                     raise AssertionError(f"[{tag}] {name} over {world} cards: packed launches "
-                                         f"{runs[0][name]['steps'][1]['packed']}")
-                ms = statistics.median(runs[0][name]["ms"])
-                rates[(name, world)] = gb * 1e3 / ms
+                                         f"{runs[0][name][1]['packed']}")
                 print(f"[{tag}] NCCL, {world} card(s), global batch {gb} ({gb // world} a "
-                      f"card), {name}: {ms:.2f} ms an unfrozen step, "
-                      f"{rates[(name, world)]:.1f} samples/s; "
-                      f"{runs[0][name]['steps'][1]['collectives']} collectives a step; peak "
-                      f"{runs[0][name]['peak'] / 2**30:.2f} GiB a card | {smi}")
-        for name, _ in modes:
-            scaling[(name, gb)] = rates[(name, n)] / rates[(name, 1)]
-            beside = "" if dtype is None else \
-                f" (float32 {MEASURED['dp']['scaling'][(name, gb)]:.2f}x)"
-            print(f"[{tag}] scaling at global batch {gb}, {name}: {n} cards "
-                  f"{scaling[(name, gb)]:.2f}x one card{beside}")
+                      f"card), {name}: an unfrozen step, ranks bit-identical; "
+                      f"{runs[0][name][1]['collectives']} collectives a step")
     if dtype is not None:
         return
     shutil.rmtree(SMOKE_DP, ignore_errors=True)
@@ -3094,7 +2572,6 @@ def phase_dp_cards(init_state: dict, smi: str, dtype: torch.dtype | None = None)
     config = SMOKE_DP / "base.json"
     config.write_text(json.dumps(train_data_config(TRAIN_CONFIG, root, anno, 2 * TRAIN_BATCH)))
     count = torch.cuda.device_count()
-    t0 = time.perf_counter()
     metrics = train_cli.main(["--config", str(config), "--task", "base", "--epochs", "1",
                               "--batch", str(TRAIN_BATCH), "--workers", "4", "--width",
                               str(TRAIN_WIDTH), "--seed", str(SEED), "--log-interval", "1",
@@ -3102,12 +2579,11 @@ def phase_dp_cards(init_state: dict, smi: str, dtype: torch.dtype | None = None)
     if not all(math.isfinite(v) for v in metrics.values()) \
             or not (SMOKE_DP / "snap" / "checkpoint_e1.pth").exists():
         raise AssertionError(f"[dp] train CLI over {count} cards: {metrics}")
-    print(f"[dp] tools.train --num-devices {count}: 2 steps of {TRAIN_BATCH} in "
-          f"{time.perf_counter() - t0:.2f} s (spawn, model build, loader, checkpoint); total "
-          f"loss {metrics['total_loss']:.4f}; rank 0 wrote checkpoint_e1.pth")
+    print(f"[dp] tools.train --num-devices {count}: 2 steps of {TRAIN_BATCH}; total loss "
+          f"{metrics['total_loss']:.4f}; rank 0 wrote checkpoint_e1.pth")
     shutil.rmtree(SMOKE_DP)
 
-def phase_bf16_dp(init_state: dict, batch: dict, smi: str) -> list[int]:
+def phase_bf16_dp(init_state: dict, batch: dict, refs32: dict) -> list[int]:
     """``[bf16-dp]``: ``[dp]``'s two ranks sharing card 0 over gloo, 32 rows
     each, the three modes, a frozen and an unfrozen step each, on the bf16
     twin of the stage-1 weights: the ranks' states bit-identical, 3 / 3 / 3
@@ -3117,11 +2593,10 @@ def phase_bf16_dp(init_state: dict, batch: dict, smi: str) -> list[int]:
     further from the single process's than the single-process bf16 step's
     are from ``[dp]``'s float32 one, its total loss within 1e-3 relative.
     The fused modes by update direction against the default mode, as in
-    ``[dp]``. ms an unfrozen step beside ``[dp]``'s. With two cards or
-    more, NCCL at global batch 64 and 256 against one card
+    ``[dp]`` (``refs32``: its single-process float32 steps by epoch). With
+    two cards or more, NCCL at global batch 64 and 256 and on one card
     (``phase_dp_cards``). Returns rank 0's launches."""
     cfg = Config.load(str(TRAIN_CONFIG), clip=10.0)
-    refs32 = MEASURED["dp"]["refs"]
     refs = {}
     for epoch in (0, 1):
         trainer = Trainer(loaded_model(SiamMaskBase, init_state, DEV, BF16), *train_parts(cfg),
@@ -3130,13 +2605,10 @@ def phase_bf16_dp(init_state: dict, batch: dict, smi: str) -> list[int]:
         refs[epoch] = (metrics, {k: v.detach().cpu().clone()
                                  for k, v in trainer.model.state_dict().items()})
     del trainer
-    t0 = time.perf_counter()
     ranks = spawn(dp_rank, 2, "cuda", init_state, {k: v.cpu() for k, v in batch.items()},
-                  DP_MODES, None, DP_TIMED, BF16, backend="gloo", local_ranks=[0, 0],
-                  timeout=600)
+                  DP_MODES, None, BF16, backend="gloo", local_ranks=[0, 0], timeout=600)
     print(f"[bf16-dp] two ranks on {torch.cuda.get_device_name(0)} over gloo, "
-          f"{TRAIN_BATCH // 2} rows each, bf16 over float32 weights: spawned and run in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{TRAIN_BATCH // 2} rows each, bf16 over float32 weights")
     launches = [0, 0, 0]
     for name, _ in DP_MODES:
         runs = [r[name] for r in ranks]
@@ -3176,39 +2648,14 @@ def phase_bf16_dp(init_state: dict, batch: dict, smi: str) -> list[int]:
             print(f"[bf16-dp] {name}, {phase} step: {detail}; ranks bit-identical; launches "
                   f"{ours['launches']} a rank, all packed; {ours['collectives']} collectives "
                   "a rank")
-        ms = statistics.median(runs[0]["ms"])
-        fp32 = MEASURED["dp"]["ms"][name]
-        print(f"[bf16-dp] {name}: {ms:.2f} ms an unfrozen step (median of {len(runs[0]['ms'])}, "
-              f"host clock to a synchronize) beside [dp]'s float32 {fp32:.2f} ms (float32 / "
-              f"bf16 {fp32 / ms:.2f}x), two ranks sharing one card over gloo; peak "
-              f"{runs[0]['peak'] / 2**30:.2f} GiB a rank | {smi}")
     if torch.cuda.device_count() >= 2:
-        phase_dp_cards(init_state, smi, BF16)
+        phase_dp_cards(init_state, BF16)
     return launches
 
 # ---------------- bf16 compute ----------------
 
 
-def check_bf16_kernels(tag: str) -> None:
-    """Every xcorr kernel in ``tag``'s profiled graph call is the packed
-    bf16 kernel, by its name in the trace."""
-    got = MEASURED[tag]
-    if not got["xcorr"] or got["xcorr_packed"] != got["xcorr"]:
-        raise AssertionError(f"[{tag}] {got['xcorr_packed']} of {got['xcorr']} xcorr kernels in "
-                             "the trace are the packed bf16 kernel")
-
-
-def print_beside(tag: str, fp32_tag: str, smi: str) -> None:
-    """A bf16 graph path's numbers beside the fp32 path's of this run."""
-    b, a = MEASURED[tag], MEASURED[fp32_tag]
-    print(f"[bf16] {tag} beside {fp32_tag}: ms a frame {b['ms_frame']:.3f} vs "
-          f"{a['ms_frame']:.3f} (fp32 / bf16 {a['ms_frame'] / b['ms_frame']:.2f}x); "
-          f"frames/s {b['fps']:.1f} vs {a['fps']:.1f}; device ms a frame "
-          f"{b['device_ms_frame']:.3f} vs {a['device_ms_frame']:.3f}; idle {b['idle']:.1f}% vs "
-          f"{a['idle']:.1f}%; peak memory {b['peak_gib']:.2f} vs {a['peak_gib']:.2f} GiB | {smi}")
-
-
-def phase_bf16(smi: str) -> dict:
+def phase_bf16() -> dict:
     """``[bf16]``: SiamMask-sharp at width 64 computing in bf16 over float32
     weights (``build_model(dtype=bf16)``: the calibrated weights, their cls
     head sharpened, so that the card and the CPU do not tie on the best
@@ -3218,20 +2665,17 @@ def phase_bf16(smi: str) -> dict:
     ``check_step_close``'s bf16 tolerances); ``track_video`` over VIDEO_T
     frames through the CUDA graph, bit-identical to the eager bf16 loop;
     STREAMS streams over STREAMS_T frames, bit-identical to the eager
-    ``step_batched`` loop; each with frames/s, device ms a frame, idle
-    share, peak memory and a profile's top 10, printed beside the fp32
-    ``[video]`` / ``[streams]`` numbers of this run. Then SiamRPN (box only)
-    and SiamMask-base (63x63 masks) graph videos in bf16, beside ``[rpn]`` /
-    ``[base]``. Every xcorr kernel in the graph paths' traces is a bf16
-    instantiation. Returns the xcorr launches by path."""
+    ``step_batched`` loop. Then SiamRPN (box only) and SiamMask-base (63x63
+    masks) graph videos in bf16. Every xcorr kernel in the graph paths'
+    traces is the packed bf16 kernel. Returns the xcorr launches by path."""
     p = Config.load(str(CONFIG)).tracker_config()
     model, tracker, frames = build_model(p, dtype=BF16)
     state, track = phase_slice(tracker, frames, "bf16")
     cpu_tracker = cpu_tracker_of(tracker)
     phase_cpu_parity(tracker, cpu_tracker, state, frames[STEPS + 2], "bf16-parity", bf16=True)
     bf16_size_shares(tracker, cpu_tracker, frames[:7], "bf16-parity")
-    video, _ = phase_video(tracker, frames, smi, "bf16")
-    streams, _ = phase_streams(tracker, frames, smi, "bf16-streams", single=False)
+    video = phase_video(tracker, frames, "bf16")
+    streams, _ = phase_streams(tracker, frames, "bf16-streams", single=False)
     del model, tracker, state
     torch.cuda.empty_cache()
     paths = {"bf16_track": track, "bf16_video": [video, 0, 0],
@@ -3240,25 +2684,21 @@ def phase_bf16(smi: str) -> dict:
                                     ("base", SiamMaskBase, BASE_CONFIG, True)):
         p = Config.load(str(config)).tracker_config()
         _, family_tracker, family_frames = build_model(p, cls, mask, False, BF16)
-        launches, _ = phase_video(family_tracker, family_frames, smi, f"bf16-{name}")
+        launches = phase_video(family_tracker, family_frames, f"bf16-{name}")
         paths[f"bf16_{name}"] = [launches, 0, 0]
         del family_tracker
         torch.cuda.empty_cache()
-    for tag, fp32_tag in (("bf16", "video"), ("bf16-streams", "streams"), ("bf16-rpn", "rpn"),
-                          ("bf16-base", "base")):
-        check_bf16_kernels(tag)
-        print_beside(tag, fp32_tag, smi)
     return paths
 
 
-def phase_bf16_vos(model: SiamMaskSharp, p, smi: str) -> int:
+def phase_bf16_vos(model: SiamMaskSharp, p, ref: np.ndarray | None) -> int:
     """``[bf16-vos]``: ``track_vos_batched`` as ``[vos]`` drives it, with a
     bf16 twin of ``[vos]``'s weights on its video: the per-object mean IoU
     against the annotations at the driver's thresholds beside ``[vos]``'s
     fp32 ones, and each object's IoU between the two runs' fused masks,
     pooled over the video. Skipped with ``[vos]``. Returns the xcorr
     launches (through the wrapper and by replay)."""
-    if "vos" not in MEASURED:
+    if ref is None:
         print("[bf16-vos] skipped: [vos] did not run")
         return 0
     import cv2
@@ -3269,15 +2709,15 @@ def phase_bf16_vos(model: SiamMaskSharp, p, smi: str) -> int:
     torch.cuda.synchronize()
     reset_launches()
     out = VOS_ROOT / "results_bf16"
-    iou, fps = track_vos_batched(runtime, video, scan_chunk=VOS_CHUNK, result_dir=str(out),
-                                 dataset="ytb_vos", save_mask=True, log=lambda *_: None)
+    iou, _ = track_vos_batched(runtime, video, scan_chunk=VOS_CHUNK, result_dir=str(out),
+                               dataset="ytb_vos", save_mask=True, log=lambda *_: None)
     launches = read_launches()
     graph = runtime.tracker.graphs[(3, *FRAME_HW, torch.uint8)]
     check_route("bf16-vos", True, graph)
     if launches != [3 * VOS_RAGGED, 0, 0] or graph.xcorr_launches != 3:
         raise AssertionError(f"bf16-vos: {launches} launches through the wrappers, "
                              f"{graph.xcorr_launches} captured")
-    iou, ref = np.asarray(iou), MEASURED["vos"]["iou"]
+    iou = np.asarray(iou)
     if iou.shape != ref.shape or not np.all((iou >= 0) & (iou <= 1)):
         raise AssertionError(f"bf16-vos: IoU {iou}")
 
@@ -3300,8 +2740,7 @@ def phase_bf16_vos(model: SiamMaskSharp, p, smi: str) -> int:
           f"0.30/0.35/0.40/0.45: bf16 {np.round(iou.astype(float), 4).tolist()} vs fp32 "
           f"{np.round(ref.astype(float), 4).tolist()} "
           f"(largest |bf16 - fp32| {np.abs(iou - ref).max():.4f}); IoU of the bf16 and fp32 "
-          f"fused masks per object {[round(a, 4) for a in agree]}; {fps:.1f} object-frames/s "
-          f"| {smi}")
+          f"fused masks per object {[round(a, 4) for a in agree]}")
     return 3 * VOS_RAGGED + graph.xcorr_launches * VOS_FULL
 
 
@@ -3311,7 +2750,7 @@ def region_centre(line: str) -> np.ndarray:
     return v[:2] + v[2:] / 2 if len(v) == 4 else v.reshape(-1, 2).mean(0)
 
 
-def phase_bf16_vot(models: dict, smi: str) -> int:
+def phase_bf16_vot(models: dict) -> int:
     """``[bf16-vot]``: ``track_vot`` for sharp, base and SiamRPN with bf16
     twins of ``[vot]``'s damped weights on ``[vot]``'s two videos: each
     video's lost count equal to the fp32 run's (the 2s in ``[vot]``'s result
@@ -3329,10 +2768,10 @@ def phase_bf16_vot(models: dict, smi: str) -> int:
         runtime = TrackerRuntime(bf16_twin(models[name]),
                                  Config.load(str(config)).tracker_config(), "cuda", mask=mask,
                                  refine=refine)
-        stepped[name], lost, ref_lost, speeds, drift = 0, [], [], [], 0.0
+        stepped[name], lost, ref_lost, drift = 0, [], [], 0.0
         for video in dataset.values():
-            n, fps = track_vot(runtime, video, mask_enable=mask, result_dir=str(out),
-                               tracker_name=name, log=lambda *_: None)
+            n, _ = track_vot(runtime, video, mask_enable=mask, result_dir=str(out),
+                             tracker_name=name, log=lambda *_: None)
             lines, ref = ((tree / "VOT2018" / name / "baseline" / video["name"]
                            / f"{video['name']}_001.txt").read_text().splitlines()
                           for tree in (out, VOT_ROOT / "results"))
@@ -3340,15 +2779,13 @@ def phase_bf16_vot(models: dict, smi: str) -> int:
                                              8 if mask else 4, video["name"] == "vid1")
             lost.append(n)
             ref_lost.append(ref.count("2"))
-            speeds.append(fps)
             for a, b in zip(lines, ref):
                 if a not in ("0", "1", "2") and b not in ("0", "1", "2"):
                     drift = max(drift, float(np.linalg.norm(region_centre(a) - region_centre(b))))
         if lost != ref_lost:
             raise AssertionError(f"bf16-vot {name}: lost {lost} in bf16, {ref_lost} in fp32")
         print(f"[bf16-vot] {name}: lost {lost} in {list(dataset)}, as in fp32; the largest "
-              f"distance between the bf16 and fp32 regions' centres {drift:.2f} px; driver's "
-              "fps (file reads excluded) " + ", ".join(f"{v:.1f}" for v in speeds) + f" | {smi}")
+              f"distance between the bf16 and fp32 regions' centres {drift:.2f} px")
     launches = read_launches()
     check_route("bf16-vot", True)
     expected = sum(k * stepped[n] for n, k in (("sharp", 3), ("base", 3), ("rpn", 2)))
@@ -3398,7 +2835,7 @@ def bf16_first_step(tag: str, make_trainer, init_state: dict, batch: dict,
     return trainer, start
 
 
-def phase_bf16_train(init_state: dict, batch: dict, cfg: Config, smi: str) -> list[int]:
+def phase_bf16_train(init_state: dict, batch: dict, cfg: Config) -> list[int]:
     """``[bf16-train]``: SiamMask-base stage 1 at batch TRAIN_BATCH computing
     in bf16 over float32 weights, from ``[train]``'s initial weights on its
     batch. The first (frozen) step against the fp32 step from the same
@@ -3406,9 +2843,7 @@ def phase_bf16_train(init_state: dict, batch: dict, cfg: Config, smi: str) -> li
     unfrozen steps: each finite, no skip, 3 / 3 / 3 launches, the stem and
     layer1 unchanged, layer2 unchanged while frozen; a profiled unfrozen
     step whose xcorr kernels are all the packed bf16 kernels (3 forward and
-    3 of each gradient); ms/step by CUDA events and peak memory per phase
-    beside ``[train-timing]``'s fp32 numbers. Returns the launches of the
-    four steps."""
+    3 of each gradient). Returns the launches of the four steps."""
     trainer, start = bf16_first_step(
         "bf16-train", lambda dtype: Trainer(loaded_model(SiamMaskBase, init_state, DEV, dtype),
                                             *train_parts(cfg), epochs=TRAIN_EPOCHS,
@@ -3436,9 +2871,8 @@ def phase_bf16_train(init_state: dict, batch: dict, cfg: Config, smi: str) -> li
               f"{metrics['iou_mean']:.4f}; launches {counts}")
     launches = read_launches()
     check_route("bf16-train", True)
-    events, busy, step_ms = profile_call(lambda: trainer.step(batch, 1))
-    names = {e.key: e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-             and "depthwise_xcorr" in e.key}
+    names = {e.key: e.count for e in profiled(lambda: trainer.step(batch, 1))
+             if e.device_type == torch.autograd.DeviceType.CUDA and "depthwise_xcorr" in e.key}
     packed = sum(c for k, c in names.items() if "depthwise_xcorr_strip_bf16x2_kernel" in k)
     grad_kernel = sum(c for k, c in names.items()
                       if "depthwise_xcorr_grad_kernel_bf16x2_kernel" in k)
@@ -3446,33 +2880,20 @@ def phase_bf16_train(init_state: dict, batch: dict, cfg: Config, smi: str) -> li
         raise AssertionError(f"bf16-train: xcorr kernels in a step's trace {names}")
     kinds = sorted({re.search(r"depthwise_xcorr\w*<[^>]*>", k).group(0) for k in names})
     print(f"[bf16-train] profiled unfrozen step: 9 xcorr kernels, all packed bf16 kernels "
-          f"({', '.join(kinds)}); device busy {busy:.2f} ms of {step_ms:.2f} ms")
-    trainer.step(batch, 0)
-    profile_call(lambda: trainer.step(batch, 0), "bf16-train-frozen")
-    TRACES["bf16-train-frozen"]["xcorr"] = dict.fromkeys(XCORR_ROWS[3:], 3)
-    phase_train_timing(trainer, batch, smi, "bf16-train-timing", mode="bf16")
-    for label in ("frozen", "unfrozen"):
-        (ms16, peak16), (ms32, peak32) = (MEASURED[t][label] for t in ("bf16-train-timing",
-                                                                        "train-timing"))
-        print(f"[bf16-train] {label} step beside [train-timing]: {ms16:.2f} vs {ms32:.2f} ms "
-              f"(fp32 / bf16 {ms32 / ms16:.2f}x), {TRAIN_BATCH * 1e3 / ms16:.1f} vs "
-              f"{TRAIN_BATCH * 1e3 / ms32:.1f} samples/s; peak memory {peak16:.2f} vs "
-              f"{peak32:.2f} GiB | {smi}")
+          f"({', '.join(kinds)})")
     return launches
 
 
 def phase_bf16_train_task(tag: str, make_trainer, init_state: dict, batch: dict, epochs: tuple,
-                          per_step: list[int], phases, fp32_tag: str, smi: str) -> list[int]:
+                          per_step: list[int]) -> list[int]:
     """``[bf16-train-refine]`` / ``[bf16-train-rpn]``: a task's trainer
     (``make_trainer(dtype)``) computing in bf16 over float32 weights, from
     its fp32 phase's initial weights on its first loader batch: the first
     step at ``epochs[0]`` against the fp32 step (``bf16_first_step``), then
     a step at each of ``epochs[1:]``, each finite with no skip and
     ``per_step`` launches; every xcorr launch of those steps the packed
-    bf16 kernels (``check_route``); ms/step by CUDA events and peak memory
-    of each of ``phases`` beside the fp32 phase's (``fp32_tag``) of this
-    run. Fewer steps than the fp32 phase, to keep the smoke inside the chip
-    tool's time limit. Returns the launches of its steps."""
+    bf16 kernels (``check_route``). Fewer steps than the fp32 phase.
+    Returns the launches of its steps."""
     trainer, _ = bf16_first_step(tag, make_trainer, init_state, batch, epochs[0])
     counts = read_launches()
     if counts != per_step:
@@ -3491,32 +2912,12 @@ def phase_bf16_train_task(tag: str, make_trainer, init_state: dict, batch: dict,
     check_route(tag, True)
     print(f"[{tag}] {len(epochs)} steps at B={batch['template'].shape[0]}: launches "
           f"{launches}, all packed bf16 kernels")
-    phase_train_timing(trainer, batch, smi, f"{tag}-timing", phases, mode="bf16")
-    for _, label in phases:
-        (ms16, peak16), (ms32, peak32) = (MEASURED[t][label] for t in (f"{tag}-timing",
-                                                                        fp32_tag))
-        print(f"[{tag}] {label} step beside [{fp32_tag}]: {ms16:.2f} vs {ms32:.2f} ms (fp32 / "
-              f"bf16 {ms32 / ms16:.2f}x); peak memory {peak16:.2f} vs {peak32:.2f} GiB | {smi}")
     return launches
 
 
 def sync_all() -> None:
     for i in range(torch.cuda.device_count()):
         torch.cuda.synchronize(i)
-
-
-def host_ms(fn, calls: int = TIMED_CALLS) -> float:
-    """Median host ms of ``calls`` calls, each ended by a synchronize of
-    every card (work on several cards; CUDA events see one stream)."""
-    fn()
-    times = []
-    for _ in range(calls):
-        sync_all()
-        t0 = time.perf_counter()
-        fn()
-        sync_all()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
 
 
 def rewarp(tracker: Tracker, cell_masks: torch.Tensor, outs, pos0: torch.Tensor,
@@ -3589,27 +2990,11 @@ def check_shards_bit_identical(what: str, server, states: list, frames: torch.Te
                             TrackState(*(v.to(mine.best_id.device) for v in ref_final)))
 
 
-def sharded_setup(p):
-    """The [sharded] cell: sharp at width 64 (``build_model``), its frames,
-    STREAMS streams' centres and sizes, and the unsharded
-    ``track_video_multi`` over STREAMS_T frames: (tracker, frames, pos, sz,
-    initial states, final states, outputs)."""
-    _, tracker, frames = build_model(p)
-    rng = np.random.RandomState(SEED)
-    pos = rng.uniform(100, 400, (STREAMS, 2)).astype(np.float32)
-    sz = rng.uniform(60, 200, (STREAMS, 2)).astype(np.float32)
-    dev = torch.from_numpy(frames[:STREAMS_T + 1]).cuda()
-    ref_states = tracker.init_batched(dev[0], pos, sz)
-    return (tracker, frames, pos, sz, ref_states,
-            *tracker.track_video_multi(ref_states, dev[1:]))
-
-
 def phase_sharded_cards(tracker: Tracker, frames: np.ndarray, pos: np.ndarray, sz: np.ndarray,
-                        ref, ref_final, smi: str) -> None:
+                        ref, ref_final) -> None:
     """STREAMS streams a card over every card against one card at STREAMS:
-    card 0's streams are the one-card run's (checked as [sharded] checks),
-    aggregate frames/s and the scaling; both take host frames, uploaded in
-    the call once a card."""
+    card 0's streams are the one-card run's (checked as [sharded] checks);
+    the server takes host frames, uploaded in the call once a card."""
     o, t, count = STREAMS, STREAMS_T, torch.cuda.device_count()
     rng = np.random.RandomState(SEED + 1)
     many = np.concatenate([pos, rng.uniform(100, 400, ((count - 1) * o, 2))]).astype(np.float32)
@@ -3623,28 +3008,23 @@ def phase_sharded_cards(tracker: Tracker, frames: np.ndarray, pos: np.ndarray, s
     print(f"[sharded] {count} cards, card 0's {o} streams against the one-card run: best_id "
           "equal, max abs diff " + ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else
                                             f"{k} {v}" for k, v in errs.items()))
-    ref_states = tracker.init_batched(frames[0], pos, sz)
-    cards_ms = host_ms(lambda: cards.track_video(cards_states, frames[1:t + 1]))
-    one_ms = host_ms(lambda: tracker.track_video_multi(ref_states, frames[1:t + 1]))
-    one, agg = o * t * 1e3 / one_ms, count * o * t * 1e3 / cards_ms
-    print(f"[sharded] {count} cards, {o} streams a card (O={count * o}), T={t}: "
-          f"{cards_ms:.2f} ms a call, {agg:.1f} aggregate frames/s against {one:.1f} on one "
-          f"card at O={o} ({one_ms:.2f} ms): {agg / one:.2f}x; card 0's streams as the "
-          f"one-card run's; both take host frames, uploaded in the call, once a card | {smi}")
 
 
-def phase_sharded(p, smi: str) -> int:
+def phase_sharded(p) -> int:
     """[sharded]: SiamMask-sharp at width 64, STREAMS streams on 480x854
     frames over STREAMS_T frames through ``ShardedStreamServer`` over
     [cuda:0, cuda:0] (two replicas, one thread and one CUDA graph each)
-    against the unsharded ``track_video_multi``; aggregate frames/s of both;
-    3 xcorr kernels a frame a replica by name in a profile. With two cards
-    or more, STREAMS streams a card over every card against one card.
-    Returns the xcorr launches of the two-replica call (captured x
-    replays)."""
-    tracker, frames, pos, sz, ref_states, ref_final, ref = sharded_setup(p)
+    against the unsharded ``track_video_multi``; 3 xcorr kernels a frame a
+    replica by name in a profile. With two cards or more, STREAMS streams a
+    card over every card against one card. Returns the xcorr launches of the
+    two-replica call (captured x replays)."""
+    _, tracker, frames = build_model(p)
     o, t = STREAMS, STREAMS_T
+    rng = np.random.RandomState(SEED)
+    pos = rng.uniform(100, 400, (o, 2)).astype(np.float32)
+    sz = rng.uniform(60, 200, (o, 2)).astype(np.float32)
     dev = torch.from_numpy(frames[:t + 1]).cuda()
+    ref_final, ref = tracker.track_video_multi(tracker.init_batched(dev[0], pos, sz), dev[1:])
     server = ShardedStreamServer(tracker, ["cuda:0", "cuda:0"])
     states = server.init_batched(frames[0], pos, sz)
     reset_launches()
@@ -3667,16 +3047,10 @@ def phase_sharded(p, smi: str) -> int:
           "abs diff "
           + ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
                       for k, v in errs.items()))
-    ms = host_ms(lambda: server.track_video(states, dev[1:]))
-    ref_ms = host_ms(lambda: tracker.track_video_multi(ref_states, dev[1:]))
-    print(f"[sharded] O={o}, T={t}: two replicas on one card {ms:.2f} ms a call "
-          f"({o * t * 1e3 / ms:.1f} aggregate frames/s), unsharded {ref_ms:.2f} ms "
-          f"({o * t * 1e3 / ref_ms:.1f}); host clock to a synchronize, median of "
-          f"{TIMED_CALLS}; replicas sharing a card: a check, not a speed record | {smi}")
-    check_graph_profile("sharded", lambda: server.track_video(states, dev[1:]), t, o,
+    check_graph_profile("sharded", lambda: server.track_video(states, dev[1:]), t,
                         per_frame=3 * len(graphs))
     if torch.cuda.device_count() >= 2:
-        phase_sharded_cards(tracker, frames, pos, sz, ref, ref_final, smi)
+        phase_sharded_cards(tracker, frames, pos, sz, ref, ref_final)
     else:
         print("[sharded] one card visible: the server over several cards not run")
     return launches
@@ -3751,13 +3125,12 @@ def schedule_mismatches(run: dict, lr_cfg: dict, epochs: int) -> list[str]:
     return bad[:5]
 
 
-def phase_overfit(smi: str) -> list[int]:
+def phase_overfit() -> list[int]:
     """``[overfit]``: ``siammask_tpu_torch.tools.overfit`` ``--prepare --train
     --evaluate --task mask`` at width 64 with its default schedule on the
     clip of ``write_overfit_clip`` (480x854): stage 1 for 16 epochs of 64
     steps of 8 across the unfreeze, stage 2 for 24. The train CLI's logs go
-    to a file, read for each stage's samples/s on its clock
-    (``train_log_runs``). The report must clear the thresholds
+    to a file, read back by ``train_log_runs``. The report must clear the thresholds
     ``tests/test_overfit_artifact.py`` pins for the JAX run's: mask and
     total loss under init's / 10, held-out mean IoU over init's + 0.2 and
     over 0.5, no more lost frames than init's; and stage 1's log must show
@@ -3768,12 +3141,10 @@ def phase_overfit(smi: str) -> list[int]:
     shutil.rmtree(OVERFIT_ROOT, ignore_errors=True)
     clip, work = OVERFIT_ROOT / "clip", OVERFIT_ROOT / "work"
     write_overfit_clip(clip)
-    walls = {}
 
     def log(msg: str) -> None:
-        if m := OVERFIT_WALL.match(msg):
-            walls[m.group(1)] = float(m.group(2))
-        if not msg.startswith("{"):       # the report's summary: printed below
+        # the report is printed below; the stages' wall times are not checks
+        if not msg.startswith("{") and not OVERFIT_WALL.match(msg):
             print(f"[overfit] {msg}")
 
     train_log = OVERFIT_ROOT / "train.log"
@@ -3787,20 +3158,15 @@ def phase_overfit(smi: str) -> list[int]:
     runs = train_log_runs(train_log)
     fit, held = report["train_fit"], report["held_out_tracking"]
     for label, run in zip(("stage 1", "stage 2"), runs):
-        print(f"[overfit] {label}: {run['steps']} steps of {OVERFIT_BATCH}, "
-              f"{walls[label]:.1f} s wall; {run['s_it']:.4f} s/it, "
-              f"{OVERFIT_BATCH / run['s_it']:.1f} samples/s on the train CLI's clock "
-              f"(halves of its epochs {run['s_it_halves'][0]:.4f} / "
-              f"{run['s_it_halves'][1]:.4f} s/it) | " + smi)
+        print(f"[overfit] {label}: {run['steps']} steps of {OVERFIT_BATCH}")
     for s in ("init", "trained"):
         f, h = fit[s], held[s]
         print(f"[overfit] {s}: train fit mask_loss {f['mask_loss']:.4f} total_loss "
               f"{f['total_loss']:.4f} iou_at_5 {f['iou_at_5']:.4f} iou_mean "
               f"{f['iou_mean']:.4f}; held-out mean IoU {h['mean_iou']:.4f} (min "
               f"{h['min_iou']:.4f}), lost {h['lost']}")
-    print(f"[overfit] wall s: prepare {walls['prepare']:.1f}, stage 1 {walls['stage 1']:.1f}, "
-          f"stage 2 {walls['stage 2']:.1f}, evaluate {walls['evaluate']:.1f}; xcorr launches "
-          f"of the scoring {launches} (the train CLI's subprocesses not counted)")
+    print(f"[overfit] xcorr launches of the scoring {launches} (the train CLI's subprocesses "
+          "not counted)")
     init, trained = fit["init"], fit["trained"]
     gates = {"mask loss under init's / 10": trained["mask_loss"] < init["mask_loss"] / 10,
              "total loss under init's / 10": trained["total_loss"] < init["total_loss"] / 10,
@@ -3823,127 +3189,6 @@ def phase_overfit(smi: str) -> list[int]:
     return launches
 
 
-def run_bench(argv: list[str], timeout: float) -> dict:
-    """``python3 -m siammask_tpu_torch.bench <argv>`` from the repo root: its
-    result line; its stderr breadcrumbs are printed. Raises unless it exits
-    0 with a result line."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
-    proc = subprocess.run([sys.executable, "-m", "siammask_tpu_torch.bench", *argv],
-                          capture_output=True, text=True, cwd=REPO, env=env, timeout=timeout)
-    for line in proc.stderr.splitlines():
-        if line.startswith(("bench", "  [")):
-            print(f"[bench] {' '.join(argv)}: {line.strip()}")
-    lines = proc.stdout.strip().splitlines()
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"[bench] {' '.join(argv)}: rc={proc.returncode}; "
-                             f"{(lines or [''])[-1][:2000]} {proc.stderr[-2000:]}")
-    return json.loads(lines[-1])
-
-
-def check_bench_row(name: str, row: dict, bf16: bool) -> list[int]:
-    """A bench row: no error, a value above 0 from at least 5 windows on
-    the card, its name and power limit; every xcorr launch of its timed
-    windows a kernel's (3 forward a frame, the training steps' forward and
-    gradient launches), packed in bf16, none packed in fp32, where TF32 is
-    off. Returns its launches (forward, grad-input, grad-kernel)."""
-    if "error" in row or not row.get("value", 0) > 0 or row.get("windows", 0) < 5:
-        raise AssertionError(f"[bench] {name}: {row}")
-    if row["device"] != "cuda" or not row["name"] or not row["power_limit"]:
-        raise AssertionError(f"[bench] {name}: device {row['device']}, card {row['name']}, "
-                             f"{row['power_limit']}")
-    launches = row["xcorr_launches"]
-    counts = [launches[k]["launches"] for k in ("forward", "grad_input", "grad_kernel")]
-    packed = [launches[k]["packed"] for k in ("forward", "grad_input", "grad_kernel")]
-    training = name.startswith("train")
-    if counts[0] == 0 or (training and 0 in counts) or packed != (counts if bf16 else [0] * 3):
-        raise AssertionError(f"[bench] {name}: xcorr launches {counts}, packed {packed}")
-    if not bf16 and row["tf32"]:
-        raise AssertionError(f"[bench] {name}: TF32 is on in a float32 row")
-    return counts
-
-
-def phase_bench(smi: str) -> dict:
-    """``[bench]``: ``python3 -m siammask_tpu_torch.bench --summary --iters
-    BENCH_ITERS`` (the five rows in bf16, a process each), then its scan row
-    with ``--fp32``, each row held by ``check_bench_row`` and printed beside
-    this run's ms of the same work on the calibrated weights
-    (``BENCH_BESIDE``: the bench fills its weights by the JAX bench's rule).
-    Returns the rows' launches by path."""
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    summary = run_bench(["--summary", "--iters", str(BENCH_ITERS)], timeout=600)
-    rows = {**summary["summary"],
-            "scan_fp32": run_bench(["--scan", str(VIDEO_T), "--fp32", "--iters",
-                                    str(BENCH_ITERS)], timeout=150)}
-    paths = {}
-    for name, row in rows.items():
-        bf16 = name != "scan_fp32"
-        counts = check_bench_row(name, row, bf16)
-        paths[f"bf16_bench_{name}" if bf16 else f"bench_{name}"] = counts
-        ms, what, beside = BENCH_BESIDE[name]
-        per = (row["device_step_ms"] if "device_step_ms" in row else
-               row["device_step_us"] / 1e3)
-        lo, hi = ((row["device_step_ms_min"], row["device_step_ms_max"])
-                  if "device_step_ms" in row else
-                  (row["device_step_us_min"] / 1e3, row["device_step_us_max"] / 1e3))
-        flops = (f"{row['model_gflops_per_frame']} GFLOP a frame, MFU {row['mfu_pct']}%"
-                 if "model_gflops_per_frame" in row else
-                 f"{row['train_gflops_per_step']} GFLOP a step, MFU {row['train_mfu_pct']}%")
-        print(f"[bench] {name}: {row['metric']} {row['value']} {row['unit']}; {per:.3f} ms a "
-              f"{what} (median of {row['windows']} windows, {lo:.3f}-{hi:.3f}); beside "
-              f"{beside} {ms():.3f} ms a {what} in this run; {flops}; xcorr launches "
-              f"{counts}, {'all packed bf16' if bf16 else 'fp32 kernels, TF32 off'} | "
-              f"{row['name']}, {row['power_limit']}")
-    print(f"[bench] headline {summary['metric']} {summary['value']} {summary['unit']}; "
-          f"{len(rows)} rows in {time.perf_counter() - t0:.1f} s | {smi}")
-    return paths
-
-
-def phase_trace(smi: str) -> None:
-    """``[trace]``: each Chrome trace the profiled calls exported (the fp32
-    and bf16 sharp videos, the bf16 16-stream call, the fp32 and bf16
-    frozen stage-1 steps) read by ``tools.trace_report``: device ms and
-    share by category, the idle time in the window of the device events
-    with its three longest gaps, the top two kernels of each category. Its
-    xcorr rows must count the kernels the phase expected, and its device
-    time (self time summed) must be within 2% of the profile's busy ms.
-    The busy time is also given as a share of the untraced call's
-    CUDA-event time: tracing adds time between the kernels (and slows
-    some). The traces are removed."""
-    untraced = {"video": VIDEO_T * MEASURED["video"]["ms_frame"],
-                "bf16": VIDEO_T * MEASURED["bf16"]["ms_frame"],
-                "bf16-streams": STREAMS_T * MEASURED["bf16-streams"]["ms_frame"],
-                "train-frozen": MEASURED["train-timing"]["frozen"][0],
-                "bf16-train-frozen": MEASURED["bf16-train-timing"]["frozen"][0]}
-    for tag, entry in TRACES.items():
-        t0 = time.perf_counter()
-        table = trace_report.report(trace_report.load_trace_events(str(entry["path"])))
-        got = {row: table["categories"].get(row, {}).get("calls", 0) for row in XCORR_ROWS}
-        want = {row: entry["xcorr"].get(row, 0) for row in XCORR_ROWS}
-        if got != want:
-            raise AssertionError(f"[trace] {tag}: xcorr kernels by row {got}, expected {want}")
-        if not abs(table["total_ms"] - entry["busy"]) <= 0.02 * entry["busy"]:
-            raise AssertionError(f"[trace] {tag}: {table['total_ms']:.3f} ms of device time in "
-                                 f"the trace, {entry['busy']:.3f} ms in the profile")
-        print(f"[trace] {tag}: device time {table['total_ms']:.3f} ms (the profile's "
-              f"{entry['busy']:.3f}); window {table['window_ms']:.3f} ms, busy "
-              f"{table['busy_ms']:.3f}, idle {table['idle_ms']:.3f} ms "
-              f"({100 * table['idle_share']:.1f}%), longest gaps "
-              + ", ".join(f"{d:.3f} ms at +{s:.3f}" for s, d in table["gaps"])
-              + "; gaps by size " + ", ".join(f"< {edge:g} us {n} ({ms:.3f} ms)"
-                                              for edge, n, ms in table["gap_bins"])
-              + f"; the untraced call {untraced[tag]:.3f} ms by CUDA events, the traced "
-              f"busy time {100 * table['busy_ms'] / untraced[tag]:.1f}% of it; xcorr rows "
-              f"{({k: v for k, v in got.items() if v})}; read in "
-              f"{time.perf_counter() - t0:.2f} s | {smi}")
-        for cat, row in table["categories"].items():
-            top = [n for n, op in table["ops"].items() if op["category"] == cat][:2]
-            print(f"[trace] {tag} | {cat}: {row['ms']:.3f} ms, {100 * row['share']:.1f}%, "
-                  f"{row['calls']} calls; top: " + " ; ".join(n[:90] for n in top))
-    shutil.rmtree(TRACE_DIR)
-
-
 def main() -> None:
     t_start = time.monotonic()
     smi = phase_device()
@@ -3956,32 +3201,28 @@ def main() -> None:
     cpu_tracker = cpu_tracker_of(tracker)
     state, track_launches = phase_slice(tracker, frames)
     phase_cpu_parity(tracker, cpu_tracker, state, frames[STEPS + 2])
-    phase_timing(tracker, state, frames[STEPS + 2:], smi)
-    video_launches, video_state = phase_video(tracker, frames, smi)
-    streams_launches, states = phase_streams(tracker, frames, smi)
+    video_launches = phase_video(tracker, frames)
+    streams_launches, states = phase_streams(tracker, frames)
     phase_streams_cpu_parity(tracker, cpu_tracker, states, frames[2])
-    one = TrackState(video_state.target_pos[None], video_state.target_sz[None],
-                     video_state.zf, video_state.avg_chans[None], video_state.score[None])
-    phase_layers(tracker, torch.from_numpy(frames[2]).cuda(), one, states)
-    vos_launches = phase_vos(model, p, smi)
-    bf16_vos_launches = phase_bf16_vos(model, p, smi)
-    del tracker, cpu_tracker, state, states, video_state, one
+    vos_launches, vos_iou = phase_vos(model, p)
+    bf16_vos_launches = phase_bf16_vos(model, p, vos_iou)
+    del tracker, cpu_tracker, state, states
     torch.cuda.empty_cache()
-    rpn_model, rpn_launches = phase_family("rpn", SiamRPN, RPN_CONFIG, False, False, smi)
+    rpn_model, rpn_launches = phase_family("rpn", SiamRPN, RPN_CONFIG, False, False)
     torch.cuda.empty_cache()
-    base_model, base_launches = phase_family("base", SiamMaskBase, BASE_CONFIG, True, False, smi)
+    base_model, base_launches = phase_family("base", SiamMaskBase, BASE_CONFIG, True, False)
     torch.cuda.empty_cache()
     vot_models = {"sharp": model, "base": base_model, "rpn": rpn_model}
-    vot_launches, lost_by_tracker = phase_vot(vot_models, smi)
-    bf16_vot_launches = phase_bf16_vot(vot_models, smi)
+    vot_launches, lost_by_tracker = phase_vot(vot_models)
+    bf16_vot_launches = phase_bf16_vot(vot_models)
     del model, rpn_model, base_model, vot_models
     torch.cuda.empty_cache()
-    bf16_paths = phase_bf16(smi)
+    bf16_paths = phase_bf16()
     torch.cuda.empty_cache()
-    tune_launches, tune_scores = phase_tune(smi)
+    tune_launches, tune_scores = phase_tune()
     phase_eval(tune_scores, lost_by_tracker)
     torch.cuda.empty_cache()
-    mp_launches, bf16_mp_launches = phase_metric_parity(smi)
+    mp_launches, bf16_mp_launches = phase_metric_parity()
     torch.cuda.empty_cache()
 
     cfg = Config.load(str(TRAIN_CONFIG), clip=10.0)
@@ -3997,12 +3238,10 @@ def main() -> None:
                                               *train_parts(cfg), epochs=TRAIN_EPOCHS),
                        init_state, batch)
     phase_train_profile(trainer, batch)
-    phase_train_timing(trainer, batch, smi)
-    bf16_train_launches = phase_bf16_train(init_state, batch, cfg, smi)
-    phase_trace(smi)
+    bf16_train_launches = phase_bf16_train(init_state, batch, cfg)
     torch.cuda.empty_cache()
-    dp_launches = phase_dp(init_state, batch, smi)
-    bf16_dp_launches = phase_bf16_dp(init_state, batch, smi)
+    dp_launches, dp_refs = phase_dp(init_state, batch)
+    bf16_dp_launches = phase_bf16_dp(init_state, batch, dp_refs)
 
     # the data pipeline and the other training tasks, on a synthetic set
     shutil.rmtree(SMOKE_TRAIN, ignore_errors=True)
@@ -4011,24 +3250,22 @@ def main() -> None:
                "rpn": train_data_config(RPN_CONFIG, root, anno, 8 * TRAIN_BATCH)}
     loaded = phase_data(configs)
     train_refine_launches, refine_state, refine_batch = phase_train_refine(
-        trainer, configs["sharp"], loaded["sharp"], smi)
+        trainer, configs["sharp"], loaded["sharp"])
     del trainer, train_model, batch
     torch.cuda.empty_cache()
     bf16_refine_launches = phase_bf16_train_task(
         "bf16-train-refine", lambda dtype: task_trainer(
             configs["sharp"], "sharp_refine",
             loaded_model(SiamMaskSharp, refine_state, DEV, dtype)),
-        refine_state, refine_batch, (0, 0, 1), [3, 1, 1], ((1, "stage-2"),),
-        "train-refine-timing", smi)
+        refine_state, refine_batch, (0, 0, 1), [3, 1, 1])
     del refine_batch
     torch.cuda.empty_cache()
-    train_rpn_launches, rpn_state, rpn_batch = phase_train_rpn(configs["rpn"], loaded["rpn"], smi)
+    train_rpn_launches, rpn_state, rpn_batch = phase_train_rpn(configs["rpn"], loaded["rpn"])
     torch.cuda.empty_cache()
     bf16_rpn_launches = phase_bf16_train_task(
         "bf16-train-rpn", lambda dtype: task_trainer(
             configs["rpn"], "siamrpn", loaded_model(SiamRPN, rpn_state, DEV, dtype)),
-        rpn_state, rpn_batch, (0, 0, 1), [2, 2, 2], ((0, "frozen"), (1, "unfrozen")),
-        "train-rpn-timing", smi)
+        rpn_state, rpn_batch, (0, 0, 1), [2, 2, 2])
     del rpn_batch
     torch.cuda.empty_cache()
     phase_train_resume(configs["rpn"], rpn_state, loaded["rpn"])
@@ -4036,11 +3273,9 @@ def main() -> None:
                      "sharp": configs["sharp"]})
     shutil.rmtree(SMOKE_TRAIN)
     torch.cuda.empty_cache()
-    overfit_launches = phase_overfit(smi)
+    overfit_launches = phase_overfit()
     torch.cuda.empty_cache()
-    sharded_launches = phase_sharded(p, smi)
-    torch.cuda.empty_cache()
-    bench_paths = phase_bench(smi)
+    sharded_launches = phase_sharded(p)
 
     # the forward also runs on the video and 16-stream paths, by graph replay
     paths = {"track": track_launches, "video": [video_launches, 0, 0],
@@ -4056,7 +3291,7 @@ def main() -> None:
              "bf16_vot": [bf16_vot_launches, 0, 0],
              "bf16_metric_parity": [bf16_mp_launches, 0, 0], "bf16_train": bf16_train_launches,
              "bf16_train_refine": bf16_refine_launches, "bf16_train_rpn": bf16_rpn_launches,
-             "bf16_dp": bf16_dp_launches, **bench_paths}
+             "bf16_dp": bf16_dp_launches}
     # by kernel: check_route held every bf16 path's launches to the packed
     # kernels and every fp32 path's to the fp32 kernels
     by_kernel = {k: [0, 0, 0, *v] if k.startswith("bf16") else [*v, 0, 0, 0]

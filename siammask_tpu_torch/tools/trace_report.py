@@ -2,8 +2,10 @@
 
 Counterpart of ``tools/trace_report.py``, which reads jax.profiler traces.
 Export a trace with ``torch.profiler.profile(activities=[CPU, CUDA])`` and
-``prof.export_chrome_trace(path)`` (``chip_smoke.py`` ``[trace]`` does for
-its video, 16-stream and train-step profiles), then::
+``prof.export_chrome_trace(path)`` (``scripts/trace_cell.py`` does for a
+benchmark cell's traced stretch, ``python -m siammask_tpu_torch.bench
+--profile-dir DIR`` for each row's timed windows; an operator's own
+``torch.profiler`` session does too), then::
 
     python -m siammask_tpu_torch.tools.trace_report <dir or .json[.gz]> [--top N]
         [--all-pids] [--long]

@@ -67,7 +67,7 @@ from siammask_tpu_torch.train.trainer import Trainer
 from siammask_tpu_torch.utils import bbox
 from siammask_tpu_torch.utils.convert import state_dict_from_jax
 
-from chip_smoke import bf16_twin, bn_calibration, damp_box_head, sharpen_cls_head
+from _torch_weights import bf16_twin, bn_calibration, damp_box_head, sharpen_cls_head
 from test_torch_families import POS, SZ, calibrated
 from test_torch_tracker import WIDTH, _frames, one_torch_thread  # noqa: F401  (autouse)
 from test_torch_train import EPOCHS, PHASES, jax_momentum, make_batch, settings_pair

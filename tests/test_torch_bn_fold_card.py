@@ -27,7 +27,6 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-import chip_smoke
 from siammask_tpu_torch import bench
 from siammask_tpu_torch.bench import train_batch
 from siammask_tpu_torch.config import Config
@@ -37,6 +36,7 @@ from siammask_tpu_torch.ops.sample import subwindow_crop
 from siammask_tpu_torch.train.lr import build_lr_spaces
 from siammask_tpu_torch.train.trainer import OptimizerConfig, Trainer, TrainSettings
 from siammask_tpu_torch.utils import trace
+from _torch_weights import build_model, check_step_close, damp_box_head, head_maps
 
 from test_torch_graph import cuda_device  # noqa: F401  (fixture)
 
@@ -64,8 +64,8 @@ def _sharp_step_pairs(model: SiamMaskSharp) -> int:
 
 def _setup(device, dtype, objects: int = OBJECTS, frames: int = 3):
     p = Config.load(str(CONFIG)).tracker_config()
-    model, tracker, video = chip_smoke.build_model(p, SiamMaskSharp, dtype=dtype)
-    chip_smoke.damp_box_head(model)     # as the benchmark's weights: random deltas x0.1
+    model, tracker, video = build_model(p, SiamMaskSharp, dtype=dtype)
+    damp_box_head(model)  # as the benchmark's weights: random deltas x0.1
     video = torch.from_numpy(video[:frames + 1]).to(device)
     h, w = video.shape[1:3]
     rng = np.random.RandomState(5)
@@ -106,11 +106,11 @@ def test_folded_float32_step_matches_unfolded_on_card(cuda_device, monkeypatch):
                        255, state.avg_chans)
     x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
     with torch.inference_mode():
-        (maps, out), n = _folded(lambda: (chip_smoke.head_maps(model, state.zf, x),
+        (maps, out), n = _folded(lambda: (head_maps(model, state.zf, x),
                                           tracker.step_batched(state, frames[1])[1]))
         assert n == 2 * _sharp_step_pairs(model)
         monkeypatch.setattr(bn_fold, "DEVICES", ())
-        (ref_maps, ref), n = _folded(lambda: (chip_smoke.head_maps(model, state.zf, x),
+        (ref_maps, ref), n = _folded(lambda: (head_maps(model, state.zf, x),
                                               tracker.step_batched(state, frames[1])[1]))
         assert n == 0
     for name, b in ref_maps.items():
@@ -118,7 +118,7 @@ def test_folded_float32_step_matches_unfolded_on_card(cuda_device, monkeypatch):
         torch.testing.assert_close(maps[name], b, rtol=0, atol=1e-3 * scale)
         print(f"[fold fp32] {name}: max_abs_err {(maps[name] - b).abs().max().item():.3e} "
               f"of {scale:.3f}")
-    err = chip_smoke.check_step_close("fold fp32", out, ref)
+    err = check_step_close("fold fp32", out, ref)
     print(f"[fold fp32] step mask max_abs_err {err:.3e}")
 
 

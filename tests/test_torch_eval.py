@@ -35,7 +35,7 @@ from siammask_tpu_torch.tracker.runtime import TrackerRuntime
 from siammask_tpu_torch.tracker.tracker import Tracker
 from siammask_tpu_torch.utils import bbox
 
-from chip_smoke import damp_box_head
+from _torch_weights import damp_box_head
 from test_torch_families import calibrated
 from test_torch_tracker import CONFIG, POS, SZ, _frames, _to_port
 from test_torch_tracker import one_torch_thread  # noqa: F401  (autouse)

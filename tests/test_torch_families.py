@@ -31,7 +31,7 @@ from siammask_tpu_torch.tracker.runtime import TrackerRuntime
 from siammask_tpu_torch.tracker.tracker import BoxStepOutput, StepOutput, Tracker, TrackState
 from siammask_tpu_torch.utils.convert import load_reference_state_dict, state_dict_from_jax
 
-from chip_smoke import calibrate_bn
+from _torch_weights import calibrate_bn
 from test_torch_tracker import WIDTH, _frames, one_torch_thread  # noqa: F401  (autouse)
 from test_torch_video import _to_port as _to_port_batched
 

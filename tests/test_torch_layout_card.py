@@ -24,7 +24,6 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-import chip_smoke
 from siammask_tpu_torch.bench import train_batch
 from siammask_tpu_torch.config import Config
 from siammask_tpu_torch.models.siammask import SiamMaskBase, SiamMaskSharp
@@ -33,6 +32,7 @@ from siammask_tpu_torch.tracker.tracker import Tracker
 from siammask_tpu_torch.train.lr import build_lr_spaces
 from siammask_tpu_torch.train.trainer import OptimizerConfig, Trainer, TrainSettings
 from siammask_tpu_torch.utils import trace
+from _torch_weights import build_model, damp_box_head
 
 from test_torch_graph import cuda_device  # noqa: F401  (fixture)
 
@@ -63,8 +63,8 @@ def _kernels(fn) -> dict:
 @pytest.mark.cuda
 def test_vos_graph_runs_channels_last_on_card(cuda_device, monkeypatch):
     p = Config.load(str(EXPERIMENTS / "siammask_sharp" / "config_davis.json")).tracker_config()
-    model, tracker, frames = chip_smoke.build_model(p, SiamMaskSharp, dtype=torch.bfloat16)
-    chip_smoke.damp_box_head(model)     # as the benchmark's weights: random deltas x0.1
+    model, tracker, frames = build_model(p, SiamMaskSharp, dtype=torch.bfloat16)
+    damp_box_head(model)  # as the benchmark's weights: random deltas x0.1
     frames = torch.from_numpy(frames[:FRAMES + 1]).to(cuda_device)
     h, w = frames.shape[1:3]
     rng = np.random.RandomState(5)

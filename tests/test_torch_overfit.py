@@ -66,7 +66,8 @@ from siammask_tpu_torch.tools import overfit
 from siammask_tpu_torch.train.lr import build_lr_spaces
 from siammask_tpu_torch.utils.convert import state_dict_from_jax
 
-from chip_smoke import OVERFIT_SCHEDULES, damp_box_head, schedule_mismatches, train_log_runs
+from chip_smoke import OVERFIT_SCHEDULES, schedule_mismatches, train_log_runs
+from _torch_weights import damp_box_head
 from test_torch_families import calibrated
 from test_torch_tracker import one_torch_thread  # noqa: F401  (autouse)
 

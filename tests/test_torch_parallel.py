@@ -47,7 +47,7 @@ from siammask_tpu_torch.train.trainer import Trainer, label_params
 from siammask_tpu_torch.utils.convert import state_dict_from_jax
 
 import _torch_dp
-from chip_smoke import bn_calibration
+from _torch_weights import bn_calibration
 from test_checkpoint_prep import _make_crop_dataset
 from test_torch_data import ANCHORS, train_cfg
 from test_torch_tracker import one_torch_thread  # noqa: F401  (autouse)

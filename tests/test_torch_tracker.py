@@ -27,7 +27,7 @@ from siammask_tpu_torch.tracker.runtime import TrackerRuntime
 from siammask_tpu_torch.ops.sample import subwindow_crop
 from siammask_tpu_torch.tracker.tracker import Tracker, TrackState, make_window
 
-from chip_smoke import calibrate_bn
+from _torch_weights import calibrate_bn
 
 CONFIG = Path(__file__).resolve().parents[1] / "experiments" / "siammask_sharp" / "config_davis.json"
 WIDTH = 8

@@ -29,7 +29,7 @@ from siammask_tpu_torch.tools import eval as eval_cli
 from siammask_tpu_torch.tools import tune
 from siammask_tpu_torch.utils import bbox
 
-from chip_smoke import damp_box_head
+from _torch_weights import damp_box_head
 from test_torch_eval import VOT_CONFIG, write_random_vot_tree
 from test_torch_families import calibrated
 from test_torch_tracker import one_torch_thread  # noqa: F401  (autouse)

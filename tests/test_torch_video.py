@@ -27,7 +27,7 @@ from siammask_tpu_torch.models.siammask import SiamMaskSharp
 from siammask_tpu_torch.ops.sample import subwindow_crop, warp_back_mask
 from siammask_tpu_torch.tracker.tracker import StepOutput, Tracker, TrackState
 
-from chip_smoke import calibrate_bn
+from _torch_weights import calibrate_bn
 from test_torch_tracker import CONFIG, WIDTH, _frames, one_torch_thread  # noqa: F401  (autouse)
 
 # three streams; the second starts across the left border of the frame

@@ -40,7 +40,7 @@ from siammask_tpu_torch.tracker.vos import track_vos_batched
 from siammask_tpu_torch.tracker.vot import track_vot
 from siammask_tpu_torch.utils import bbox
 
-from chip_smoke import damp_box_head
+from _torch_weights import damp_box_head
 from test_torch_families import calibrated
 from test_torch_tracker import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_vos import _against_jax
