@@ -338,7 +338,7 @@ REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO / "tests"))
 from _torch_weights import (BF16, BF16_MAP_TOL, FRAME_HW, FRAMES, SEED, TARGET_POS,  # noqa: E402
                             TARGET_SZ, bf16_twin, bn_calibration, build_model,
-                            check_step_close, damp_box_head, head_maps)
+                            check_step_close, damp_box_head, eager_step, head_maps)
 CONFIG = REPO / "experiments" / "siammask_sharp" / "config_davis.json"
 TRAIN_CONFIG = REPO / "experiments" / "siammask_base" / "config.json"
 RPN_CONFIG = REPO / "experiments" / "siamrpn_resnet" / "config.json"
@@ -875,6 +875,19 @@ def check_route(tag: str, bf16: bool, graph=None) -> None:
 
 def read_launches() -> list[int]:
     return [fn.launches for fn in KERNELS]
+
+
+def train_step_launches(trainer: Trainer, batch: dict, epoch: int) -> tuple[dict, list[int]]:
+    """One ``trainer.step`` (its metrics read to the host) and its xcorr
+    launches (forward, grad-input, grad-kernel): through the wrappers where
+    it ran eagerly or captured its graph, else the replayed graph's
+    captured launches."""
+    before = read_launches()
+    metrics = {k: v.item() for k, v in trainer.step(batch, epoch).items()}
+    counts = [a - b for a, b in zip(read_launches(), before)]
+    if not any(counts) and trainer.graphs:
+        counts = list(next(reversed(trainer.graphs.values())).xcorr_launches)
+    return metrics, counts
 
 
 def phase_slice(tracker: Tracker, frames: np.ndarray, tag: str = "slice"):
@@ -1771,11 +1784,11 @@ def phase_train(trainer: Trainer, batch: dict) -> list[int]:
     stem0, layer2_0 = _state(model, FROZEN_ALWAYS), _state(model, LAYER2)
     torch.cuda.synchronize()
     reset_launches()
+    launches = [0, 0, 0]
     for step, epoch in enumerate((0, 0, 1, 1)):
-        counts = read_launches()
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
-        metrics = {k: v.item() for k, v in trainer.step(batch, epoch).items()}
-        counts = [a - b for a, b in zip(read_launches(), counts)]
+        metrics, counts = train_step_launches(trainer, batch, epoch)
+        launches = [a + b for a, b in zip(launches, counts)]
         if not all(math.isfinite(v) for v in metrics.values()) or metrics["skipped"] != 0:
             raise AssertionError(f"step {step}: {metrics}")
         if counts != [3, 3, 3]:
@@ -1799,7 +1812,6 @@ def phase_train(trainer: Trainer, batch: dict) -> list[int]:
               f"iou {metrics['iou_mean']:.4f}; launches {counts}; tensors moved "
               + ", ".join(f"{k} {sum(v)}/{len(v)}" for k, v in sorted(moved.items())))
     torch.cuda.synchronize()
-    launches = read_launches()
     check_route("train", False)
     print(f"[train] 4 steps at B={TRAIN_BATCH}, width 64: launches {launches} "
           "(forward, grad-input, grad-kernel); stem and layer1 bit-identical throughout, "
@@ -1923,12 +1935,12 @@ def phase_refine_parity(make_trainer, init_state: dict, batch: dict, tag: str) -
 
 
 def phase_train_profile(trainer: Trainer, batch: dict) -> None:
-    """One profiled step in each phase: the backward runs through the
-    backbone only once it is unfrozen (neck + heads: 14 conv backwards a
-    step; with layer2/3: 78)."""
+    """One profiled eager step in each phase (a graph replay shows no
+    operator): the backward runs through the backbone only once it is
+    unfrozen (neck + heads: 14 conv backwards a step; with layer2/3: 78)."""
     for epoch, label, expected in ((0, "frozen", 14), (1, "unfrozen", 78)):
-        trainer.step(batch, epoch)
-        events = profiled(lambda: trainer.step(batch, epoch))
+        eager_step(trainer, batch, epoch)
+        events = profiled(lambda: eager_step(trainer, batch, epoch))
         conv_bwd = sum(e.count for e in events if e.key == "aten::convolution_backward")
         xcorr = {e.key.split("::")[-1].split("(")[0]: e.count for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA and "depthwise_xcorr" in e.key}
@@ -2036,13 +2048,13 @@ def run_train_steps(tag: str, trainer: Trainer, batches, epochs, per_step: list[
     model = trainer.model
     start = {k: v.detach().clone() for k, v in model.state_dict().items()}
     reset_launches()
+    launches = [0, 0, 0]
     for step, (batch, epoch) in enumerate(zip(batches, epochs)):
-        counts = read_launches()
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
         bufs = {n: trainer.optimizer.state[p]["momentum_buffer"].clone()
                 for n, p in model.named_parameters() if p in trainer.optimizer.state}
-        metrics = {k: v.item() for k, v in trainer.step(batch, epoch).items()}
-        counts = [a - b for a, b in zip(read_launches(), counts)]
+        metrics, counts = train_step_launches(trainer, batch, epoch)
+        launches = [a + b for a, b in zip(launches, counts)]
         if not all(math.isfinite(v) for v in metrics.values()) or metrics["skipped"] != 0:
             raise AssertionError(f"[{tag}] step {step}: {metrics}")
         if counts != per_step:
@@ -2066,7 +2078,7 @@ def run_train_steps(tag: str, trainer: Trainer, batches, epochs, per_step: list[
               + f"; launches {counts}; {len(held)} frozen entries bit-identical; tensors "
               "moved " + ", ".join(f"{k} {sum(v)}/{len(v)}" for k, v in sorted(moved.items())))
     check_route(tag, False)
-    return read_launches()
+    return launches
 
 
 def check_head_decay(trainer: Trainer, before: dict, bufs: dict) -> None:
@@ -2391,7 +2403,7 @@ def check_dp_close(what: str, ours: dict, ref: dict, init_state: dict, labels: d
 
 def dp_world_one(init_state: dict, batch: dict) -> dict:
     """[dp] world 1 over NCCL: a frozen and an unfrozen default-mode step
-    against the no-group step from the same weights, bit for bit (cuDNN's
+    against the no-group eager step from the same weights, bit for bit (cuDNN's
     deterministic algorithms on both). Returns per epoch the no-group
     step's (metrics, state, labels)."""
     cfg = Config.load(str(TRAIN_CONFIG), clip=10.0)
@@ -2400,7 +2412,8 @@ def dp_world_one(init_state: dict, batch: dict) -> dict:
         model = loaded_model(SiamMaskBase, init_state, DEV)
         trainer = Trainer(model, *train_parts(cfg), epochs=TRAIN_EPOCHS,
                           distributed=distributed)
-        metrics = {k: v.item() for k, v in trainer.step(batch, epoch).items()}
+        out = trainer.step(batch, epoch) if distributed else eager_step(trainer, batch, epoch)
+        metrics = {k: v.item() for k, v in out.items()}
         state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
         return metrics, state, dict(trainer.labels)
 
@@ -2432,7 +2445,7 @@ def dp_float32_noise(init_state: dict, batch: dict, refs: dict) -> dict:
     try:
         for epoch in (0, 1):
             model = loaded_model(SiamMaskBase, init_state, DEV)
-            Trainer(model, *train_parts(cfg), epochs=TRAIN_EPOCHS).step(batch, epoch)
+            eager_step(Trainer(model, *train_parts(cfg), epochs=TRAIN_EPOCHS), batch, epoch)
             state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
             _, ref_state, labels = refs[epoch]
             noise[epoch] = _step_error(_updates(state, init_state, labels),
@@ -2851,13 +2864,12 @@ def phase_bf16_train(init_state: dict, batch: dict, cfg: Config) -> list[int]:
     model = trainer.model
     stem0 = {k: v for k, v in start.items() if k.startswith(FROZEN_ALWAYS)}
     layer2_0 = {k: v for k, v in start.items() if k.startswith(LAYER2)}
-    counts = read_launches()
+    launches = counts = read_launches()
     if counts != [3, 3, 3]:
         raise AssertionError(f"bf16-train step 0: {counts} launches, expected [3, 3, 3]")
     for step, epoch in ((1, 0), (2, 1), (3, 1)):
-        before = read_launches()
-        metrics = {k: v.item() for k, v in trainer.step(batch, epoch).items()}
-        counts = [a - b for a, b in zip(read_launches(), before)]
+        metrics, counts = train_step_launches(trainer, batch, epoch)
+        launches = [a + b for a, b in zip(launches, counts)]
         if (not all(math.isfinite(v) for v in metrics.values()) or metrics["skipped"] != 0
                 or counts != [3, 3, 3]):
             raise AssertionError(f"bf16-train step {step}: {metrics}, launches {counts}")
@@ -2869,7 +2881,6 @@ def phase_bf16_train(init_state: dict, batch: dict, cfg: Config) -> list[int]:
               f"total {metrics['total_loss']:.4f} cls {metrics['cls_loss']:.4f} loc "
               f"{metrics['loc_loss']:.4f} mask {metrics['mask_loss']:.4f} iou "
               f"{metrics['iou_mean']:.4f}; launches {counts}")
-    launches = read_launches()
     check_route("bf16-train", True)
     names = {e.key: e.count for e in profiled(lambda: trainer.step(batch, 1))
              if e.device_type == torch.autograd.DeviceType.CUDA and "depthwise_xcorr" in e.key}
@@ -2895,20 +2906,18 @@ def phase_bf16_train_task(tag: str, make_trainer, init_state: dict, batch: dict,
     bf16 kernels (``check_route``). Fewer steps than the fp32 phase.
     Returns the launches of its steps."""
     trainer, _ = bf16_first_step(tag, make_trainer, init_state, batch, epochs[0])
-    counts = read_launches()
+    launches = counts = read_launches()
     if counts != per_step:
         raise AssertionError(f"[{tag}] step 0: {counts} launches, expected {per_step}")
     for step, epoch in enumerate(epochs[1:], 1):
-        before = read_launches()
-        metrics = {k: v.item() for k, v in trainer.step(batch, epoch).items()}
-        counts = [a - b for a, b in zip(read_launches(), before)]
+        metrics, counts = train_step_launches(trainer, batch, epoch)
+        launches = [a + b for a, b in zip(launches, counts)]
         if (not all(math.isfinite(v) for v in metrics.values()) or metrics["skipped"] != 0
                 or counts != per_step):
             raise AssertionError(f"[{tag}] step {step}: {metrics}, launches {counts}")
         print(f"[{tag}] step {step} epoch {epoch}: "
               + " ".join(f"{k} {v:.4f}" for k, v in metrics.items() if k != "skipped")
               + f"; launches {counts}")
-    launches = read_launches()
     check_route(tag, True)
     print(f"[{tag}] {len(epochs)} steps at B={batch['template'].shape[0]}: launches "
           f"{launches}, all packed bf16 kernels")

@@ -78,7 +78,8 @@ from siammask_tpu_torch.models.siammask import SiamMaskBase, SiamMaskSharp
 from siammask_tpu_torch.ops.xcorr import (depthwise_xcorr, depthwise_xcorr_grad_input,
                                           depthwise_xcorr_grad_kernel)
 from siammask_tpu_torch.tracker.tracker import Tracker
-from siammask_tpu_torch.train.trainer import OptimizerConfig, Trainer, TrainSettings
+from siammask_tpu_torch.train.trainer import (OptimizerConfig, Trainer, TrainSettings,
+                                              train_step)
 
 BASELINE_FPS = 56.0  # reference SiamMask (mask+refine) on RTX 2080
 # reference training: 600k pairs/epoch x 20 epochs in ~10 h on 4x V100
@@ -288,8 +289,9 @@ def bench_train(width: int = 64, batch: int = 64, device="cuda", fp32: bool = Fa
     ``unfrozen`` is the phase after the unfreeze (layer2/3 train). Stage 2
     (``refine=True``): SiamMask-sharp, 143 searches, 3x3 grid, loss weight
     (0, 0, 36), unpadded windows, only the mask corr and Refine train.
-    ``OptimizerConfig()`` at lr 0.005. The first step is counted
-    (``count_flops``), then ``WARMUP`` more before the timed windows."""
+    ``OptimizerConfig()`` at lr 0.005. One ``Trainer.step``, then one eager
+    step (``train_step``) counted (``count_flops``), then ``WARMUP`` more
+    before the timed windows; on a card the trainer replays its graph."""
     device = torch.device(device)
     dtype = None if fp32 else torch.bfloat16
     if refine:
@@ -307,7 +309,11 @@ def bench_train(width: int = 64, batch: int = 64, device="cuda", fp32: bool = Fa
     epoch = 1 if unfrozen else 0
     data = train_batch(batch, search, size, device)
     _phase("train inputs built")
-    flops, metrics = count_flops(lambda: trainer.step(data, epoch))
+    # the phase's optimizer, and on a card its graph; the FLOPs of one eager
+    # step (a graph's first step also runs its warm-up and capture)
+    metrics = trainer.step(data, epoch)
+    flops, _ = count_flops(lambda: train_step(model, trainer.optimizer, data, 0.005, settings,
+                                              trainer.opt_cfg))
     for _ in range(WARMUP):
         metrics = trainer.step(data, epoch)
     _phase("train step warm")
@@ -329,6 +335,10 @@ def bench_train(width: int = 64, batch: int = 64, device="cuda", fp32: bool = Fa
         raise RuntimeError(f"{metric}: loss {final_loss} is not finite")
     steps = windows * TRAIN_STEPS_PER_WINDOW
     if device.type == "cuda":
+        if trainer.graphs:  # graph replays: the launches captured, times the replays
+            graph = next(reversed(trainer.graphs.values()))
+            launched = {k: {"launches": n * steps, "packed": packed * steps} for k, n, packed
+                        in zip(KERNELS, graph.xcorr_launches, graph.xcorr_packed_launches)}
         check_launches(metric, launched, dict(zip(KERNELS, (
             n * steps for n in TRAIN_LAUNCHES[settings.task]))), not fp32)
     spread = _spread(times, TRAIN_STEPS_PER_WINDOW, 1.0, "device_step_ms")

@@ -1,5 +1,6 @@
 """Training engine for one card: per-module LR groups, progressive backbone
-unfreeze, grad clipping, NaN guard, resume.
+unfreeze, grad clipping, NaN guard, resume, and the step replayed as one
+CUDA graph on a single card.
 
 Counterpart of ``siammask_tpu/train/trainer.py`` (the reference's
 ``tools/train_siammask.py``, ``train_siamrpn.py`` and
@@ -35,6 +36,27 @@ Counterpart of ``siammask_tpu/train/trainer.py`` (the reference's
 - ``Trainer.restore`` resumes from a ``train/checkpoint.py`` checkpoint:
   weights, epoch, and momentum when the checkpoint's param groups are the
   current phase's.
+
+``Trainer.step`` takes one of two paths, by a rule that reads only what it
+can observe (``uses_graph``): a model on a CUDA device, no ``distributed``
+and no ``remat`` replays a CUDA graph; everything else (the CPU, the
+data-parallel modes, ``remat``) runs the eager step. Both run one body
+(``_gradients``: forward, loss, backward, clip):
+
+- eager (``train_step``): the NaN/huge-loss guard decided on the host from
+  one read of the loss (``train.sync``), then ``SGD.step`` (foreach) or
+  the train-mode BN buffers put back;
+- graph (``TrainGraph``, ``train_step_guarded``): the whole step, update
+  included, as one captured graph; the host copies the batch into its
+  static inputs, writes a changed LR into a device tensor a group, replays
+  and copies the metrics out, with no read of the loss, so it queues the
+  next step while the card runs this one. The guard is decided on the
+  device with the same meaning: the flag goes to fused SGD as its
+  ``found_inf`` (the kernel then moves no parameter and no momentum
+  buffer) and restores the BN buffers through a ``where``. The momentum
+  buffers are made as zeros before the capture and live where the eager
+  path keeps them, in ``optimizer.state[p]["momentum_buffer"]``. Fused and
+  foreach SGD agree to float32 rounding.
 
 Data-parallel training (``distributed``: one process per device in a
 ``torch.distributed`` group, each with its rows of the global batch;
@@ -81,11 +103,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.optim.sgd import sgd
 from torch.utils.checkpoint import checkpoint
 
 from siammask_tpu_torch.models.losses import (POS_PER_SAMPLE, select_cross_entropy_loss,
                                               select_mask_logistic_loss, weight_l1_loss)
 from siammask_tpu_torch.ops.layout import model_input
+from siammask_tpu_torch.ops.xcorr import (depthwise_xcorr, depthwise_xcorr_grad_input,
+                                          depthwise_xcorr_grad_kernel)
 from siammask_tpu_torch.parallel.dist import all_reduce_tensors
 from siammask_tpu_torch.parallel.sync_bn import convert_sync_bn
 from siammask_tpu_torch.train.checkpoint import load_checkpoint
@@ -273,26 +298,15 @@ def _reduce_metrics(metrics: dict, op: str) -> dict:
     return {k: v.to(metrics[k].dtype) for k, v in zip(names, flat.unbind())}
 
 
-def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, lr: float,
+def _gradients(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict,
                settings: TrainSettings, opt_cfg: OptimizerConfig, distributed: bool = False,
-               fused_allreduce: bool = False, remat: bool = False) -> dict[str, torch.Tensor]:
-    """One step of ``settings.task`` (the JAX ``make_train_step``): forward,
-    loss, backward, clip, NaN guard, SGD step. Returns the JAX package's
-    metrics for the task, as 0-d tensors on the model's device: SiamRPN has
-    no mask prediction and so no mask loss and no mask metrics; the mask
-    families report every term, a zero-weighted one too.
-
-    ``distributed``: this rank's rows of the global batch, in the default
-    mode or ``fused_allreduce`` (the module docstring); the metrics are the
-    global batch's. Sync-BN is the model's (``Trainer`` converts it).
-
-    Train-mode BN updates its running variance with the biased batch
-    variance, as flax does (``models.resnet.BatchNorm2d``; the original
-    PyTorch reference's ``nn.BatchNorm2d`` takes the unbiased one)."""
+               fused_allreduce: bool = False, remat: bool = False):
+    """The step up to its update, shared by both paths: forward, loss,
+    backward, exchange and clip. Leaves the clipped gradients in each
+    parameter's ``.grad``; returns the metrics (with autograd history) and
+    the train-mode BN buffers as they were before the forward."""
     w_cls, w_loc, w_mask = settings.loss_weight
     with trace.span("train.prepare"):
-        for g in optimizer.param_groups:
-            g["lr"] = lr * g["mult"]
         # BN running statistics change during the forward: keep them for a skip
         bn_before = [buf.clone() for buf in _train_bn_buffers(model)]
         optimizer.zero_grad(set_to_none=True)
@@ -339,7 +353,29 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, 
             metrics = _reduce_metrics(metrics, op)
     with trace.span("train.clip"):
         _clip(optimizer, opt_cfg)
+    return metrics, bn_before
 
+
+def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, lr: float,
+               settings: TrainSettings, opt_cfg: OptimizerConfig, distributed: bool = False,
+               fused_allreduce: bool = False, remat: bool = False) -> dict[str, torch.Tensor]:
+    """One eager step of ``settings.task`` (the JAX ``make_train_step``):
+    forward, loss, backward, clip, NaN guard, SGD step. Returns the JAX
+    package's metrics for the task, as 0-d tensors on the model's device:
+    SiamRPN has no mask prediction and so no mask loss and no mask metrics;
+    the mask families report every term, a zero-weighted one too.
+
+    ``distributed``: this rank's rows of the global batch, in the default
+    mode or ``fused_allreduce`` (the module docstring); the metrics are the
+    global batch's. Sync-BN is the model's (``Trainer`` converts it).
+
+    Train-mode BN updates its running variance with the biased batch
+    variance, as flax does (``models.resnet.BatchNorm2d``; the original
+    PyTorch reference's ``nn.BatchNorm2d`` takes the unbiased one)."""
+    for g in optimizer.param_groups:
+        g["lr"] = lr * g["mult"]
+    metrics, bn_before = _gradients(model, optimizer, batch, settings, opt_cfg, distributed,
+                                    fused_allreduce, remat)
     # NaN/huge-loss guard (reference train_siammask.py): decided on the host
     # from one read of the loss a step, as the reference does (a batch-64
     # step is long next to that sync); distributed, from the reduced loss,
@@ -355,8 +391,166 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, 
                 for buf, old in zip(_train_bn_buffers(model), bn_before):
                     buf.copy_(old)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["skipped"] = torch.tensor(0.0 if ok else 1.0, device=total.device)
+        metrics["skipped"] = torch.tensor(0.0 if ok else 1.0,
+                                          device=metrics["total_loss"].device)
     return metrics
+
+
+def _momentum_buffers(optimizer: torch.optim.Optimizer) -> None:
+    """A zero momentum buffer, in ``optimizer.state``, for every parameter
+    of a momentum group that has none: with no dampening the first update
+    then sets it to ``0.9 * 0 + (g + wd * w)``, the eager first step's
+    clone of ``g + wd * w``, exactly."""
+    for g in optimizer.param_groups:
+        if g["momentum"] == 0:
+            continue
+        for p in g["params"]:
+            state = optimizer.state[p]
+            if state.get("momentum_buffer") is None:
+                state["momentum_buffer"] = torch.zeros_like(p)
+
+
+def train_step_guarded(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict,
+                       lrs: list[torch.Tensor], settings: TrainSettings,
+                       opt_cfg: OptimizerConfig) -> dict[str, torch.Tensor]:
+    """The step a ``TrainGraph`` captures: ``train_step`` on one process,
+    with its NaN/huge-loss guard decided on the device to the same effect
+    and nothing read on the host. ``lrs``: each param group's LR, a 0-d
+    float32 tensor on the model's device. A step whose total loss is
+    non-finite or above 1e4 in magnitude moves no parameter and no momentum
+    buffer (fused SGD's ``found_inf`` skips the whole update inside its
+    kernel) and puts the train-mode BN buffers back (a ``where`` on the
+    flag); ``skipped`` is the flag. Momentum buffers are made first where
+    missing (``_momentum_buffers``). Runs on any device: the CPU tests call
+    it as it is."""
+    _momentum_buffers(optimizer)
+    metrics, bn_before = _gradients(model, optimizer, batch, settings, opt_cfg)
+    with trace.span("train.optimizer"):
+        total = metrics["total_loss"].detach()
+        skip = ~torch.isfinite(total) | (total.abs() > 1e4)
+        found_inf = skip.to(torch.float32)
+        state = optimizer.state
+        for g, lr in zip(optimizer.param_groups, lrs):
+            params = g["params"]
+            sgd(params, [p.grad for p in params],
+                [state[p].get("momentum_buffer") for p in params], fused=True,
+                found_inf=found_inf, weight_decay=g["weight_decay"], momentum=g["momentum"],
+                lr=lr, dampening=g["dampening"], nesterov=g["nesterov"],
+                maximize=g["maximize"])
+        with torch.no_grad():
+            for buf, old in zip(_train_bn_buffers(model), bn_before):
+                buf.copy_(torch.where(skip, old, buf))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["skipped"] = found_inf
+    return metrics
+
+
+def uses_graph(device: torch.device, distributed: bool, remat: bool) -> bool:
+    """``Trainer.step``'s engagement rule: the graph path for a model on a
+    CUDA device trained by one process without ``remat``; the eager step
+    for everything else (the CPU, the data-parallel modes, ``remat``)."""
+    return device.type == "cuda" and not distributed and not remat
+
+
+MAX_GRAPHS = 2      # captured training steps a trainer keeps, most recently used
+XCORR = (depthwise_xcorr, depthwise_xcorr_grad_input, depthwise_xcorr_grad_kernel)
+
+
+class TrainGraph:
+    """``train_step_guarded`` captured as one CUDA graph for one key
+    (``Trainer``: the batch's shapes and dtypes, the optimizer, the BN
+    modules' training flags). The batch and each group's LR go in through
+    static tensors (``batch``, ``lrs``); the metrics come out of ``out``.
+
+    Before the capture every parameter without a momentum buffer gets a
+    zero one (``_momentum_buffers``), and one warm-up runs on ``side``: the
+    forward and backward alone, the train-mode BN buffers put back after it
+    (``_bn_buffers_kept``), the gradients dropped, no update and nothing
+    counted (``trace.uncounted``). The capture runs nothing, so the model's
+    state is as it was until the first replay, which is the first step.
+
+    ``xcorr_launches`` and ``xcorr_packed_launches`` are the xcorr kernels
+    captured (forward, grad-input, grad-kernel): each replay launches them
+    without passing through the wrappers, whose counts moved once, at the
+    capture. ``stamp`` holds the in-place version of every parameter,
+    buffer and momentum buffer (``tensors``) after the capture: replays run
+    no Python and leave them as they are, and any write from the host
+    (``load_state_dict``, ``Trainer.restore``, an eager step) moves one,
+    which ``current`` sees."""
+
+    def __init__(self, trainer: "Trainer", batch: dict, side: torch.cuda.Stream):
+        model, optimizer = trainer.model, trainer.optimizer
+        settings, opt_cfg = trainer.settings, trainer.opt_cfg
+        self.optimizer = optimizer
+        self.batch = {k: v.clone() for k, v in batch.items()}
+        device = self.batch["template"].device
+        _momentum_buffers(optimizer)
+        self.lr_values = [g["lr"] for g in optimizer.param_groups]
+        self.lrs = [torch.tensor(v, dtype=torch.float32, device=device) for v in self.lr_values]
+
+        def warm_up():
+            with trace.uncounted(), _bn_buffers_kept(model):
+                _gradients(model, optimizer, self.batch, settings, opt_cfg)
+            optimizer.zero_grad(set_to_none=True)
+
+        self._warm_up(warm_up, side)
+        before = [(fn.launches, fn.packed_launches) for fn in XCORR]
+        self.out = self._capture(lambda: train_step_guarded(model, optimizer, self.batch,
+                                                            self.lrs, settings, opt_cfg), side)
+        self.xcorr_launches = [fn.launches - b[0] for fn, b in zip(XCORR, before)]
+        self.xcorr_packed_launches = [fn.packed_launches - b[1] for fn, b in zip(XCORR, before)]
+        self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        self.grads = [p.grad for p in self.params]
+        self.momentum = [optimizer.state[p].get("momentum_buffer") for p in self.params]
+        self.tensors = [t for t in (*model.parameters(), *model.buffers(), *self.momentum)
+                        if t is not None]
+        self.stamp_versions()
+
+    def stamp_versions(self) -> None:
+        """Take the versions ``current`` compares against: after this
+        graph's capture, and after another graph's of the same model, whose
+        warm-up and capture move versions but no value."""
+        self.stamp = [t._version for t in self.tensors]
+
+    def _warm_up(self, run, side: torch.cuda.Stream) -> None:
+        """``run()`` once on ``side``, as ``torch.cuda.graph`` asks before a
+        capture."""
+        current = torch.cuda.current_stream(side.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            run()
+        current.wait_stream(side)
+
+    def _capture(self, run, side: torch.cuda.Stream):
+        """``run()`` captured on ``side`` into ``self.graph``; its outputs."""
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=side):
+            return run()
+
+    def current(self) -> bool:
+        """No parameter, buffer or momentum buffer written from the host
+        since the capture, and the optimizer's buffers still the captured
+        ones."""
+        state = self.optimizer.state
+        return (all(t._version == v for t, v in zip(self.tensors, self.stamp))
+                and all(state[p].get("momentum_buffer") is m
+                        for p, m in zip(self.params, self.momentum)))
+
+    def replay(self, batch: dict, lrs: list[float]) -> dict[str, torch.Tensor]:
+        """Copy the batch in, write the LRs where they changed, replay once;
+        the metrics are returned as fresh copies of the static outputs, so
+        a caller may keep every step's."""
+        for k, v in self.batch.items():
+            v.copy_(batch[k])
+        if lrs != self.lr_values:
+            for t, v in zip(self.lrs, lrs):
+                t.fill_(v)
+            self.lr_values = lrs
+        if self.params and self.params[0].grad is not self.grads[0]:
+            for p, grad in zip(self.params, self.grads):     # another graph's were attached
+                p.grad = grad
+        self.graph.replay()
+        return {k: v.clone() for k, v in self.out.items()}
 
 
 class Trainer:
@@ -371,7 +565,16 @@ class Trainer:
     batch); the default mode and ``sync_bn`` convert the model's BN to
     ``SyncBatchNorm2d`` in place. Without ``distributed``,
     ``fused_allreduce`` and ``sync_bn`` do nothing, as in the JAX
-    ``Trainer`` without a mesh."""
+    ``Trainer`` without a mesh.
+
+    ``step`` takes one of two paths by ``uses_graph`` (the module
+    docstring). On the graph path it replays a ``TrainGraph`` kept in
+    ``graphs`` under (the batch's keys, shapes and dtypes; the optimizer;
+    the BN modules' training flags), captured at the first step with that
+    key and captured again when the graph is no longer ``current``; the
+    ``MAX_GRAPHS`` most recently used are kept. A capture first drops every
+    graph of an older optimizer, which never replays again, and every stale
+    one; the graphs it keeps take their versions again after it."""
 
     def __init__(self, model: nn.Module, settings: TrainSettings, opt_cfg: OptimizerConfig,
                  lr_spaces: np.ndarray, epochs: int, unfreeze_at: float = 0.5,
@@ -395,6 +598,9 @@ class Trainer:
         self.optimizer = None
         self.labels = None
         self.steps = 0          # steps taken: the request id of the step's spans
+        self.graphs: dict[tuple, TrainGraph] = {}
+        self._side: torch.cuda.Stream | None = None    # every capture's stream
+        self._bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
         self._ensure_phase(0)
 
     def _ensure_phase(self, epoch: int) -> None:
@@ -436,12 +642,46 @@ class Trainer:
         return epoch
 
     def step(self, batch: dict, epoch: int) -> dict[str, torch.Tensor]:
+        """One step at ``epoch``'s phase and LR, on the path ``uses_graph``
+        picks."""
         with trace.span("train.step", request=self.steps):
             self.steps += 1
             self._ensure_phase(epoch)
             lr = float(self.lr_spaces[min(epoch, len(self.lr_spaces) - 1)])
+            device = next(self.model.parameters()).device
+            if uses_graph(device, self.distributed, self.remat):
+                return self._replay(batch, lr, device)
+            trace.count("train.eager_steps")
             return train_step(self.model, self.optimizer, batch, lr, self.settings,
                               self.opt_cfg, self.distributed, self.fused_allreduce, self.remat)
+
+    def _replay(self, batch: dict, lr: float, device: torch.device) -> dict[str, torch.Tensor]:
+        """The graph path: the key's ``TrainGraph``, captured first where it
+        is missing or stale, replayed once."""
+        groups = self.optimizer.param_groups
+        for g in groups:
+            g["lr"] = lr * g["mult"]
+        key = (tuple((k, v.shape, v.dtype) for k, v in batch.items()), self.optimizer,
+               tuple(m.training for m in self._bns))
+        graph = self.graphs.pop(key, None)
+        if graph is None or not graph.current():
+            graph = None            # a stale graph's pool goes before the next capture
+            with trace.span("train.capture"):
+                trace.count("train.graph_captures")
+                self.graphs = {k: g for k, g in self.graphs.items()
+                               if g.optimizer is self.optimizer and g.current()}
+                while len(self.graphs) >= MAX_GRAPHS:   # drop the least recently used
+                    self.graphs.pop(next(iter(self.graphs)))
+                if self._side is None:
+                    self._side = torch.cuda.Stream(device)
+                with trace.paused():
+                    graph = TrainGraph(self, batch, self._side)
+                for kept in self.graphs.values():
+                    kept.stamp_versions()
+        self.graphs[key] = graph            # now the most recently used
+        with trace.span("train.replay"):
+            trace.count("train.graph_replays")
+            return graph.replay(batch, [g["lr"] for g in groups])
 
 
 def _group_layout(state: dict) -> list[tuple[str, int]]:

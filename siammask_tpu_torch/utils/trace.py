@@ -29,6 +29,8 @@ the model's stages) open named spans, and count what crosses them:
   the program keeps elsewhere read from where their readers read them: the
   xcorr wrappers' ``launches`` and ``packed_launches``
   (``ops/xcorr.py``) and ``_all_reduce.calls`` (``parallel/dist.py``).
+- ``uncounted()``: while open, nothing it counts stands (a CUDA graph's
+  warm-up, which runs the work its capture counts).
 - ``records()`` / ``clear()``: the log as dicts, and emptying it.
 
 Counts: ``h2d_bytes`` (host data handed to the device: frames, VOS chunks)
@@ -42,7 +44,11 @@ and ``conv.contiguous`` (the model's conv calls by the memory layout of
 their input, ``models/resnet.py`` ``Conv2d``; a captured graph counts its
 convs at capture); ``conv.bn_folded`` (the conv -> BN pairs that ran as one
 call of the folded conv, ``models/resnet.py`` ``conv_bn``; the same at
-capture); ``sam2.memory_keys`` (the keys SAM 2's memory attention
+capture); ``train.graph_captures``, ``train.graph_replays`` and
+``train.eager_steps`` (``train/trainer.py`` ``Trainer.step``'s two paths,
+under its spans ``train.capture`` and ``train.replay``; a training graph's
+warm-up is ``uncounted``, so its capture counts the step's convs and xcorr
+launches once); ``sam2.memory_keys`` (the keys SAM 2's memory attention
 attends, summed over object-frames), and on the device ``sam2.no_object``
 and ``sam2.multimask_switch`` (``tracker/sam2.py``). SAM 2's spans are
 ``sam2.image_encoder``, ``sam2.memory_attention``, ``sam2.mask_decoder``,
@@ -55,6 +61,7 @@ how ``tools/trace_report.py`` tells the program's spans from others.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import itertools
 import threading
@@ -185,6 +192,25 @@ class paused:
         return False
 
 
+@contextlib.contextmanager
+def uncounted():
+    """While open, counts are taken back when it closes: the cumulative
+    counters and the xcorr wrappers' launch counts stand as they were (a
+    CUDA graph's warm-up, whose work the capture counts once)."""
+    fns = _xcorr_wrappers()
+    with _counters_lock:
+        saved = _counters.copy()
+    launches = [(fn.launches, fn.packed_launches) for fn in fns]
+    try:
+        yield
+    finally:
+        with _counters_lock:
+            _counters.clear()
+            _counters.update(saved)
+        for fn, (n, packed) in zip(fns, launches):
+            fn.launches, fn.packed_launches = n, packed
+
+
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` and, while recording, to the
     innermost open span's counts on this thread."""
@@ -212,10 +238,16 @@ def count_device(name: str, n: torch.Tensor) -> None:
             total.add_(n.detach())
 
 
+def _xcorr_wrappers() -> tuple:
+    from siammask_tpu_torch.ops import xcorr
+
+    return (xcorr.depthwise_xcorr, xcorr.depthwise_xcorr_grad_input,
+            xcorr.depthwise_xcorr_grad_kernel)
+
+
 def counters() -> dict:
     """The cumulative counters, and the xcorr wrappers' launch counts and
     ``_all_reduce.calls`` as their attributes hold them."""
-    from siammask_tpu_torch.ops import xcorr
     from siammask_tpu_torch.parallel.dist import _all_reduce
 
     with _counters_lock:
@@ -223,8 +255,7 @@ def counters() -> dict:
         device = dict(_device_counts)
     for name, n in device.items():
         out[name] = out.get(name, 0) + int(n)
-    for fn in (xcorr.depthwise_xcorr, xcorr.depthwise_xcorr_grad_input,
-               xcorr.depthwise_xcorr_grad_kernel):
+    for fn in _xcorr_wrappers():
         out[f"{fn.__name__}.launches"] = fn.launches
         out[f"{fn.__name__}.packed_launches"] = fn.packed_launches
     out["_all_reduce.calls"] = _all_reduce.calls

@@ -6,7 +6,8 @@ trained model's (``calibrate_bn``, ``bn_calibration``), the cls head given a
 peak that bf16 rounding does not tie (``sharpen_cls_head``), the box head
 damped so that a slow target is held (``damp_box_head``), and the card
 against the CPU at the tolerances that cuDNN's summation order and bf16
-rounding allow (``check_step_close``). Imports the port only, never JAX.
+rounding allow (``check_step_close``), and a trainer's eager step on the
+card (``eager_step``). Imports the port only, never JAX.
 Imported as a top-level module (``from _torch_weights import ...``), as
 ``_torch_dp`` is: under pytest ``tests/`` is on the path, and
 ``chip_smoke.py`` puts it there. ``from tests._torch_weights`` is not used
@@ -22,6 +23,7 @@ import torch
 from siammask_tpu_torch.models.siammask import SiamMaskBase, SiamMaskSharp, SiamRPN
 from siammask_tpu_torch.ops.sample import subwindow_crop
 from siammask_tpu_torch.tracker.tracker import BoxStepOutput, Tracker
+from siammask_tpu_torch.train.trainer import Trainer, train_step
 
 FRAME_HW = (480, 854)
 TARGET_POS, TARGET_SZ = (300.0, 200.0), (120.0, 90.0)
@@ -194,3 +196,14 @@ def head_maps(model, zf: torch.Tensor, x: torch.Tensor) -> dict:
     if isinstance(model, SiamMaskBase):
         return dict(zip(("score", "loc", "mask head"), model.track_mask(zf, x)))
     return dict(zip(("score", "loc"), model.track(zf, x)))
+
+
+def eager_step(trainer: Trainer, batch: dict, epoch: int) -> dict:
+    """``Trainer.step`` on its eager path whatever ``uses_graph`` picks:
+    ``epoch``'s phase, then ``train_step`` at its LR. The reference a graph
+    replay is held to (fused SGD rounds apart from foreach SGD), and the
+    step whose operators a profile shows (a replay shows none)."""
+    trainer._ensure_phase(epoch)
+    lr = float(trainer.lr_spaces[min(epoch, len(trainer.lr_spaces) - 1)])
+    return train_step(trainer.model, trainer.optimizer, batch, lr, trainer.settings,
+                      trainer.opt_cfg)
