@@ -1,4 +1,4 @@
-"""Tracking-variant ResNet-50 backbone (stride 8, dilated layer3, pad-0 stem).
+"""Tracking-variant ResNet-50 backbones (stride 8, dilated layer3, no layer4).
 
 Counterpart of ``siammask_tpu/models/resnet.py`` in NCHW, with the reference
 module names (``conv1``, ``bn1``, ``layer{1,2,3}.{i}.{conv,bn}{1,2,3}``,
@@ -13,7 +13,14 @@ of the published backbone are kept:
 - there is no layer4.
 
 Spatial flow: template 127 -> p0 61 -> p1 31 -> p2 15 -> p3 15; search
-255 -> 125 / 63 / 31 / 31. ``width`` is the stem width (64 = ResNet-50);
+255 -> 125 / 63 / 31 / 31.
+
+``ResNet50Stride8`` is the other padding of the same stages, torchvision's,
+as TransT's backbone has it: a pad-3 stem, each 3x3 padded by its dilation,
+1x1 downsamples with the stage's stride, and every 3x3 of layer3 at
+dilation 2 and stride 1. A 256 input gives a 32x32 layer3 map, a 128 one
+16x16. It shares ``Bottleneck`` and ``conv_bn``, so its eval-mode BN folds
+into the same fused calls. ``width`` is the stem width (64 = ResNet-50);
 smaller widths keep the module tree and the geometry.
 
 Training state follows the reference's ``features.unfix``/``train``
@@ -181,9 +188,11 @@ class Bottleneck(nn.Module):
     span = "model.backbone.block"
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, dilation: int = 1,
-                 downsample: nn.Module | None = None, dtype: torch.dtype | None = None):
+                 downsample: nn.Module | None = None, dtype: torch.dtype | None = None,
+                 padding: int | None = None):
         super().__init__()
-        padding = dilation if dilation > 1 else 2 - stride
+        if padding is None:             # the published SiamMask backbone's rule
+            padding = dilation if dilation > 1 else 2 - stride
         self.conv1 = Conv2d(inplanes, planes, 1, bias=False, dtype=dtype)
         self.bn1 = BatchNorm2d(planes)
         self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=padding,
@@ -231,6 +240,27 @@ def _make_layer(inplanes: int, planes: int, blocks: int, stride: int = 1,
     return nn.Sequential(*layers)
 
 
+def _torchvision_layer(inplanes: int, planes: int, blocks: int, stride: int = 1,
+                       dilation: int = 1, dtype: torch.dtype | None = None) -> nn.Sequential:
+    """A stage padded the torchvision way: a 1x1 downsample at the stage's
+    stride, every 3x3 at ``dilation`` and padded by it."""
+    out = planes * Bottleneck.expansion
+    downsample = nn.Sequential(Conv2d(inplanes, out, 1, stride=stride, bias=False, dtype=dtype),
+                               BatchNorm2d(out))
+    layers = [Bottleneck(inplanes, planes, stride, dilation, downsample, dtype, dilation)]
+    layers += [Bottleneck(out, planes, dilation=dilation, dtype=dtype, padding=dilation)
+               for _ in range(1, blocks)]
+    return nn.Sequential(*layers)
+
+
+def _name_blocks(net: nn.Module) -> None:
+    # a span a block: a stage's span would hold too many host events for a
+    # reader of the trace that looks back a few hundred
+    for stage in ("layer1", "layer2", "layer3"):
+        for i, block in enumerate(getattr(net, stage)):
+            block.span = f"model.backbone.{stage}.{i}"
+
+
 class ResNet50Tracking(nn.Module):
     """ResNet-50 layers 1-3. Input NCHW float32 raw 0..255 pixels (no
     normalisation, as the reference); returns (p0, p1, p2, p3), in ``dtype``
@@ -246,11 +276,7 @@ class ResNet50Tracking(nn.Module):
         self.layer1 = _make_layer(w, w, 3, dtype=dtype)
         self.layer2 = _make_layer(4 * w, 2 * w, 4, stride=2, dtype=dtype)
         self.layer3 = _make_layer(8 * w, 4 * w, 6, dilation=2, dtype=dtype)
-        # a span a block: a stage's span would hold too many host events for
-        # a reader of the trace that looks back a few hundred
-        for stage in ("layer1", "layer2", "layer3"):
-            for i, block in enumerate(getattr(self, stage)):
-                block.span = f"model.backbone.{stage}.{i}"
+        _name_blocks(self)
         self.unfrozen = False
 
     def _frozen_stages(self) -> list[nn.Module]:
@@ -279,3 +305,28 @@ class ResNet50Tracking(nn.Module):
         p2 = self.layer2(p1)
         p3 = self.layer3(p2)
         return p0, p1, p2, p3
+
+
+class ResNet50Stride8(nn.Module):
+    """ResNet-50 layers 1-3 with torchvision's padding and a stride-1,
+    dilation-2 layer3 (TransT's backbone; the module docstring). Input NCHW
+    float32, normalised by the caller; returns the layer3 map (B, 16 width,
+    H / 8, W / 8) in ``dtype`` when it is set, in the input's memory layout.
+    Tracking only: every BN runs in eval mode unless ``train()`` is asked
+    for."""
+
+    def __init__(self, width: int = 64, dtype: torch.dtype | None = None):
+        super().__init__()
+        w = width
+        self.conv1 = Conv2d(3, w, 7, stride=2, padding=3, bias=False, dtype=dtype)
+        self.bn1 = BatchNorm2d(w)
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        self.layer1 = _torchvision_layer(w, w, 3, dtype=dtype)
+        self.layer2 = _torchvision_layer(4 * w, 2 * w, 4, stride=2, dtype=dtype)
+        self.layer3 = _torchvision_layer(8 * w, 4 * w, 6, dilation=2, dtype=dtype)
+        _name_blocks(self)
+
+    def forward(self, x):
+        with trace.span("model.backbone.stem"):
+            x = self.maxpool(conv_bn(self.conv1, self.bn1, x))
+        return self.layer3(self.layer2(self.layer1(x)))

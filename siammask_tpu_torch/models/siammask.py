@@ -267,18 +267,26 @@ def log_softmax_cls(score: torch.Tensor, anchor_num: int) -> torch.Tensor:
 
 
 def build_model(arch: str, anchor_num: int = 5, width: int = 64,
-                dtype: torch.dtype | None = None, sam2: dict | None = None):
+                dtype: torch.dtype | None = None, network: dict | None = None):
     """The model of a reference ``--arch`` name (``tools/test.py``):
     ``Custom``/``SiamMaskSharp``, ``SiamMaskBase`` or ``SiamRPN``, computing
-    in ``dtype``; or ``SAM2``, SAM 2.1 at the widths of ``Sam2Config``
-    updated by ``sam2`` (an experiment config's ``network.sam2``; none: the
-    published Hiera-B+). A float32 SiamMask model switches the process's
-    TF32 flags off (the module docstring)."""
+    in ``dtype``; ``SAM2``, SAM 2.1 at the widths of ``Sam2Config`` updated
+    by ``network["sam2"]`` (``network``: an experiment config's ``network``;
+    none: the published Hiera-B+); or ``TransT``, at the widths of
+    ``TransTConfig`` updated by ``network["transt"]`` (none: TransT-N4). A
+    float32 SiamMask or TransT model switches the process's TF32 flags off
+    (the module docstring)."""
+    network = network or {}
     if arch == "SAM2":
         from siammask_tpu_torch.models.sam2 import Sam2, Sam2Config
 
-        sizes = {k: tuple(v) if isinstance(v, list) else v for k, v in (sam2 or {}).items()}
+        sizes = {k: tuple(v) if isinstance(v, list) else v
+                 for k, v in network.get("sam2", {}).items()}
         return Sam2(Sam2Config(**sizes), None if dtype == torch.float32 else dtype)
+    if arch == "TransT":
+        from siammask_tpu_torch.models.transt import TransT, TransTConfig
+
+        return TransT(TransTConfig(**network.get("transt", {})), dtype)
     families = {"Custom": SiamMaskSharp, "SiamMaskSharp": SiamMaskSharp,
                 "SiamMaskBase": SiamMaskBase, "SiamRPN": SiamRPN}
     if arch not in families:

@@ -12,6 +12,8 @@ runs on the CPU). It runs the reference's test matrix::
         --resume SiamMask_VOT.pth --mask --refine --dataset VOT2018 --data-dir data
     python -m siammask_tpu_torch.tools.test --config "experiments/sam2.1_hiera_b+/config_davis.json" \\
         --dtype bfloat16 --dataset DAVIS2017 --data-dir data          # SAM 2.1 (VOS only)
+    python -m siammask_tpu_torch.tools.test --config experiments/transt_n4/config.json \\
+        --dtype bfloat16 --dataset VOT2018 --data-dir data            # TransT-N4, box only
 
 ``--resume`` loads a reference ``.pth`` (a bare state_dict or a training
 checkpoint's ``state_dict``) through ``load_reference_state_dict``; without
@@ -75,12 +77,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def load_model(arch: str, anchor_num: int, resume: str | None, device: torch.device,
-               dtype: torch.dtype = torch.float32, sam2: dict | None = None):
+               dtype: torch.dtype = torch.float32, network: dict | None = None):
     """The arch's model in eval mode on ``device``, computing in ``dtype``,
+    at the sizes of ``network`` (the experiment config's, ``build_model``),
     with the checkpoint's weights (a SiamMask ``.pth``, or a SAM 2
-    checkpoint's ``model``) or seeded random ones. A float32 SiamMask model
-    switches TF32 off as it is built (``build_model``)."""
-    model = build_model(arch, anchor_num, dtype=dtype, sam2=sam2)
+    checkpoint's ``model``) or seeded random ones. A float32 SiamMask or
+    TransT model switches TF32 off as it is built (``build_model``)."""
+    model = build_model(arch, anchor_num, dtype=dtype, network=network)
     if resume:
         ckpt = torch.load(resume, map_location="cpu", weights_only=True)
         load_reference_state_dict(model, ckpt.get("state_dict", ckpt.get("model", ckpt)))
@@ -96,7 +99,7 @@ def main(argv=None) -> dict:
     device = torch.device(args.device)
     cfg = Config.load(args.config)
     model = load_model(cfg.arch, cfg.anchors.anchor_num, args.resume, device,
-                       getattr(torch, args.dtype), cfg.raw.get("network", {}).get("sam2"))
+                       getattr(torch, args.dtype), cfg.raw.get("network"))
     p = cfg.tracker_config()
     tracker_name = args.tracker_name or (
         cfg.arch + "_" + ("mask_" if args.mask else "") + ("refine_" if args.refine else "")

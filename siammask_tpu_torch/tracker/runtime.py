@@ -13,6 +13,7 @@ import torch
 from siammask_tpu_torch.config import TrackerConfig
 from siammask_tpu_torch.tracker.sam2 import Sam2Tracker
 from siammask_tpu_torch.tracker.tracker import Tracker, TrackState
+from siammask_tpu_torch.tracker.transt import TransTTracker
 from siammask_tpu_torch.utils import trace
 from siammask_tpu_torch.utils.bbox import cxy_wh_2_rect
 
@@ -46,7 +47,8 @@ def mask_to_rotated_box(target_mask: np.ndarray, target_pos, target_sz):
 class TrackerRuntime:
     """Stateful wrapper over the tracker of the model's family (its
     ``family``) with the reference's init/track API: the Siamese families'
-    ``Tracker``, with ``mask`` and ``refine`` as it takes them, or SAM 2's
+    ``Tracker``, with ``mask`` and ``refine`` as it takes them; TransT's
+    ``TransTTracker``, box only, which takes neither; or SAM 2's
     ``Sam2Tracker``, which always makes its mask and has the batched
     contract alone, which ``track_vos_batched`` drives through
     ``runtime.tracker``."""
@@ -55,6 +57,8 @@ class TrackerRuntime:
                  mask: bool = True, refine: bool = True):
         if model.family == "sam2":
             self.tracker = Sam2Tracker(model, p, device)
+        elif model.family == "transt":
+            self.tracker = TransTTracker(model, p, device)
         else:
             self.tracker = Tracker(model, p, device, mask=mask, refine=refine)
         self.p = p

@@ -113,14 +113,6 @@ class Sam2Tracker(StepGraphs):
         casts (and may not use casts made outside it)."""
         return self._autocast(cache=False)
 
-    def _frame(self, frame) -> torch.Tensor:
-        host = not isinstance(frame, torch.Tensor) or (frame.device.type == "cpu"
-                                                       and self.device.type != "cpu")
-        frame = torch.as_tensor(frame, device=self.device)
-        if host:
-            trace.count("h2d_bytes", frame.nbytes)
-        return frame
-
     # ---------------- init
 
     @torch.no_grad()

@@ -192,14 +192,37 @@ class StepGraphs:
     sizes drops the least recently used graph, and with it its pool, before
     it captures another. Every capture runs on one kept side stream.
 
-    A tracker gives its ``_step_body(state, frame)``, the context its
-    warm-up and capture run in (``_capture_context``), and what it builds
-    before a capture (``_before_capture``), where it may copy to the device
-    or compile, which a capture may not."""
+    The contract a tracker subclass meets:
+
+    - it sets ``device`` (a ``torch.device``) and ``frame_index`` (the video
+      frame its next step takes) and calls ``StepGraphs.__init__``;
+    - ``_step_body(state, frame)``: one frame (H, W, 3) on the device for O
+      objects. ``state`` is a tuple of tensors, each with the O axis first;
+      it returns the new state (new tensors, or the given ones updated in
+      place) and a tuple of output tensors. It syncs nothing with the host
+      and copies nothing to the device, so that it can be captured;
+    - ``_capture_context()``: the context the warm-up and the capture run in
+      (none by default);
+    - ``_before_capture(im_h, im_w)``: what is built before a capture (device
+      constants, compiled kernels), which a capture may not do;
+    - a tracker whose model folds eval-mode BatchNorm into its convs
+      (``ops/bn_fold.py``) takes ``SiameseTracker.step_graph``, which brings
+      the folded weights up to date before every capture and run.
+
+    ``_frame`` puts a host frame, or frames, on the device and counts the
+    bytes."""
 
     def __init__(self):
         self.graphs: dict[tuple, StepGraph] = {}
         self._side: torch.cuda.Stream | None = None   # every capture's stream
+
+    def _frame(self, frame) -> torch.Tensor:
+        host = not isinstance(frame, torch.Tensor) or (frame.device.type == "cpu"
+                                                       and self.device.type != "cpu")
+        frame = torch.as_tensor(frame, device=self.device)
+        if host:
+            trace.count("h2d_bytes", frame.nbytes)
+        return frame
 
     def _capture_context(self):
         return contextlib.nullcontext()
@@ -230,14 +253,86 @@ class StepGraphs:
         return graph
 
 
-class Tracker(StepGraphs):
+class SiameseTracker(StepGraphs):
+    """What the template-and-search trackers share (``Tracker``, and
+    ``tracker/transt.py`` ``TransTTracker``): a ``TrackState``, the
+    one-object and whole-video entry points over the subclass's
+    ``init_batched`` and ``_step_body``, and the refresh of the model's
+    folded BatchNorm weights before every graph capture and run. A subclass
+    sets ``model`` besides ``StepGraphs``' contract."""
+
+    def step_graph(self, states: tuple, frames: torch.Tensor) -> StepGraph:
+        """``StepGraphs.step_graph``, after the model's folded BatchNorm
+        weights (``ops/bn_fold.py``) are brought up to its parameters and
+        statistics, in place: a replay reads them and runs no Python, so a
+        change since the last call (a calibration, ``load_state_dict``)
+        is taken here, before the capture and before every run."""
+        bn_fold.refresh(self.model)
+        return super().step_graph(states, frames)
+
+    @torch.inference_mode()
+    def init(self, frame, target_pos, target_sz) -> TrackState:
+        """frame (H, W, 3); target_pos / target_sz: (2,) center and size."""
+        pos = torch.as_tensor(target_pos, dtype=torch.float32, device=self.device)
+        sz = torch.as_tensor(target_sz, dtype=torch.float32, device=self.device)
+        return _unbatch(self.init_batched(frame, pos[None], sz[None]))
+
+    @torch.inference_mode()
+    def step(self, state: TrackState, frame):
+        """One frame for one object: the O=1 case of ``step_batched``."""
+        with trace.span("tracker.step", request=self.frame_index):
+            self.frame_index += 1
+            new_state, out = self._step_body(_batch(state), self._frame(frame))
+            return _unbatch(new_state), type(out)(*(v[0] for v in out))
+
+    @torch.inference_mode()
+    def step_batched(self, states: TrackState, frame):
+        """One frame for O objects at once: the crop and the network run at
+        batch O; outputs have the leading O axis."""
+        with trace.span("tracker.step_batched", request=self.frame_index):
+            self.frame_index += 1
+            return self._step_body(states, self._frame(frame))
+
+    # ---------------- whole video ----------------
+
+    @torch.inference_mode()
+    def track_video_multi(self, states: TrackState, frames):
+        """T frames (T, H, W, 3) for O objects: returns the final state and
+        the step outputs stacked as (T, O, ...). The frames are uploaded once
+        if they are not on the device. On a CUDA device each frame is a
+        replay of the ``StepGraph`` for (O, H, W, frame dtype), captured at
+        the first call with that key and kept while it is among the
+        ``MAX_GRAPHS`` most recently used; capture or replay errors raise.
+        Elsewhere it is a loop over ``step_batched``."""
+        with trace.span("tracker.track_video_multi", request=self.frame_index,
+                        frames=len(frames), objects=states.target_pos.shape[0]):
+            frames = self._frame(frames)
+            if self.device.type != "cuda":
+                outs = []
+                for frame in frames:
+                    states, out = self.step_batched(states, frame)
+                    outs.append(out)
+                return states, type(out)(*(torch.stack(v) for v in zip(*outs)))
+            self.frame_index += frames.shape[0]
+            return self.step_graph(states, frames).run(states, frames)
+
+    @torch.inference_mode()
+    def track_video(self, state: TrackState, frames):
+        """T frames (T, H, W, 3) for one object: the final state and the
+        outputs stacked as (T, ...); ``track_video_multi`` at O=1."""
+        final, outs = self.track_video_multi(_batch(state), frames)
+        return _unbatch(final), type(outs)(*(v[:, 0] for v in outs))
+
+
+class Tracker(SiameseTracker):
     """Tracker for one model (already on ``device``, in eval mode) and one
     config. Frames are (H, W, 3) uint8 or float arrays or tensors; a tensor
     already on the device is used as it is. ``mask=True`` needs a mask
     family: with ``refine=True`` a ``SiamMaskSharp``, with ``refine=False``
     either (the 63x63 head, so ``p.out_size`` must be 63). Steps return a
     ``StepOutput``, or a ``BoxStepOutput`` with ``mask=False``. Its
-    captured graphs are kept as ``StepGraphs`` keeps them."""
+    captured graphs are kept as ``StepGraphs`` keeps them; its entry points
+    are ``SiameseTracker``'s."""
 
     late_starts = True      # ``track_vos_batched`` may re-init streams mid-video
 
@@ -265,14 +360,6 @@ class Tracker(StepGraphs):
         # request id of the tracker's spans
         self.frame_index = 0
 
-    def _frame(self, frame) -> torch.Tensor:
-        host = not isinstance(frame, torch.Tensor) or (frame.device.type == "cpu"
-                                                       and self.device.type != "cpu")
-        frame = torch.as_tensor(frame, device=self.device)
-        if host:
-            trace.count("h2d_bytes", frame.nbytes)
-        return frame
-
     def _clamps(self, im_h: int, im_w: int):
         """(0, 0), (10, 10) and (W, H) for the final clamp, per frame size."""
         key = (im_h, im_w)
@@ -286,23 +373,7 @@ class Tracker(StepGraphs):
         self._clamps(im_h, im_w)        # a host-to-device copy: never under capture
         _build.load_library()           # nvcc runs at first use, never under capture
 
-    def step_graph(self, states: tuple, frames: torch.Tensor) -> StepGraph:
-        """``StepGraphs.step_graph``, after the model's folded BatchNorm
-        weights (``ops/bn_fold.py``) are brought up to its parameters and
-        statistics, in place: a replay reads them and runs no Python, so a
-        change since the last call (a calibration, ``load_state_dict``)
-        is taken here, before the capture and before every run."""
-        bn_fold.refresh(self.model)
-        return super().step_graph(states, frames)
-
     # ---------------- init ----------------
-
-    @torch.inference_mode()
-    def init(self, frame, target_pos, target_sz) -> TrackState:
-        """frame (H, W, 3); target_pos / target_sz: (2,) center and size."""
-        pos = torch.as_tensor(target_pos, dtype=torch.float32, device=self.device)
-        sz = torch.as_tensor(target_sz, dtype=torch.float32, device=self.device)
-        return _unbatch(self.init_batched(frame, pos[None], sz[None]))
 
     @torch.inference_mode()
     def init_batched(self, frame, target_pos, target_sz) -> TrackState:
@@ -442,49 +513,3 @@ class Tracker(StepGraphs):
         mask_in_frame = warp_back_mask(mask_cell, back_box, (im_h, im_w))
         return new_state, StepOutput(new_pos, new_sz, best_score, best,
                                      mask_in_frame, mask_cell)
-
-    @torch.inference_mode()
-    def step(self, state: TrackState, frame):
-        """One frame for one object: the O=1 case of ``step_batched``."""
-        with trace.span("tracker.step", request=self.frame_index):
-            self.frame_index += 1
-            new_state, out = self._step_body(_batch(state), self._frame(frame))
-            return _unbatch(new_state), type(out)(*(v[0] for v in out))
-
-    @torch.inference_mode()
-    def step_batched(self, states: TrackState, frame):
-        """One frame for O objects at once: the crop, backbone, heads and
-        Refine run at batch O; outputs have the leading O axis."""
-        with trace.span("tracker.step_batched", request=self.frame_index):
-            self.frame_index += 1
-            return self._step_body(states, self._frame(frame))
-
-    # ---------------- whole video ----------------
-
-    @torch.inference_mode()
-    def track_video_multi(self, states: TrackState, frames):
-        """T frames (T, H, W, 3) for O objects: returns the final state and
-        the step outputs stacked as (T, O, ...). The frames are uploaded once
-        if they are not on the device. On a CUDA device each frame is a
-        replay of the ``StepGraph`` for (O, H, W, frame dtype), captured at
-        the first call with that key and kept while it is among the
-        ``MAX_GRAPHS`` most recently used; capture or replay errors raise.
-        Elsewhere it is a loop over ``step_batched``."""
-        with trace.span("tracker.track_video_multi", request=self.frame_index,
-                        frames=len(frames), objects=states.target_pos.shape[0]):
-            frames = self._frame(frames)
-            if self.device.type != "cuda":
-                outs = []
-                for frame in frames:
-                    states, out = self.step_batched(states, frame)
-                    outs.append(out)
-                return states, type(out)(*(torch.stack(v) for v in zip(*outs)))
-            self.frame_index += frames.shape[0]
-            return self.step_graph(states, frames).run(states, frames)
-
-    @torch.inference_mode()
-    def track_video(self, state: TrackState, frames):
-        """T frames (T, H, W, 3) for one object: the final state and the
-        outputs stacked as (T, ...); ``track_video_multi`` at O=1."""
-        final, outs = self.track_video_multi(_batch(state), frames)
-        return _unbatch(final), type(outs)(*(v[:, 0] for v in outs))

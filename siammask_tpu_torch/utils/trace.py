@@ -54,6 +54,10 @@ and ``sam2.multimask_switch`` (``tracker/sam2.py``). SAM 2's spans are
 ``sam2.image_encoder``, ``sam2.memory_attention``, ``sam2.mask_decoder``,
 ``sam2.memory_encoder`` and ``sam2.bank_update`` (eager frames); its
 full-bank frames replay a ``StepGraph`` under the ``step_graph`` spans.
+TransT's (``models/transt.py``) are ``transt.backbone``, ``transt.fusion.<i>``,
+``transt.decoder`` and ``transt.heads`` (eager steps and the template), and
+``transt.attn_calls`` counts its attention calls (17 a step; a captured
+graph counts at capture, as ``conv.bn_folded``).
 
 A span's name is ``<layer>.<what>``, its layer one of ``LAYERS``: that is
 how ``tools/trace_report.py`` tells the program's spans from others.
@@ -70,7 +74,7 @@ import time
 import torch
 from torch.autograd import profiler as _profiler
 
-LAYERS = ("vos", "tracker", "step_graph", "runtime", "train", "dist", "model", "sam2")
+LAYERS = ("vos", "tracker", "step_graph", "runtime", "train", "dist", "model", "sam2", "transt")
 LOG_LIMIT = 200_000
 
 _counters: collections.Counter = collections.Counter()
