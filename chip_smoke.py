@@ -84,6 +84,12 @@ Phases, each of which raises on failure:
    within one bf16 step of the scalar kernel, with the elements that
    differ counted (``check_one_bf16_step``); two calls of each packed
    kernel at B=64 and at stage 2's shape bit-identical;
+4b. ``[bn-train]`` (``phase_bn_train``): the train-mode BatchNorm kernels
+   (``ops/bn_train.py``) at each BN shape and chain (ReLU, residual) of an
+   unfrozen SiamMask-base step at batch 64 (``BN_STEP``): the output and dx
+   within one bf16 step of the plain version; each kernel's time beside its
+   bytes' bound; the forward and the backward against the plain version's
+   and against ATen's ``F.batch_norm`` -> add -> ReLU; the sums over a step;
 5. the track slice: init + steps, with finite outputs in bounds, three xcorr
    kernel launches per step, and one step under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
@@ -337,8 +343,9 @@ REPO = Path(__file__).resolve().parent
 # its helpers import as top-level modules, as under pytest
 sys.path.insert(0, str(REPO / "tests"))
 from _torch_weights import (BF16, BF16_MAP_TOL, FRAME_HW, FRAMES, SEED, TARGET_POS,  # noqa: E402
-                            TARGET_SZ, bf16_twin, bn_calibration, build_model,
-                            check_step_close, damp_box_head, eager_step, head_maps)
+                            TARGET_SZ, bf16_steps_over, bf16_twin, bn_calibration,
+                            build_model, check_step_close, damp_box_head, eager_step,
+                            head_maps, relu_ties)
 CONFIG = REPO / "experiments" / "siammask_sharp" / "config_davis.json"
 TRAIN_CONFIG = REPO / "experiments" / "siammask_base" / "config.json"
 RPN_CONFIG = REPO / "experiments" / "siamrpn_resnet" / "config.json"
@@ -825,6 +832,141 @@ def phase_grad_kernels() -> list[dict]:
                                           **times[(which, b)]} for b in LOCAL_BATCHES},
                "bf16_scalar": scalar[which]}
               for which in ("input", "kernel")), packed["input"], packed["kernel"]]
+
+
+# (C, R, relu, residual, calls a step): every train-mode BN call of an
+# unfrozen SiamMask-base step at batch 64 (the template's and the search's
+# layer2 and layer3, the neck's, the heads'), 75 in all
+BN_STEP = [(128, 14400, True, False, 7), (128, 61504, True, False, 8),
+           (128, 254016, True, False, 1), (256, 1600, True, False, 3),
+           (256, 14400, False, False, 1), (256, 14400, True, False, 12),
+           (256, 40000, True, False, 3), (256, 53824, True, False, 3),
+           (256, 61504, False, False, 1), (256, 61504, True, False, 12),
+           (512, 14400, False, False, 1), (512, 14400, True, True, 4),
+           (512, 61504, False, False, 1), (512, 61504, True, True, 4),
+           (1024, 14400, False, False, 1), (1024, 14400, True, True, 6),
+           (1024, 61504, False, False, 1), (1024, 61504, True, True, 6)]
+
+
+def _bn_rows(rows: int) -> tuple[int, int, int]:
+    """(N, H, W) of ``rows`` rows at batch 64 (a square map), else (1, rows, 1)."""
+    side = math.isqrt(rows // 64)
+    return (64, side, side) if 64 * side * side == rows else (1, rows, 1)
+
+
+def _bn_chain_aten(x, z, w, b, mean, var, relu):
+    out = F.batch_norm(x, mean, var, w, b, True, 0.1, 1e-5)
+    out = out if z is None else out + z
+    return F.relu(out, inplace=True) if relu else out
+
+
+def phase_bn_train() -> dict:
+    """``[bn-train]``: each chain of ``BN_STEP`` once: the kernels' output and
+    dx against the plain version (one bf16 step, ``check_bn_step``; dx
+    without the ReLU's ties, ``_torch_weights.relu_ties``), each
+    kernel's device time (``graph_us``) beside its bytes' bound at
+    ``PEAK_BYTES_PER_S``, the forward (statistics + normalise) and backward
+    (reduction + elementwise) against the plain version's and ATen's chain,
+    timed in turns (ATen, kernels, kernels, ATen; each side its faster
+    turn; the backward as forward-and-backward less the forward). Prints a
+    line a chain and the sums over a step; returns them."""
+    from siammask_tpu_torch.ops import bn_train
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    per_step = {"kernels_ms": 0.0, "bound_ms": 0.0, "aten_ms": 0.0, "plain_ms": 0.0}
+    rows_out = []
+    for c, rows, relu, residual, calls in BN_STEP:
+        n, h, w = _bn_rows(rows)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=DEV)
+
+        x, z, dy = ((randn(n, c, h, w) * 2 + 0.5).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last) for _ in range(3))
+        z = z if residual else None
+        w, b = 1 + 0.3 * randn(c), 0.2 * randn(c)
+        stats = [randn(c), randn(c).abs() + 0.5]
+        mask = ((bn_train._MASK_FROM_Y if residual else bn_train._MASK_RECOMPUTE) if relu
+                else bn_train._MASK_NONE)
+        mean, invstd = bn_train.batch_stats(x, *stats, 0.1, 1e-5)
+        y = bn_train.normalize(x, mean, invstd, w, b, z, relu)
+        sums, g = bn_train.backward_reduce(dy, x, y, mean, invstd, w, b, mask)
+        dx = bn_train.backward_elemt(g, x, mean, invstd, w, b, sums,
+                                     mask == bn_train._MASK_RECOMPUTE)
+        xr = x.detach().requires_grad_()
+        ref = bn_train.bn_train_reference(xr, w, b, *[s.clone() for s in stats], 0.1, 1e-5, z,
+                                          relu)
+        (ref_dx,) = torch.autograd.grad(ref, xr, dy)
+        check_bn_step(f"bn-train C={c} R={rows} y", y, ref)
+        check_bn_step(f"bn-train C={c} R={rows} dx", dx, ref_dx,
+                      relu_ties(x, z, w, b, 1e-5) if relu else None)
+
+        m = x.numel() * x.element_size()
+        nbytes = {"stats": m, "apply": (3 if residual else 2) * m,
+                  "reduce": (4 if relu and residual else 2) * m, "elemt": 3 * m}
+        t = {"stats": graph_us(bn_train.batch_stats, x, *stats, 0.1, 1e-5),
+             "apply": graph_us(bn_train.normalize, x, mean, invstd, w, b, z, relu),
+             "reduce": graph_us(bn_train.backward_reduce, dy, x, y, mean, invstd, w, b, mask),
+             "elemt": graph_us(bn_train.backward_elemt, g, x, mean, invstd, w, b, sums,
+                               mask == bn_train._MASK_RECOMPUTE)}
+        bound = {k: v / PEAK_BYTES_PER_S * 1e6 for k, v in nbytes.items()}
+
+        def chain(fn):
+            """(forward, forward and backward) of ``fn`` from fresh leaves,
+            made in the call so that autograd runs on the capturing stream."""
+            def forward():
+                ins = [t.detach().requires_grad_() for t in (x, w, b, z) if t is not None]
+                return ins, fn(ins[0], ins[3] if residual else None, ins[1], ins[2], *stats,
+                               relu)
+
+            def both():
+                ins, out = forward()
+                return torch.autograd.grad(out, ins, dy)
+            return forward, both
+
+        def ours(xx, zz, ww, bb, mm, vv, rr):
+            return bn_train.bn_train(xx, ww, bb, mm, vv, 0.1, 1e-5, zz, rr)
+
+        def plain(xx, zz, ww, bb, mm, vv, rr):
+            return bn_train.bn_train_reference(xx, ww, bb, mm, vv, 0.1, 1e-5, zz, rr)
+
+        sides = {"aten": chain(_bn_chain_aten), "kernels": chain(ours), "plain": chain(plain)}
+        times = {}      # side: (forward, backward = forward and backward less forward)
+        for side in ("aten", "kernels", "kernels", "aten", "plain"):
+            fwd, both = (graph_us(f, n=20) for f in sides[side])
+            old = times.get(side, (math.inf, math.inf))
+            times[side] = (min(old[0], fwd), min(old[1], both - fwd))
+        record = {"c": c, "rows": rows, "relu": relu, "residual": residual, "calls": calls,
+                  "kernel_us": t, "bound_us": bound,
+                  "share_of_bound": {k: bound[k] / t[k] for k in t},
+                  "forward_us": {k: v[0] for k, v in times.items()},
+                  "backward_us": {k: v[1] for k, v in times.items()}}
+        rows_out.append(record)
+        print(f"[bn-train] C={c} R={rows} relu={relu} residual={residual} x{calls}: "
+              + ", ".join(f"{k} {t[k]:.1f} us ({100 * bound[k] / t[k]:.0f}% of "
+                          f"{bound[k]:.1f})" for k in t)
+              + "; forward / backward us: " + ", ".join(
+                  f"{k} {v[0]:.1f} / {v[1]:.1f}" for k, v in times.items()))
+        per_step["kernels_ms"] += calls * sum(t.values()) / 1e3
+        per_step["bound_ms"] += calls * sum(bound.values()) / 1e3
+        per_step["aten_ms"] += calls * sum(times["aten"]) / 1e3
+        per_step["plain_ms"] += calls * sum(times["plain"]) / 1e3
+        del x, z, dy, y, g, dx, ref, ref_dx, sides
+    share = 100 * per_step["bound_ms"] / per_step["kernels_ms"]
+    print(f"[bn-train] a step's 75 chains: kernels {per_step['kernels_ms']:.3f} ms (bound "
+          f"{per_step['bound_ms']:.3f} ms, {share:.0f}%), ATen's chain "
+          f"{per_step['aten_ms']:.3f} ms, plain {per_step['plain_ms']:.3f} ms")
+    return {"per_step": per_step, "chains": rows_out}
+
+
+def check_bn_step(what: str, out: torch.Tensor, ref: torch.Tensor, skip=None) -> None:
+    """Each element within one bf16 step of the plain version's
+    (``_torch_weights.bf16_steps_over``), ``skip`` left out."""
+    over = bf16_steps_over(out, ref, skip)
+    if over:
+        raise AssertionError(f"[{what}] {over} elements more than one bf16 step off")
+    print(f"[{what}] within one bf16 step; {int((out != ref).sum())} of {out.numel()} differ"
+          + ("" if skip is None else f", {int(skip.sum())} ReLU ties left out"))
 
 
 def xcorr_per_step(tracker: Tracker) -> int:
@@ -3204,6 +3346,7 @@ def main() -> None:
     phase_build()
     strip, packed = phase_kernels()
     strip_input, grad_kernel, packed_input, packed_grad_kernel = phase_grad_kernels()
+    phase_bn_train()
     records = [strip, strip_input, grad_kernel, packed, packed_input, packed_grad_kernel]
     p = Config.load(str(CONFIG)).tracker_config()
     model, tracker, frames = build_model(p)

@@ -46,11 +46,16 @@ Each conv -> BN (-> + residual) (-> ReLU) runs through ``conv_bn``: where
 the pair folds (``folds``: BN in eval mode, no gradient through the pair,
 no hook on either module, a CUDA input) it is one cuDNN call of the folded
 weight and bias (``ops/bn_fold.py``), kept beside the conv
-(``Conv2d.bn_folds``), and counted in ``conv.bn_folded``; otherwise the two
-modules run as they are. Training (train-mode BN, gradients) and the CPU
-take the second path; the tracker on a card, and the trainer's frozen
-stages there, the first. A block with a downsample runs it bias-free when
-both its pairs fold, its folded bias added into conv3's.
+(``Conv2d.bn_folds``), and counted in ``conv.bn_folded``; otherwise the conv
+runs, then ``bn_add_relu``: where the BN normalises with the batch's
+statistics on a card's channels_last bf16 map (``trains_fused``), the BN,
+add and ReLU are one ``torch.autograd.Function`` over the hand-written
+kernels of ``ops/bn_train.py``, counted in ``bn.train_fused``; elsewhere the
+module, the add and the ReLU in turn. The tracker on a card, and the
+trainer's frozen stages there, fold; the trainer's training stages there
+take the train-mode kernels; the CPU, float32 maps, a synced BN over ranks
+and a BN with a hook run the modules. A block with a downsample runs it
+bias-free when both its pairs fold, its folded bias added into conv3's.
 """
 from __future__ import annotations
 
@@ -58,7 +63,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from siammask_tpu_torch.ops import bn_fold
+from siammask_tpu_torch.ops import bn_fold, bn_train
 from siammask_tpu_torch.ops.layout import memory_format
 from siammask_tpu_torch.utils import trace
 
@@ -144,16 +149,44 @@ def folds(conv: Conv2d, bn: nn.BatchNorm2d, x) -> bool:
         or bn.bias.requires_grad))
 
 
-def conv_bn(conv: Conv2d, bn: nn.BatchNorm2d, x, relu: bool = True, z=None):
-    """``conv`` then ``bn``, then ``+ z`` where given, then ReLU where
-    ``relu``: one fused call where the pair folds (``folds``), else the two
-    modules, the add and the ReLU in turn."""
-    if folds(conv, bn, x):
-        return conv.folded(bn, x, relu, z)
-    out = bn(conv(x))
+def trains_fused(bn: nn.BatchNorm2d, x, z=None) -> bool:
+    """Whether ``bn`` on the map ``x`` (then ``+ z``, then any ReLU) runs as
+    the train-mode kernels of ``ops/bn_train.py``: the port's
+    ``BatchNorm2d`` normalising with the batch's statistics (training mode,
+    running statistics tracked, affine terms); ``x`` on a card
+    (``bn_train.DEVICES``) in what the kernels take (``bn_train.supports``:
+    channels_last bf16 maps, float32 vectors); no forward hook or pre-hook
+    on ``bn`` (a hook sees the module's own input and output); and batch
+    statistics of this rank alone (not ``synced``). Otherwise the module,
+    the add and the ReLU run in turn."""
+    if not (isinstance(bn, BatchNorm2d) and bn.training and bn.track_running_stats
+            and bn.affine):
+        return False
+    if x.device.type not in bn_train.DEVICES or bn._forward_hooks or bn._forward_pre_hooks:
+        return False
+    return not bn.synced() and bn_train.supports(x, z, bn.weight, bn.bias, bn.running_mean,
+                                                 bn.running_var)
+
+
+def bn_add_relu(bn: nn.BatchNorm2d, x, relu: bool = True, z=None):
+    """``bn`` of ``x``, then ``+ z`` where given, then ReLU where ``relu``:
+    the fused train-mode kernels where ``trains_fused``, else the module,
+    the add and the ReLU in turn."""
+    if trains_fused(bn, x, z):
+        return bn.fused(x, z, relu)
+    out = bn(x)
     if z is not None:
         out = out + z
     return F.relu(out, inplace=True) if relu else out
+
+
+def conv_bn(conv: Conv2d, bn: nn.BatchNorm2d, x, relu: bool = True, z=None):
+    """``conv`` then ``bn``, then ``+ z`` where given, then ReLU where
+    ``relu``: one fused call where the pair folds (``folds``), else the conv
+    and ``bn_add_relu``."""
+    if folds(conv, bn, x):
+        return conv.folded(bn, x, relu, z)
+    return bn_add_relu(bn, conv(x), relu, z)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -165,9 +198,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if trains_fused(self, x):
+            return self.fused(x)
         self._check_input_dim(x)
-        self.num_batches_tracked.add_(1)
-        f = self.momentum if self.momentum is not None else 1 / float(self.num_batches_tracked)
+        f = self._count_batch()
         # the native update sets var <- (1 - f) var + f * batch_var * n / (n - 1);
         # from var * n / (n - 1), and times (n - 1) / n after it, that is
         # (1 - f) var + f * batch_var. The scaled copy, not the buffer, is
@@ -179,6 +213,26 @@ class BatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():
             torch.mul(scaled, (n - 1) / n, out=self.running_var)
         return out
+
+    def _count_batch(self) -> float:
+        """Count the batch in ``num_batches_tracked``; the running
+        statistics' momentum for it."""
+        self.num_batches_tracked.add_(1)
+        return self.momentum if self.momentum is not None else 1 / float(self.num_batches_tracked)
+
+    def fused(self, x, z=None, relu: bool = False):
+        """This training-mode BN of ``x``, then ``+ z``, then ReLU where
+        ``relu``, as ``ops/bn_train.py``'s kernels (``trains_fused`` says
+        where), counted in ``bn.train_fused``."""
+        f = self._count_batch()
+        trace.count("bn.train_fused")
+        return bn_train.bn_train(x, self.weight, self.bias, self.running_mean, self.running_var,
+                                 f, self.eps, z, relu)
+
+    def synced(self) -> bool:
+        """Whether its batch statistics span other ranks' rows
+        (``parallel/sync_bn.py``): never for this class."""
+        return False
 
 
 class Bottleneck(nn.Module):
@@ -208,7 +262,7 @@ class Bottleneck(nn.Module):
             fold_ds = ds is not None and folds(*ds, x)
             # an unfolded downsample runs first, as it always has: hooks on
             # the BNs see them in that order
-            residual = ds(x) if ds is not None and not fold_ds else x
+            residual = conv_bn(*ds, x, relu=False) if ds is not None and not fold_ds else x
             out = conv_bn(self.conv1, self.bn1, x)
             out = conv_bn(self.conv2, self.bn2, out)
             if not fold_ds:

@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = (CSRC / "xcorr.cu",)
+SOURCES = (CSRC / "xcorr.cu", CSRC / "bn_train.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -116,6 +116,16 @@ def bind(path: Path) -> ctypes.CDLL:
     for fn in (lib.siammask_depthwise_xcorr, lib.siammask_depthwise_xcorr_grad_input,
                lib.siammask_depthwise_xcorr_grad_kernel):
         fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
+        fn.restype = i
+    f = ctypes.c_float
+    # csrc/bn_train.cu: pointers, then ints and floats, then (device, stream)
+    lib.siammask_bn_train_stats.argtypes = [p, i, i, i, p, p, p, p, p, p, f, f, i, p]
+    lib.siammask_bn_train_apply.argtypes = [p, p, p, i, i, i, p, p, p, p, i, i, p]
+    lib.siammask_bn_train_backward_reduce.argtypes = [p, p, p, p, i, i, i, p, p, p, p, i, p, p,
+                                                      p, i, p]
+    lib.siammask_bn_train_backward_elemt.argtypes = [p, p, p, i, i, i, p, p, p, p, p, i, i, p]
+    for fn in (lib.siammask_bn_train_stats, lib.siammask_bn_train_apply,
+               lib.siammask_bn_train_backward_reduce, lib.siammask_bn_train_backward_elemt):
         fn.restype = i
     lib.siammask_cuda_error_string.argtypes = [i]
     lib.siammask_cuda_error_string.restype = ctypes.c_char_p

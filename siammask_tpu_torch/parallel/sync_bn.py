@@ -16,7 +16,8 @@ normalized in float32 and returned in bf16 (bf16's 8 significant bits
 would leave ``E[x^2] - E[x]^2`` nothing of the variance of a channel whose
 mean is large against its spread). float32 and float64 maps compute in
 their own dtype. In eval mode, or with no group or a group of one, it is
-the port's ``BatchNorm2d``, which does the same through ``F.batch_norm``.
+the port's ``BatchNorm2d``, which does the same through ``F.batch_norm`` or,
+on a card's channels_last bf16 maps, its fused train-mode kernels.
 Parameters, buffers and state-dict keys are ``nn.BatchNorm2d``'s.
 """
 from __future__ import annotations
@@ -31,8 +32,14 @@ from siammask_tpu_torch.parallel.dist import AllReduceSum
 
 class SyncBatchNorm2d(BatchNorm2d):
 
+    def synced(self) -> bool:
+        """Training mode in a group of more than one rank: the batch
+        statistics are the group's (``BatchNorm2d``'s fused train-mode
+        kernels do not take it)."""
+        return self.training and dist.is_initialized() and dist.get_world_size() > 1
+
     def forward(self, x):
-        if not (self.training and dist.is_initialized() and dist.get_world_size() > 1):
+        if not self.synced():
             return super().forward(x)
         c = x.shape[1]
         xf = x.to(torch.promote_types(x.dtype, torch.float32))

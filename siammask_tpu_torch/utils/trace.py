@@ -44,8 +44,10 @@ and ``conv.contiguous`` (the model's conv calls by the memory layout of
 their input, ``models/resnet.py`` ``Conv2d``; a captured graph counts its
 convs at capture); ``conv.bn_folded`` (the conv -> BN pairs that ran as one
 call of the folded conv, ``models/resnet.py`` ``conv_bn``; the same at
-capture); ``train.graph_captures``, ``train.graph_replays`` and
-``train.eager_steps`` (``train/trainer.py`` ``Trainer.step``'s two paths,
+capture); ``bn.train_fused`` (the train-mode BNs, each with its add and
+ReLU, that ran as ``ops/bn_train.py``'s kernels, ``models/resnet.py``
+``trains_fused``; the same at capture); ``train.graph_captures``,
+``train.graph_replays`` and ``train.eager_steps`` (``train/trainer.py`` ``Trainer.step``'s two paths,
 under its spans ``train.capture`` and ``train.replay``; a training graph's
 warm-up is ``uncounted``, so its capture counts the step's convs and xcorr
 launches once); ``sam2.memory_keys`` (the keys SAM 2's memory attention
@@ -199,20 +201,25 @@ class paused:
 @contextlib.contextmanager
 def uncounted():
     """While open, counts are taken back when it closes: the cumulative
-    counters and the xcorr wrappers' launch counts stand as they were (a
-    CUDA graph's warm-up, whose work the capture counts once)."""
-    fns = _xcorr_wrappers()
+    counters and the kernel wrappers' launch counts (the xcorr's and the
+    train-mode BN's, ``ops/bn_train.py``) stand as they were (a CUDA graph's
+    warm-up, whose work the capture counts once)."""
+    from siammask_tpu_torch.ops import bn_train
+
+    fns = (*_xcorr_wrappers(), *bn_train.WRAPPERS)
     with _counters_lock:
         saved = _counters.copy()
-    launches = [(fn.launches, fn.packed_launches) for fn in fns]
+    launches = [{k: getattr(fn, k) for k in ("launches", "packed_launches") if hasattr(fn, k)}
+                for fn in fns]
     try:
         yield
     finally:
         with _counters_lock:
             _counters.clear()
             _counters.update(saved)
-        for fn, (n, packed) in zip(fns, launches):
-            fn.launches, fn.packed_launches = n, packed
+        for fn, counts in zip(fns, launches):
+            for k, n in counts.items():
+                setattr(fn, k, n)
 
 
 def count(name: str, n: int = 1) -> None:

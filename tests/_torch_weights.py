@@ -6,8 +6,10 @@ trained model's (``calibrate_bn``, ``bn_calibration``), the cls head given a
 peak that bf16 rounding does not tie (``sharpen_cls_head``), the box head
 damped so that a slow target is held (``damp_box_head``), and the card
 against the CPU at the tolerances that cuDNN's summation order and bf16
-rounding allow (``check_step_close``), and a trainer's eager step on the
-card (``eager_step``). Imports the port only, never JAX.
+rounding allow (``check_step_close``), a trainer's eager step on the
+card (``eager_step``), and the train-mode BN kernels against their plain
+version (``bf16_steps_over``, ``relu_ties``). Imports the port only, never
+JAX.
 Imported as a top-level module (``from _torch_weights import ...``), as
 ``_torch_dp`` is: under pytest ``tests/`` is on the path, and
 ``chip_smoke.py`` puts it there. ``from tests._torch_weights`` is not used
@@ -207,3 +209,42 @@ def eager_step(trainer: Trainer, batch: dict, epoch: int) -> dict:
     lr = float(trainer.lr_spaces[min(epoch, len(trainer.lr_spaces) - 1)])
     return train_step(trainer.model, trainer.optimizer, batch, lr, trainer.settings,
                       trainer.opt_cfg)
+
+
+def bf16_steps_over(out: torch.Tensor, ref: torch.Tensor, skip=None) -> int:
+    """How many elements of the bf16 ``out`` lie more than one bf16 step
+    (2^-7 of the binade of the larger of the two) plus 2^-14 of ref's
+    largest entry from ``ref``, outside ``skip``. Two float32 computations
+    of one value that differ only in float32 rounding (statistics summed in
+    another order), each rounded once, land within one step of each other;
+    where sums cancel near zero their float32 values differ by ~1e-6 of the
+    terms' size."""
+    a, b = out.float(), ref.float()
+    step = torch.exp2(torch.floor(torch.log2(torch.maximum(a.abs(), b.abs()))) - 7)
+    over = (a - b).abs() > step + 2.0 ** -14 * b.abs().max()
+    if skip is not None:
+        over &= ~skip
+    return int(over.sum())
+
+
+def relu_ties(x: torch.Tensor, z, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """The elements of a train-mode BN of ``x`` (then ``+ z``) whose value
+    before the ReLU lies within 2^-18 (64 float32 roundings) of the size of
+    its terms of 0: float32 arithmetic in another order can put them on
+    either side, and the ReLU's gradient with them, a gap of a whole
+    gradient in dx and dz (seen at about one element in 10^7). Continuous
+    data puts a few in 10^6 of the elements there; more than 10^-4 of them
+    raises."""
+    xf = x.float()
+    var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0, keepdim=True)
+    a = weight[:, None, None] * torch.rsqrt(var + eps)
+    pre = (xf - mean) * a + bias[:, None, None]
+    size = (xf.abs() + mean.abs()) * a.abs() + bias.abs()[:, None, None]
+    if z is not None:
+        pre, size = pre + z.float(), size + z.float().abs()
+    ties = pre.abs() <= 2.0 ** -18 * size
+    if int(ties.sum()) > 1e-4 * ties.numel():
+        raise AssertionError(f"{int(ties.sum())} of {ties.numel()} values lie at the ReLU's "
+                             "edge: the data are not continuous")
+    return ties
